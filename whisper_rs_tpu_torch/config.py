@@ -1,0 +1,90 @@
+"""Model configuration registry (counterpart of ``whisper_rs_tpu/config.py``).
+
+The port keeps its own copy so that it imports nothing of the JAX package.
+Only what the greedy window decode needs is here: ``ModelDims``, the
+registry of released Whisper sizes and ``GreedyMode``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDims:
+    """Architecture hyperparameters of one Whisper model."""
+
+    n_mels: int
+    n_vocab: int
+    n_audio_ctx: int
+    n_audio_state: int
+    n_audio_head: int
+    n_audio_layer: int
+    n_text_ctx: int
+    n_text_state: int
+    n_text_head: int
+    n_text_layer: int
+
+    @property
+    def head_dim(self) -> int:
+        assert self.n_audio_state % self.n_audio_head == 0
+        return self.n_audio_state // self.n_audio_head
+
+    @property
+    def sample_len_default(self) -> int:
+        return self.n_text_ctx // 2
+
+
+def _dims(n_mels, n_vocab, state, head, layer, text_layer=None) -> ModelDims:
+    return ModelDims(
+        n_mels=n_mels,
+        n_vocab=n_vocab,
+        n_audio_ctx=1500,
+        n_audio_state=state,
+        n_audio_head=head,
+        n_audio_layer=layer,
+        n_text_ctx=448,
+        n_text_state=state,
+        n_text_head=head,
+        n_text_layer=layer if text_layer is None else text_layer,
+    )
+
+
+# English-only checkpoints use a 51864-token vocab, multilingual 51865,
+# large-v3 51866.  large-v3 also moves to 128 mel bins.
+MODEL_REGISTRY = {
+    "tiny.en": _dims(80, 51864, 384, 6, 4),
+    "tiny": _dims(80, 51865, 384, 6, 4),
+    "base.en": _dims(80, 51864, 512, 8, 6),
+    "base": _dims(80, 51865, 512, 8, 6),
+    "small.en": _dims(80, 51864, 768, 12, 12),
+    "small": _dims(80, 51865, 768, 12, 12),
+    "medium.en": _dims(80, 51864, 1024, 16, 24),
+    "medium": _dims(80, 51865, 1024, 16, 24),
+    "large-v1": _dims(80, 51865, 1280, 20, 32),
+    "large-v2": _dims(80, 51865, 1280, 20, 32),
+    "large-v3": _dims(128, 51866, 1280, 20, 32),
+    "large-v3-turbo": _dims(128, 51866, 1280, 20, 32, text_layer=4),
+    "distil-small.en": _dims(80, 51864, 768, 12, 12, text_layer=4),
+    "distil-medium.en": _dims(80, 51864, 1024, 16, 24, text_layer=2),
+    "distil-large-v2": _dims(80, 51865, 1280, 20, 32, text_layer=2),
+    "distil-large-v3": _dims(128, 51866, 1280, 20, 32, text_layer=2),
+}
+
+
+def dims_for(name: str) -> ModelDims:
+    try:
+        return MODEL_REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}"
+        ) from None
+
+
+@dataclasses.dataclass(frozen=True)
+class GreedyMode:
+    """Greedy token extraction; ``group_size`` rows per audio share one
+    cross-attention K/V."""
+
+    group_size: int = 1
+    temperature: float = 0.0

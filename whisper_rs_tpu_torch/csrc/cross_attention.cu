@@ -1,0 +1,203 @@
+// One decode step's cross-attention for layer l: G query rows per audio
+// share one encoder K/V; out = softmax(q K^T) V, no mask, f32 softmax.
+//
+// Replaces: whisper_rs_tpu/ops/decode_attention.py::cross_attention_step
+// (kernel body _cross_attn_kernel), non-quantised branch.  It reads the
+// same fused layout kv [L, A, H, 2, dh, Tk] (K^T and V^T planes), and the
+// layer index is a pointer offset, so the cross K/V is never sliced or
+// copied per layer.
+//
+// Bound on the H100: bytes.  Each step reads the layer's whole K/V,
+// A * H * 2 * dh * Tk elements (393 MB at base.en b128 bf16, about 117 us
+// at the H100 SXM data-sheet 3.35 TB/s, 700 W power limit), for only 4 * G
+// FLOP per element read.
+//
+// Design: one block per (head, audio), 1024 blocks at base.en b128.
+// Threads run along Tk, so every read of a [dh, Tk] plane row is coalesced
+// and vectorised (4 elements a thread: 8 bytes in bf16, 16 in f32).  The
+// G rows' scores (Tk x G f32) stay in shared memory; block reductions give
+// the max and the sum; the weights are normalised and, as on the TPU,
+// rounded to the K/V dtype; then each warp takes a share of the dh rows of
+// V^T and reduces P V^T across its lanes.  Simple first: no cp.async
+// prefetch of V^T under the softmax yet.
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int DH = 64;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+
+template <typename T, int GM>
+__global__ void __launch_bounds__(THREADS)
+cross_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv, T* __restrict__ out,
+                  int A, int G, int H, int Tk, int layer) {
+    extern __shared__ __align__(16) float sc[];  // [G][Tk] scores, then weights
+    __shared__ float qs[GM][DH];
+    __shared__ float red[GM][WARPS];
+    __shared__ float stat[GM];
+
+    const int h = blockIdx.x, a = blockIdx.y;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const T* kt = kv + ((((size_t)layer * A + a) * H + h) * 2) * DH * Tk;  // K^T [dh, Tk]
+    const T* vt = kt + (size_t)DH * Tk;                                      // V^T [dh, Tk]
+
+    for (int i = threadIdx.x; i < G * DH; i += THREADS) {
+        const int g = i / DH, d = i % DH;
+        qs[g][d] = to_float(q[(((size_t)a * G + g) * H + h) * DH + d]);
+    }
+    __syncthreads();
+
+    // Scores: thread takes 4 consecutive keys at a time.
+    const int T4 = Tk / 4;
+    float lmax[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) lmax[g] = -INFINITY;
+    for (int j4 = threadIdx.x; j4 < T4; j4 += THREADS) {
+        float acc[GM][4];
+#pragma unroll
+        for (int g = 0; g < GM; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < DH; ++d) {
+            const float4 k4 = load4(kt + (size_t)d * Tk + 4 * j4);
+#pragma unroll
+            for (int g = 0; g < GM; ++g) {
+                if (g < G) {
+                    const float qv = qs[g][d];
+                    acc[g][0] = fmaf(qv, k4.x, acc[g][0]);
+                    acc[g][1] = fmaf(qv, k4.y, acc[g][1]);
+                    acc[g][2] = fmaf(qv, k4.z, acc[g][2]);
+                    acc[g][3] = fmaf(qv, k4.w, acc[g][3]);
+                }
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+            if (g < G) {
+                *reinterpret_cast<float4*>(&sc[(size_t)g * Tk + 4 * j4]) =
+                    make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+                lmax[g] = fmaxf(lmax[g], fmaxf(fmaxf(acc[g][0], acc[g][1]),
+                                               fmaxf(acc[g][2], acc[g][3])));
+            }
+        }
+    }
+
+    // Block max per row.
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+        const float wm = warp_max(lmax[g]);
+        if (lane == 0) red[g][warp] = wm;
+    }
+    __syncthreads();
+    if (threadIdx.x < GM) {
+        float mx = -INFINITY;
+        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, red[threadIdx.x][w]);
+        stat[threadIdx.x] = mx;
+    }
+    __syncthreads();
+
+    // exp and block sum per row.
+    float lsum[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+        lsum[g] = 0.f;
+        if (g < G) {
+            const float mx = stat[g];
+            for (int j = threadIdx.x; j < Tk; j += THREADS) {
+                const float e = expf(sc[(size_t)g * Tk + j] - mx);
+                sc[(size_t)g * Tk + j] = e;
+                lsum[g] += e;
+            }
+        }
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+        const float ws = warp_sum(lsum[g]);
+        if (lane == 0) red[g][warp] = ws;
+    }
+    __syncthreads();
+    if (threadIdx.x < GM) {
+        float s = 0.f;
+        for (int w = 0; w < WARPS; ++w) s += red[threadIdx.x][w];
+        stat[threadIdx.x] = 1.f / s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+            const float inv = stat[g];
+            for (int j = threadIdx.x; j < Tk; j += THREADS)
+                sc[(size_t)g * Tk + j] = round_to<T>(sc[(size_t)g * Tk + j] * inv);
+        }
+    }
+    __syncthreads();
+
+    // out[g, d] = sum_j w[g, j] V^T[d, j]; warp per row d of V^T.
+    for (int d = warp; d < DH; d += WARPS) {
+        float acc[GM];
+#pragma unroll
+        for (int g = 0; g < GM; ++g) acc[g] = 0.f;
+        for (int j4 = lane; j4 < T4; j4 += 32) {
+            const float4 v4 = load4(vt + (size_t)d * Tk + 4 * j4);
+#pragma unroll
+            for (int g = 0; g < GM; ++g) {
+                if (g < G) {
+                    const float4 w = *reinterpret_cast<const float4*>(&sc[(size_t)g * Tk + 4 * j4]);
+                    acc[g] = fmaf(w.x, v4.x, acc[g]);
+                    acc[g] = fmaf(w.y, v4.y, acc[g]);
+                    acc[g] = fmaf(w.z, v4.z, acc[g]);
+                    acc[g] = fmaf(w.w, v4.w, acc[g]);
+                }
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+            const float s = warp_sum(acc[g]);
+            if (lane == 0 && g < G)
+                out[(((size_t)a * G + g) * H + h) * DH + d] = from_float<T>(s);
+        }
+    }
+}
+
+template <typename T, int GM>
+int launch(const void* q, const void* kv, void* out, int A, int G, int H, int Tk,
+           int layer, cudaStream_t stream) {
+    const size_t smem = (size_t)G * Tk * sizeof(float);
+    auto kernel = cross_attn_kernel<T, GM>;
+    if (smem > 32 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<dim3(H, A), THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
+        A, G, H, Tk, layer);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* kv, void* out, int A, int G, int H, int Tk,
+             int layer, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (G == 1) return launch<T, 1>(q, kv, out, A, G, H, Tk, layer, s);
+    if (G <= 2) return launch<T, 2>(q, kv, out, A, G, H, Tk, layer, s);
+    if (G <= 4) return launch<T, 4>(q, kv, out, A, G, H, Tk, layer, s);
+    if (G <= 8) return launch<T, 8>(q, kv, out, A, G, H, Tk, layer, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q: [A, G, H, 64] pre-scaled; kv: [L, A, H, 2, 64, Tk] with Tk % 4 == 0;
+// out: [A, G, H, 64]; all contiguous, 16-byte aligned; 1 <= G <= 8.
+extern "C" int cross_attention_bf16(const void* q, const void* kv, void* out, int A, int G,
+                                    int H, int Tk, int layer, void* stream) {
+    return dispatch<bf16>(q, kv, out, A, G, H, Tk, layer, stream);
+}
+
+extern "C" int cross_attention_f32(const void* q, const void* kv, void* out, int A, int G,
+                                   int H, int Tk, int layer, void* stream) {
+    return dispatch<float>(q, kv, out, A, G, H, Tk, layer, stream);
+}
