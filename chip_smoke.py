@@ -2,37 +2,49 @@
 
     python3 chip_smoke.py
 
+Two configurations of the main path: base.en at batch 128 and large-v3 at
+batch 12 (full width and depth: 128 mel bins, D 1280, 20 heads, 32 + 32
+layers, vocab 51866), seeded random weights, unprompted, 224-token budget.
 Phases, in order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
               source, all at once); the seconds are printed;
-  3. kernels  each kernel wrapper at the base.en batch-128 shapes of the main
-              path, in f32 and bf16 (mel: f32 only), against its plain
-              PyTorch version: max abs/rel error against the kernel's
+  3. kernels  each kernel wrapper at the shapes each configuration's main
+              path gives it, against its plain PyTorch version: at base.en
+              b128 in f32 and bf16 (mel: f32 only, 80 bins); at large-v3 b12
+              mel (f32, 128 bins) and the rest in bf16, the two step kernels
+              in f32 too.  Printed: max abs/rel error against the kernel's
               tolerance, kernel ms, plain ms, bound ms (the larger of bytes
               over 3.35 TB/s and operations over the peak rate of their type)
               and library ms (one PyTorch call for the same function, timed
-              only as a yardstick);
-  4. parity   base.en at full width, seeded weights, 4 seeded 30 s windows,
+              only as a yardstick).  Calls shorter than a millisecond are
+              timed as CUDA graphs of many calls, so the host's launch time
+              stays out of the device time;
+  4. parity   base.en at full width, and large-v3 at full width with the depth
+              cut to 4 + 4 layers, seeded weights, 4 seeded 30 s windows,
               log_mel_frontend -> decode_greedy (224 steps) in f32 through
               the kernels and through the plain versions: first-step
               filtered logits within 1e-3, tokens equal per row unless the
               plain path's top-2 margin at the first divergent step is below
               1e-3;
-  5. e2e      the main path, bf16, batch 128, 224-step budget, timed 3 times,
-              with every launch count set to 0 just before each run and read
-              just after: each kernel launched, the cross kernel 6 times a
-              step; audio-s/s of the median run;
-  6. profile  one more e2e run under torch.profiler: its idle share and
-              where its device time goes;
+  5. e2e      each configuration in bf16, timed 3 times, with every launch
+              count set to 0 just before each run and read just after: each
+              kernel launched as expected (cross attention n_text_layer times
+              a width-1 decoder pass, the append self-attention and the fused
+              MLP n_text_layer times an incremental step); audio-s/s of the
+              median run, and the mel+encoder / prefill+steps split;
+  6. profile  one more e2e run of each under torch.profiler: its idle share
+              and where its device time goes;
   7. the kernels line (JSON), the card line, and last the contract line.
 
-Exits nonzero, printing no result, where CUDA is absent.
+Every phase prints its seconds.  Exits nonzero, printing no result, where
+CUDA is absent.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,7 +65,10 @@ from whisper_rs_tpu_torch.ops.build import build_all
 from whisper_rs_tpu_torch.ops.decode_attention import (
     cross_attention_step,
     cross_attention_step_plain,
+    self_attention_append_step,
+    self_attention_append_step_plain,
 )
+from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step, decoder_mlp_step_plain
 from whisper_rs_tpu_torch.ops.encoder_attention import (
     encoder_attention_merged,
     encoder_attention_merged_plain,
@@ -68,23 +83,30 @@ from whisper_rs_tpu_torch.ops.mel import log_mel_frontend, raw_log10_mel, raw_lo
 
 MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, no TF32
-MODEL = "base.en"
-BATCH = 128
+CONFIGS = (("base.en", 128), ("large-v3", 12))  # (model, batch) of the main path
+PARITY_DEPTH = {"large-v3": 4}  # encoder and decoder layers kept in the parity phase
 SAMPLE_LEN = 224
 PARITY_WINDOWS = 4
 E2E_REPS = 3
+STEP_WINDOW = 256  # the append kernel is timed at W = 256, pos = W - 1
 # (atol, rtol) of |kernel - plain| <= atol + rtol |plain|.  In bf16 the rtol
 # covers one bf16 ulp of the output (2^-7 relative) where the two round an
 # f32 value on either side of a boundary.  The attention atol covers the
 # bf16 rounding of the softmax weights and stays well under the output's
 # typical size (~0.04) at the unit-scale inputs of kernel_checks, so a
-# dropped key tile or a wrong Q.K weighting fails.
+# dropped key tile or a wrong Q.K weighting fails.  The append attention
+# keeps its weights f32 (no rounding of its own) and takes the attention
+# tolerance; the MLP's error is the last bf16 rounding of its output, one
+# ulp (2^-8 relative) where the two sums land on either side of a boundary,
+# and a GELU value rounded on the other side now and then.
 TOL_F32 = (1e-4, 1e-4)
 TOL_BF16 = {
     "ln_fused": (1e-3, 1e-2),
     "residual_ln": (1e-3, 1e-2),
     "encoder_attention_merged": (2e-3, 1e-2),
     "cross_attention_step": (2e-3, 1e-2),
+    "self_attention_append_step": (2e-3, 1e-2),
+    "decoder_mlp_step": (1e-3, 1e-2),
 }
 
 
@@ -100,16 +122,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, reps: int) -> float:
+def timed_ms(fn, reps: int, graph: bool = False) -> float:
     """Mean ms per call on the card, CUDA events around ``reps`` calls after
-    one warm-up call."""
+    one warm-up call.  With ``graph`` the calls are captured once as a CUDA
+    graph and the events time one replay, so the host's time per call
+    (Python, argument checks, launch) is not counted."""
     fn()
     torch.cuda.synchronize()
+    run = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run, reps_run = g.replay, 1
+    else:
+        reps_run = reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(reps_run):
+        run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -144,20 +179,26 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps):
-    got, want = kernel(), plain()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
+def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph=True,
+                 checked=None):
+    """Compare the kernel with its plain version (or take ``checked``, the
+    (max abs error, tolerance share) of a comparison made by the caller),
+    then time the kernel, the plain version and the library call."""
     tol = tolerance(name, dtype)
-    err, share = compare(f"{name} {str(dtype).split('.')[-1]}", got, want, tol)
+    if checked is None:
+        got, want = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        checked = compare(f"{name} {str(dtype).split('.')[-1]}", got, want, tol)
+    err, share = checked
     row = {
         "max_abs_err": err,
         "atol": tol[0],
         "rtol": tol[1],
         "tol_share": share,
-        "ms": timed_ms(kernel, reps),
-        "plain_ms": timed_ms(plain, max(1, reps // 4)),
-        "library_ms": timed_ms(library, reps),
+        "ms": timed_ms(kernel, reps, graph),
+        "plain_ms": timed_ms(plain, max(1, reps // 4), graph),
+        "library_ms": timed_ms(library, reps, graph),
     }
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
     print(
@@ -169,17 +210,20 @@ def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps):
     return row
 
 
-def kernel_checks(dims) -> dict:
+def kernel_checks(dims, B: int, dtypes) -> dict:
+    """Every kernel at the shapes of ``dims`` at batch ``B``: the encoder
+    and cross kernels in ``dtypes``, mel in f32, the two step kernels in f32
+    and bf16.  Returns {kernel: {"f32" | "bf16": row}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, T, D, H = BATCH, dims.n_audio_ctx, dims.n_audio_state, dims.n_audio_head
+    T, D, H = dims.n_audio_ctx, dims.n_audio_state, dims.n_audio_head
     dh, L, n_mels = D // H, dims.n_text_layer, dims.n_mels
-    rows = {}
+    rows = {name: {} for name in KERNELS}
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    print("[kernels] log_mel (f32)", flush=True)
+    print(f"[kernels] log_mel ({n_mels} bins, f32)", flush=True)
     audio = randn(B, N_SAMPLES, scale=0.1)
     padded = reflect_pad(audio).contiguous()
     window = torch.from_numpy(hann_window()).to(dev)
@@ -190,19 +234,17 @@ def kernel_checks(dims) -> dict:
         return torch.log10(torch.clamp(fb @ spec[..., :-1].abs().square(), min=1e-10))
 
     n_frames = N_SAMPLES // HOP_LENGTH
-    rows["log_mel"] = {"f32": check_kernel(
+    rows["log_mel"]["f32"] = check_kernel(
         "log_mel", torch.float32,
         lambda: raw_log10_mel(padded, n_mels), lambda: raw_log10_mel_plain(padded, n_mels),
         stft_mel,
         nbytes=padded.numel() * 4 + B * n_mels * n_frames * 4 + (2 * N_FFT + n_mels) * 201 * 4,
         flops=B * n_frames * (2 * 2 * N_FFT * 201 + 2 * 201 * n_mels),
-        reps=10,
-    )}
+        reps=10, graph=False,
+    )
     del audio, padded
 
-    for name in ("ln_fused", "residual_ln", "encoder_attention_merged", "cross_attention_step"):
-        rows[name] = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         tag = "f32" if dtype == torch.float32 else "bf16"
         isz = torch.tensor([], dtype=dtype).element_size()
         print(f"[kernels] LayerNorm pair ({tag})", flush=True)
@@ -236,7 +278,7 @@ def kernel_checks(dims) -> dict:
             lambda: encoder_attention_merged(q, k, v, H, scale),
             lambda: encoder_attention_merged_plain(q, k, v, H, scale),
             sdpa, nbytes=4 * q.numel() * isz, flops=4 * B * T * T * D,
-            reps=3 if dtype == torch.float32 else 10,
+            reps=3 if dtype == torch.float32 else 10, graph=False,
         )
         del q, k, v
 
@@ -260,7 +302,98 @@ def kernel_checks(dims) -> dict:
         )
         del qx, kv
         torch.cuda.empty_cache()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] self_attention_append_step ({tag})", flush=True)
+        rows["self_attention_append_step"][tag] = check_append(dims, B, dtype, randn)
+        print(f"[kernels] decoder_mlp_step ({tag})", flush=True)
+        rows["decoder_mlp_step"][tag] = check_mlp(dims, B, dtype, randn)
+        torch.cuda.empty_cache()
     return rows
+
+
+def check_append(dims, B: int, dtype, randn) -> dict:
+    """The append self-attention at the step shapes: q, k_new, v_new
+    [B, H, 64] (q pre-scaled, unit-scale scores), caches [L, B, H, 448, 64]
+    of unit-scale values.  Checked at W = 256, pos = 255 and at W = 448
+    with non-zero key_start, both outputs against the plain version and
+    both caches: the kernel's slot pos equals k_new and v_new, and no other
+    slot changed.  Timed at W = 256, pos = 255."""
+    H, dh, L, n_ctx = dims.n_text_head, dims.head_dim, dims.n_text_layer, dims.n_text_ctx
+    isz = torch.tensor([], dtype=dtype).element_size()
+    layer = L - 1
+    q = randn(B, H, dh, dtype=dtype, scale=dh**-0.5)
+    k_new, v_new = randn(B, H, dh, dtype=dtype), randn(B, H, dh, dtype=dtype)
+    k_all, v_all = randn(L, B, H, n_ctx, dh, dtype=dtype), randn(L, B, H, n_ctx, dh, dtype=dtype)
+    ks_nonzero = torch.arange(B, device=q.device) * 37 % 299 + 1  # in 1..299
+    tol = tolerance("self_attention_append_step", dtype)
+    tag = str(dtype).split(".")[-1]
+    worst = (0.0, 0.0)
+    for W, pos, ks in ((STEP_WINDOW, STEP_WINDOW - 1, None), (n_ctx, 400, ks_nonzero)):
+        before = (k_all.clone(), v_all.clone())
+        plain_caches = (k_all.clone(), v_all.clone())
+        got = self_attention_append_step(q, k_new, v_new, k_all, v_all, layer, pos, ks, window=W)
+        want = self_attention_append_step_plain(
+            q, k_new, v_new, *plain_caches, layer, pos, ks, window=W
+        )
+        err = compare(f"self_attention_append_step {tag} W {W} pos {pos}"
+                      f"{' key_start 1..299' if ks is not None else ''}", (got,), (want,), tol)
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        for cache, new, old, plain in zip((k_all, v_all), (k_new, v_new), before, plain_caches):
+            if not torch.equal(cache[layer, :, :, pos], new):
+                raise AssertionError("self_attention_append_step: slot pos is not k_new/v_new")
+            cache_rest, old_rest = cache.clone(), old.clone()
+            cache_rest[layer, :, :, pos] = 0
+            old_rest[layer, :, :, pos] = 0
+            if not torch.equal(cache_rest, old_rest) or not torch.equal(cache, plain):
+                raise AssertionError("self_attention_append_step: a slot other than pos changed")
+        del before, plain_caches
+    print("  cache write: slot pos equals k_new and v_new exactly; no other slot changed",
+          flush=True)
+
+    W, pos = STEP_WINDOW, STEP_WINDOW - 1
+    ids = torch.arange(W, device=q.device)
+    mask = (ids <= pos)[None, None, None, :].expand(B, 1, 1, W)
+
+    def sdpa():  # the attention alone, over the window, without the write
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k_all[layer, :, :, :W], v_all[layer, :, :, :W], attn_mask=mask,
+            scale=1.0,
+        )
+
+    n = pos + 1  # visible slots of every row
+    return check_kernel(
+        "self_attention_append_step", dtype,
+        lambda: self_attention_append_step(q, k_new, v_new, k_all, v_all, layer, pos, window=W),
+        lambda: self_attention_append_step_plain(
+            q, k_new, v_new, k_all, v_all, layer, pos, window=W
+        ),
+        sdpa, nbytes=(2 * B * H * n * dh + 6 * B * H * dh) * isz, flops=4 * B * H * n * dh,
+        reps=50, checked=worst,
+    )
+
+
+def check_mlp(dims, B: int, dtype, randn) -> dict:
+    """The fused decode MLP at the step shapes: unit-scale h [B, D],
+    weights N(0, 1/n_in) as in init_random, b1 N(0, 0.1^2)."""
+    D = dims.n_text_state
+    isz = torch.tensor([], dtype=dtype).element_size()
+    h = randn(B, D, dtype=dtype)
+    w1 = randn(4 * D, D, dtype=dtype, scale=D**-0.5)
+    b1 = randn(4 * D, dtype=dtype, scale=0.1)
+    w2 = randn(D, 4 * D, dtype=dtype, scale=(4 * D) ** -0.5)
+    approximate = "none" if dtype == torch.float32 else "tanh"
+
+    def three_calls():  # F.linear -> F.gelu -> F.linear
+        return F.linear(F.gelu(F.linear(h, w1, b1), approximate=approximate), w2)
+
+    return check_kernel(
+        "decoder_mlp_step", dtype,
+        lambda: decoder_mlp_step(h, w1, b1, w2), lambda: decoder_mlp_step_plain(h, w1, b1, w2),
+        three_calls, nbytes=(8 * D * D + 4 * D + 2 * B * D) * isz, flops=16 * B * D * D,
+        reps=50,
+    )
 
 
 def filter_config(dims):
@@ -289,9 +422,8 @@ def plain_margin(model, mel, row: int, tokens, pos: int, cfg) -> float:
     return (top[0] - top[1]).item()
 
 
-def parity(dims) -> None:
-    print(f"[parity] {MODEL} full width, f32, {PARITY_WINDOWS} windows, {SAMPLE_LEN} steps",
-          flush=True)
+def parity(dims, label: str) -> None:
+    print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, {SAMPLE_LEN} steps", flush=True)
     model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
     cfg = filter_config(dims)
     rng = np.random.default_rng(2)
@@ -347,14 +479,16 @@ def parity(dims) -> None:
     torch.cuda.empty_cache()
 
 
-def e2e(dims) -> dict:
-    print(f"[e2e] {MODEL} bf16 batch {BATCH}, {SAMPLE_LEN}-step budget, {E2E_REPS} timed runs",
+def e2e(dims, name: str, batch: int) -> dict:
+    print(f"[e2e] {name} bf16 batch {batch}, {SAMPLE_LEN}-step budget, {E2E_REPS} timed runs",
           flush=True)
+    t0 = time.perf_counter()
     model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+    print(f"  init_random {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = filter_config(dims)
     rng = np.random.default_rng(0)
-    audio = rng.standard_normal((BATCH, 480_000)).astype(np.float32) * np.float32(0.1)
-    initial = np.full((BATCH, 1), SOT, np.int64)
+    audio = rng.standard_normal((batch, 480_000)).astype(np.float32) * np.float32(0.1)
+    initial = np.full((batch, 1), SOT, np.int64)
 
     def run(a):
         mel = log_mel_frontend(a, dims.n_mels, dtype=torch.bfloat16)
@@ -370,8 +504,8 @@ def e2e(dims) -> dict:
         res = run(audio)
         times.append(time.perf_counter() - t0)
         launches = dict(LAUNCHES)
-        # the one-token prefill is a decoder step of width 1, so it takes
-        # the cross kernel too
+        # the one-token prefill is a decoder pass of width 1, so it takes
+        # the cross kernel too, but not the two incremental-step kernels
         n_steps = res.steps + 1
         expect = {
             "log_mel": 1,
@@ -379,12 +513,14 @@ def e2e(dims) -> dict:
             "residual_ln": dims.n_audio_layer,
             "encoder_attention_merged": dims.n_audio_layer,
             "cross_attention_step": dims.n_text_layer * n_steps,
+            "self_attention_append_step": dims.n_text_layer * res.steps,
+            "decoder_mlp_step": dims.n_text_layer * res.steps,
         }
         if res.steps < 1 or launches != expect:
             raise AssertionError(f"e2e: launches {launches}, expected {expect}")
 
     cand = res.candidates[:, 0]
-    if cand.shape != (BATCH, dims.n_text_ctx) or not torch.isfinite(res.scores).all():
+    if cand.shape != (batch, dims.n_text_ctx) or not torch.isfinite(res.scores).all():
         raise AssertionError("e2e: malformed decode result")
     if not ((cand[:, 0] == SOT).all() and (cand[:, 1] >= cfg.token_id_ts_begin).all()):
         raise AssertionError("e2e: prompt or forced first timestamp missing")
@@ -392,10 +528,12 @@ def e2e(dims) -> dict:
         raise AssertionError("e2e: no-speech probabilities outside [0, 1]")
     elapsed = float(np.median(times))
     print(f"  steps {res.steps}; runs {', '.join(f'{t:.3f}' for t in times)} s; "
-          f"median {elapsed:.3f} s, {BATCH * 30.0 / elapsed:.2f} audio-s/s", flush=True)
+          f"median {elapsed:.3f} s, {batch * 30.0 / elapsed:.2f} audio-s/s", flush=True)
     print(f"  launches of each run: {launches}", flush=True)
-    print(f"  cross_attention_step: {launches['cross_attention_step'] / n_steps:g} a step "
-          f"over {n_steps} width-1 decoder passes", flush=True)
+    print(f"  cross_attention_step: {launches['cross_attention_step'] / n_steps:g} a pass "
+          f"over {n_steps} width-1 decoder passes; the append and MLP kernels "
+          f"{launches['decoder_mlp_step'] / res.steps:g} a step over {res.steps} steps",
+          flush=True)
 
     # split of the run: the frontend and encoder alone, the rest is the
     # prefill and the step loop
@@ -407,6 +545,8 @@ def e2e(dims) -> dict:
     print(f"  split: mel+encoder {t_enc:.3f} s; prefill+steps {elapsed - t_enc:.3f} s "
           f"({(elapsed - t_enc) / n_steps * 1e3:.2f} ms a decoder pass)", flush=True)
     profile_run(run, audio)
+    del model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -416,6 +556,9 @@ OWN_KERNELS = {
     "layer_norm_rows": "ln_fused/residual_ln",
     "attn_bf16_kernel": "encoder_attention_merged",
     "cross_attn_kernel": "cross_attention_step",
+    "self_append_kernel": "self_attention_append_step",
+    "mlp_fc1_gelu_kernel": "decoder_mlp_step (fc1 + GELU)",
+    "mlp_fc2_kernel": "decoder_mlp_step (fc2)",
 }
 
 
@@ -476,6 +619,10 @@ KERNELS = {
                                  "whisper_rs_tpu/ops/encoder_attention_pallas.py:139"),
     "cross_attention_step": ("cuda", "whisper_rs_tpu_torch/csrc/cross_attention.cu",
                              "whisper_rs_tpu/ops/decode_attention.py:748"),
+    "self_attention_append_step": ("cuda", "whisper_rs_tpu_torch/csrc/self_attention.cu",
+                                   "whisper_rs_tpu/ops/decode_attention.py:525"),
+    "decoder_mlp_step": ("cuda", "whisper_rs_tpu_torch/csrc/decoder_mlp.cu",
+                         "whisper_rs_tpu/ops/decoder_mlp_fused.py:121"),
 }
 
 
@@ -496,22 +643,52 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s wall, per source "
           f"{ {k: round(v, 1) for k, v in built.items()} }", flush=True)
 
-    dims = dims_for(MODEL)
-    rows = kernel_checks(dims)
-    parity(dims)
-    launches = e2e(dims)
+    def phase_done(phase: str, t0: float) -> None:
+        print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    rows, launches = {}, {}
+    for m, b in CONFIGS:
+        t0 = time.perf_counter()
+        dtypes = (torch.float32, torch.bfloat16) if m == "base.en" else (torch.bfloat16,)
+        rows[m] = kernel_checks(dims_for(m), b, dtypes)
+        phase_done(f"kernels {m} b{b}", t0)
+    for m, _ in CONFIGS:
+        t0 = time.perf_counter()
+        dims, label = dims_for(m), f"{m} full width"
+        if m in PARITY_DEPTH:
+            n = PARITY_DEPTH[m]
+            dims = dataclasses.replace(dims, n_audio_layer=n, n_text_layer=n)
+            label += f", depth cut to {n} + {n} layers (dataclasses.replace: {dims})"
+        parity(dims, label)
+        phase_done(f"parity {m}", t0)
+    for m, b in CONFIGS:
+        t0 = time.perf_counter()
+        launches[m] = e2e(dims_for(m), m, b)
+        phase_done(f"e2e {m} b{b}", t0)
+
+    main_model = CONFIGS[-1][0]  # large-v3 b12: the slice's flagship path
     line = []
     for name, (route, source, replaces) in KERNELS.items():
-        r = rows[name].get("bf16", rows[name].get("f32"))
+        by_config = {}
+        for m, b in CONFIGS:
+            r = rows[m][name].get("bf16", rows[m][name].get("f32"))
+            by_config[f"{m} b{b}"] = {
+                "dtype": "bf16" if "bf16" in rows[m][name] else "f32",
+                "launches": launches[m][name],
+                **{k: r[k] for k in ("max_abs_err", "atol", "rtol", "tol_share", "ms",
+                                     "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "f32": {k: v for k, v in rows[m][name].get("f32", {}).items()
+                        if k in ("max_abs_err", "tol_share", "ms", "plain_ms", "bound_ms",
+                                 "library_ms")},
+            }
+        main = by_config[f"{main_model} b{CONFIGS[-1][1]}"]
         line.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "atol": r["atol"], "rtol": r["rtol"], "tol_share": r["tol_share"],
-            "max_abs_err_f32": rows[name]["f32"]["max_abs_err"],
-            "dtype": "bf16" if "bf16" in rows[name] else "f32",
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "config": f"{main_model} b{CONFIGS[-1][1]}",
+            **{k: main[k] for k in ("launches", "max_abs_err", "atol", "rtol", "tol_share",
+                                    "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "by_config": by_config,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": line}))

@@ -73,10 +73,12 @@ def _step_logits(
     kernels: bool,
 ):
     """One incremental step: feed the token at pos-1, return the filtered
-    logits for position pos (the cache is updated in place)."""
+    logits for position pos.  The step takes the append self-attention and
+    fused MLP kernels, which write the cache in place; the prefill never
+    does, as in the JAX loop."""
     logits = model.decoder(
         tokens[:, pos - 1 : pos], pos - 1, cross_kv, cache, key_start=key_start,
-        cross_group=group, ctx_window=ctx_window, kernels=kernels,
+        cross_group=group, ctx_window=ctx_window, kernels=kernels, incremental=True,
     )
     return apply_filters(cfg, logits[:, 0], tokens, pos, sample_begin)
 

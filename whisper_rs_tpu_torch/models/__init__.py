@@ -1,6 +1,16 @@
 """Whisper model modules, caches and weight loading."""
 
-from .params import init_random, params_from_jax, params_from_state_dict
+from .checkpoint import load_params
+from .params import (
+    hf_dims_from_config,
+    hf_rename_state_dict,
+    init_random,
+    load_checkpoint,
+    load_hf_checkpoint,
+    load_openai_checkpoint,
+    params_from_jax,
+    params_from_state_dict,
+)
 from .whisper import (
     AudioEncoder,
     CrossKV,
@@ -20,7 +30,13 @@ __all__ = [
     "Whisper",
     "decoder_forward",
     "encoder_forward",
+    "hf_dims_from_config",
+    "hf_rename_state_dict",
     "init_random",
+    "load_checkpoint",
+    "load_hf_checkpoint",
+    "load_openai_checkpoint",
+    "load_params",
     "params_from_jax",
     "params_from_state_dict",
     "precompute_cross_kv",

@@ -14,10 +14,14 @@ OpenAI state dict loads as it is.  The numerics are the JAX reference's:
 
 The encoder's LayerNorms, residual adds and self-attention run through the
 kernel wrappers of ``ops/`` (the plain versions when ``kernels=False``);
-the decode step's cross-attention through ``ops/decode_attention.py``.
-Projections, the MLP, the logits, the decoder's self-attention and the
-prefill cross-attention stay ``torch.matmul``, as the JAX package left them
-to XLA.
+every width-1 decoder pass takes the cross-attention kernel of
+``ops/decode_attention.py``.  An incremental greedy step
+(``incremental=True``) also takes the append self-attention kernel, which
+writes the step's K/V column and masks by ``pos`` and ``key_start`` itself
+(no additive mask is built), and the fused MLP kernel of
+``ops/decoder_mlp_fused.py``.  Projections, the logits, the prefill's
+self-attention, cross-attention and MLP stay ``torch.matmul``, as the JAX
+package left them to XLA.
 
 The KV cache is updated in place.  Its planes are ctx-major
 ``[L, B, H, n_ctx, dh]``; the cross K/V keeps the JAX fused layout
@@ -35,7 +39,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelDims
-from ..ops.decode_attention import cross_attention_step, cross_attention_step_plain
+from ..ops.decode_attention import (
+    cross_attention_step,
+    cross_attention_step_plain,
+    self_attention_append_step,
+    self_attention_append_step_plain,
+)
+from ..ops.decoder_mlp_fused import decoder_mlp_step, decoder_mlp_step_plain, gelu
 from ..ops.encoder_attention import encoder_attention_merged, encoder_attention_merged_plain
 from ..ops.encoder_fused import ln_fused, ln_fused_plain, residual_ln, residual_ln_plain
 
@@ -52,13 +62,6 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-5) -> torch.Te
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * ln.weight.float() + ln.bias.float()).to(x.dtype)
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact erf GELU in f32/f64; the tanh approximation in half precision,
-    as the JAX reference does."""
-    exact = x.dtype in (torch.float32, torch.float64)
-    return F.gelu(x, approximate="none" if exact else "tanh")
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
@@ -194,20 +197,34 @@ class ResidualAttentionBlock(nn.Module):
 
     def decoder_forward(
         self, x, layer: int, pos_offset: int, mask, window: int, cross_kv: CrossKV,
-        cache: KVCache, cross_group: int, kernels: bool,
+        cache: KVCache, cross_group: int, kernels: bool, key_start=None,
     ) -> torch.Tensor:
-        B, T, _ = x.shape
+        """One decoder block.  ``mask`` None marks an incremental step: the
+        append kernel writes the K/V column and masks by ``pos_offset`` and
+        ``key_start``, and the MLP takes the fused kernel."""
+        B, T, D = x.shape
         H = self.attn.n_head
-        dh = x.shape[-1] // H
+        dh = D // H
         scale = dh**-0.5
 
         # self-attention over the cache (this step's K/V written first)
         h = layer_norm(x, self.attn_ln)
-        q = split_heads(self.attn.query(h), H) * scale
-        cache.k[layer, :, :, pos_offset : pos_offset + T] = split_heads(self.attn.key(h), H)
-        cache.v[layer, :, :, pos_offset : pos_offset + T] = split_heads(self.attn.value(h), H)
-        attn = attend(q, cache.k[layer, :, :, :window], cache.v[layer, :, :, :window], mask)
-        x = x + self.attn.out(merge_heads(attn))
+        if mask is None:
+            hs = h[:, 0]
+            fn = self_attention_append_step if kernels else self_attention_append_step_plain
+            attn = fn(
+                (self.attn.query(hs) * scale).view(B, H, dh),
+                self.attn.key(hs).view(B, H, dh), self.attn.value(hs).view(B, H, dh),
+                cache.k, cache.v, layer, pos_offset, key_start, window=window,
+            ).reshape(B, 1, D)
+        else:
+            q = split_heads(self.attn.query(h), H) * scale
+            cache.k[layer, :, :, pos_offset : pos_offset + T] = split_heads(self.attn.key(h), H)
+            cache.v[layer, :, :, pos_offset : pos_offset + T] = split_heads(self.attn.value(h), H)
+            attn = merge_heads(
+                attend(q, cache.k[layer, :, :, :window], cache.v[layer, :, :, :window], mask)
+            )
+        x = x + self.attn.out(attn)
 
         # cross-attention against the precomputed encoder K/V
         h = layer_norm(x, self.cross_attn_ln)
@@ -223,7 +240,12 @@ class ResidualAttentionBlock(nn.Module):
             attn = attend_grouped(qx, kv[:, :, 0], kv[:, :, 1], cross_group)
         x = x + self.cross_attn.out(merge_heads(attn))
 
-        return x + self._mlp(layer_norm(x, self.mlp_ln))
+        h = layer_norm(x, self.mlp_ln)
+        if mask is not None:
+            return x + self._mlp(h)
+        fn = decoder_mlp_step if kernels else decoder_mlp_step_plain
+        out = fn(h[:, 0], self.mlp[0].weight, self.mlp[0].bias, self.mlp[2].weight)
+        return x + (out + self.mlp[2].bias.to(out.dtype))[:, None, :]
 
 
 class AudioEncoder(nn.Module):
@@ -262,6 +284,23 @@ class TextDecoder(nn.Module):
         )
         self.ln = nn.LayerNorm(n_state)
 
+    @staticmethod
+    def _mask(q_pos: torch.Tensor, W: int, key_start) -> torch.Tensor:
+        """Additive f32 mask [1 or B, 1, T, W] of the prefill path."""
+        key_idx = torch.arange(W, device=q_pos.device)
+        visible = key_idx[None, :] <= q_pos[:, None]  # [T, W]
+        if key_start is not None:
+            visible = visible[None] & (
+                (key_idx[None, None, :] >= key_start[:, None, None])
+                | (key_idx[None, :] == q_pos[:, None])[None]
+            )
+            visible = visible[:, None]  # [B, 1, T, W]
+        else:
+            visible = visible[None, None]  # [1, 1, T, W]
+        return torch.zeros(visible.shape, dtype=torch.float32, device=q_pos.device).masked_fill(
+            ~visible, float("-inf")
+        )
+
     def forward(
         self,
         tokens: torch.Tensor,  # [B, T] (prefill width T, or 1 for a step)
@@ -274,6 +313,7 @@ class TextDecoder(nn.Module):
         cross_group: int = 1,
         ctx_window: Optional[int] = None,  # cap on attended cache slots
         kernels: bool = True,
+        incremental: bool = False,  # a greedy step: the append and MLP kernels
     ) -> torch.Tensor:
         """One decoder pass; returns f32 logits [B, T (or K), n_vocab] and
         updates ``cache`` in place.
@@ -282,34 +322,32 @@ class TextDecoder(nn.Module):
         ``key_start`` (end-aligned per-row prompts) slots below it are
         hidden, each row's positional index shifts so its first real token
         sits at 0, and a pad query keeps its own slot visible so its softmax
-        row is never empty (no NaN)."""
+        row is never empty (no NaN).  An ``incremental`` step (T = 1, after
+        the prefill, so ``pos_offset >= key_start``) builds no mask: the
+        append kernel masks by position itself."""
         B, T = tokens.shape
         dev = tokens.device
         n_ctx = self.positional_embedding.shape[0]
         W = n_ctx if ctx_window is None else min(ctx_window, n_ctx)
         q_pos = pos_offset + torch.arange(T, device=dev)
-        key_idx = torch.arange(W, device=dev)
-        visible = key_idx[None, :] <= q_pos[:, None]  # [T, W]
         if key_start is not None:
             pos_idx = (q_pos[None, :] - key_start[:, None]).clamp(min=0)  # [B, T]
             pos = self.positional_embedding[pos_idx]
-            visible = visible[None] & (
-                (key_idx[None, None, :] >= key_start[:, None, None])
-                | (key_idx[None, :] == q_pos[:, None])[None]
-            )
-            visible = visible[:, None]  # [B, 1, T, W]
         else:
             pos = self.positional_embedding[pos_offset : pos_offset + T]
-            visible = visible[None, None]  # [1, 1, T, W]
-        mask = torch.zeros(visible.shape, dtype=torch.float32, device=dev).masked_fill(
-            ~visible, float("-inf")
-        )
+        if incremental:
+            if T != 1:
+                raise ValueError(f"an incremental step takes one token per row, not {T}")
+            mask = None
+        else:
+            mask = self._mask(q_pos, W, key_start)
 
         dtype = self.positional_embedding.dtype
         x = self.token_embedding.weight[tokens].to(dtype) + pos.to(dtype)
         for layer, block in enumerate(self.blocks):
             x = block.decoder_forward(
-                x, layer, pos_offset, mask, W, cross_kv, cache, cross_group, kernels
+                x, layer, pos_offset, mask, W, cross_kv, cache, cross_group, kernels,
+                key_start,
             )
         if logit_positions is not None:
             x = x[:, logit_positions]

@@ -15,6 +15,8 @@ LAUNCHES = {
     "residual_ln": 0,
     "encoder_attention_merged": 0,
     "cross_attention_step": 0,
+    "self_attention_append_step": 0,
+    "decoder_mlp_step": 0,
 }
 
 

@@ -24,7 +24,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mel", "encoder_attention", "cross_attention")
+SOURCES = ("mel", "encoder_attention", "cross_attention", "self_attention", "decoder_mlp")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
