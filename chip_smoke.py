@@ -2,38 +2,56 @@
 
     python3 chip_smoke.py
 
-Two configurations of the main path: base.en at batch 128 and large-v3 at
-batch 12 (full width and depth: 128 mel bins, D 1280, 20 heads, 32 + 32
-layers, vocab 51866), seeded random weights, unprompted, 224-token budget.
-Phases, in order; any mismatch raises and the script exits nonzero:
+Three paths, seeded random weights: greedy decode of base.en at batch 128
+and of large-v3 at batch 12 (full width and depth: 128 mel bins, D 1280, 20
+heads, 32 + 32 layers, vocab 51866), unprompted, 224-token budget; and beam
+search (beam 5, patience 1.0) of medium.en at batch 8 (full width and
+depth: 80 mel bins, D 1024, 16 heads, 24 + 24 layers, vocab 51864; 40
+decoder rows), prompted as bench.py's BENCH_PROMPTED builds its prompts
+(232-wide prefill, window phases 256 and 448, the 224-token budget capped
+by the context at 216 steps).  Phases, in order; any mismatch raises and
+the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
               source, all at once); the seconds are printed;
-  3. kernels  each kernel wrapper at the shapes each configuration's main
-              path gives it, against its plain PyTorch version: at base.en
-              b128 in f32 and bf16 (mel: f32 only, 80 bins); at large-v3 b12
-              mel (f32, 128 bins) and the rest in bf16, the two step kernels
-              in f32 too.  Printed: max abs/rel error against the kernel's
-              tolerance, kernel ms, plain ms, bound ms (the larger of bytes
-              over 3.35 TB/s and operations over the peak rate of their type)
+  3. kernels  each kernel wrapper at the shapes each path gives it, against
+              its plain PyTorch version: at base.en b128 in f32 and bf16
+              (mel: f32 only, 80 bins); at large-v3 b12 and medium.en b8
+              mel (f32) and the encoder kernels in bf16; the cross kernel
+              (G = 5 rows an audio on the beam path) and the step kernels
+              in f32 and bf16 everywhere: the append self-attention on the
+              greedy paths, the beam self-attention on the beam path.
+              Printed: max abs/rel error against the kernel's tolerance,
+              kernel ms, plain ms, bound ms (the larger of bytes over
+              3.35 TB/s and operations over the peak rate of their type)
               and library ms (one PyTorch call for the same function, timed
               only as a yardstick).  Calls shorter than a millisecond are
               timed as CUDA graphs of many calls, so the host's launch time
-              stays out of the device time;
-  4. parity   base.en at full width, and large-v3 at full width with the depth
-              cut to 4 + 4 layers, seeded weights, 4 seeded 30 s windows,
-              log_mel_frontend -> decode_greedy (224 steps) in f32 through
-              the kernels and through the plain versions: first-step
-              filtered logits within 1e-3, tokens equal per row unless the
-              plain path's top-2 margin at the first divergent step is below
-              1e-3;
-  5. e2e      each configuration in bf16, timed 3 times, with every launch
-              count set to 0 just before each run and read just after: each
-              kernel launched as expected (cross attention n_text_layer times
-              a width-1 decoder pass, the append self-attention and the fused
-              MLP n_text_layer times an incremental step); audio-s/s of the
-              median run, and the mel+encoder / prefill+steps split;
+              stays out of the device time.  The beam path also times its
+              per-step candidate ranking (a stable sort over the vocab);
+  4. parity   f32, 4 seeded 30 s windows, through the kernels and through
+              the plain versions: base.en at full width, and large-v3 at
+              full width with the depth cut to 4 + 4 layers, log_mel_frontend
+              -> decode_greedy (224 steps): first-step filtered logits within
+              1e-3, tokens equal per row unless the plain path's top-2 margin
+              at the first divergent step is below 1e-3; medium.en cut to
+              4 + 4 layers, prompted, log_mel_frontend -> decode_beam (beam
+              5): the filtered logits of the steps at positions 233, 255,
+              256 and 400, plain against kernel on the kernel path's state,
+              within 1e-3; candidates equal, scores within 1e-4 +
+              2e-6|plain| and no-speech probabilities within 1e-5, unless
+              the plain path's selection margin (the beam-th unfinished
+              candidate's score less the next one's) of that audio fell
+              below 1e-3 at some step;
+  5. e2e      each path in bf16, timed 3 times, with every launch count set
+              to 0 just before each run and read just after: each kernel
+              launched as expected (cross attention n_text_layer times a
+              width-1 decoder pass, the step self-attention and the fused
+              MLP n_text_layer times an incremental step, the beam kernel
+              and never the append kernel on the beam path); audio-s/s of
+              the median run, and the mel+encoder / prefill / steps split;
+              the beam path prints each audio's selected candidate;
   6. profile  one more e2e run of each under torch.profiler: its idle share
               and where its device time goes;
   7. the kernels line (JSON), the card line, and last the contract line.
@@ -56,13 +74,24 @@ import torch.nn.functional as F
 
 from whisper_rs_tpu_torch.audio.constants import HOP_LENGTH, N_FFT, N_SAMPLES
 from whisper_rs_tpu_torch.audio.mel import hann_window, mel_filterbank, reflect_pad
-from whisper_rs_tpu_torch.config import GreedyMode, dims_for
-from whisper_rs_tpu_torch.decode import FilterConfig, apply_filters, decode_greedy
+from whisper_rs_tpu_torch.config import BeamSearchMode, GreedyMode, dims_for
+from whisper_rs_tpu_torch.decode import (
+    FilterConfig,
+    apply_filters,
+    build_batch_prompts,
+    decode_beam,
+    decode_greedy,
+    rank_max_likelihood,
+)
+from whisper_rs_tpu_torch.decode import loop as decode_loop
+from whisper_rs_tpu_torch.decode.filters import log_softmax
 from whisper_rs_tpu_torch.decode.loop import _encode_and_prefill
 from whisper_rs_tpu_torch.models import KVCache, init_random, precompute_cross_kv
 from whisper_rs_tpu_torch.ops import LAUNCHES, reset_launches
 from whisper_rs_tpu_torch.ops.build import build_all
 from whisper_rs_tpu_torch.ops.decode_attention import (
+    beam_self_attention_step,
+    beam_self_attention_step_plain,
     cross_attention_step,
     cross_attention_step_plain,
     self_attention_append_step,
@@ -83,10 +112,15 @@ from whisper_rs_tpu_torch.ops.mel import log_mel_frontend, raw_log10_mel, raw_lo
 
 MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, no TF32
-CONFIGS = (("base.en", 128), ("large-v3", 12))  # (model, batch) of the main path
-PARITY_DEPTH = {"large-v3": 4}  # encoder and decoder layers kept in the parity phase
+# (model, audios a batch, beam size; 0 for greedy) of each path
+PATHS = (("base.en", 128, 0), ("large-v3", 12, 0), ("medium.en", 8, 5))
+PARITY_DEPTH = {"large-v3": 4, "medium.en": 4}  # layers kept in the parity phase
 SAMPLE_LEN = 224
 PARITY_WINDOWS = 4
+# beam parity: positions whose incremental step runs both ways on the kernel
+# path's state (the first step, both ends of the 256 phase, one at 448)
+BEAM_CHECK_POS = (233, 255, 256, 400)
+SCORE_RTOL = 2e-6  # beam parity scores: |d| <= 1e-4 + SCORE_RTOL |plain|
 E2E_REPS = 3
 STEP_WINDOW = 256  # the append kernel is timed at W = 256, pos = W - 1
 # (atol, rtol) of |kernel - plain| <= atol + rtol |plain|.  In bf16 the rtol
@@ -106,6 +140,7 @@ TOL_BF16 = {
     "encoder_attention_merged": (2e-3, 1e-2),
     "cross_attention_step": (2e-3, 1e-2),
     "self_attention_append_step": (2e-3, 1e-2),
+    "beam_self_attention_step": (2e-3, 1e-2),
     "decoder_mlp_step": (1e-3, 1e-2),
 }
 
@@ -210,10 +245,12 @@ def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph
     return row
 
 
-def kernel_checks(dims, B: int, dtypes) -> dict:
-    """Every kernel at the shapes of ``dims`` at batch ``B``: the encoder
-    and cross kernels in ``dtypes``, mel in f32, the two step kernels in f32
-    and bf16.  Returns {kernel: {"f32" | "bf16": row}}."""
+def kernel_checks(dims, B: int, dtypes, group: int = 1) -> dict:
+    """Every kernel of one path at its shapes: ``B`` windows through mel
+    (f32) and the encoder kernels (in ``dtypes``); the cross kernel with
+    ``group`` rows an audio and the step kernels at ``B * group`` rows, in
+    f32 and bf16 (the append self-attention when ``group`` is 1, else the
+    beam self-attention).  Returns {kernel: {"f32" | "bf16": row}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     T, D, H = dims.n_audio_ctx, dims.n_audio_state, dims.n_audio_head
@@ -281,97 +318,157 @@ def kernel_checks(dims, B: int, dtypes) -> dict:
             reps=3 if dtype == torch.float32 else 10, graph=False,
         )
         del q, k, v
-
-        print(f"[kernels] cross_attention_step ({tag})", flush=True)
-        qx = randn(B, 1, H, dh, dtype=dtype, scale=scale)  # pre-scaled: scores of std 1
-        kv = randn(L, B, H, 2, dh, T, dtype=dtype)
-        layer = L - 1
-
-        def sdpa_cross():
-            kt, vt = kv[layer, :, :, 0], kv[layer, :, :, 1]
-            return F.scaled_dot_product_attention(
-                qx.transpose(1, 2), kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0
-            )
-
-        rows["cross_attention_step"][tag] = check_kernel(
-            "cross_attention_step", dtype,
-            lambda: cross_attention_step(qx, kv, layer),
-            lambda: cross_attention_step_plain(qx, kv, layer),
-            sdpa_cross, nbytes=(B * H * 2 * dh * T + 2 * qx.numel()) * isz,
-            flops=4 * B * H * dh * T, reps=20,
-        )
-        del qx, kv
         torch.cuda.empty_cache()
 
+    step = "self_attention_append_step" if group == 1 else "beam_self_attention_step"
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        print(f"[kernels] self_attention_append_step ({tag})", flush=True)
-        rows["self_attention_append_step"][tag] = check_append(dims, B, dtype, randn)
+        print(f"[kernels] cross_attention_step ({tag}, {group} rows an audio)", flush=True)
+        rows["cross_attention_step"][tag] = check_cross(dims, B, group, dtype, randn)
+        print(f"[kernels] {step} ({tag})", flush=True)
+        rows[step][tag] = check_step_attention(dims, B, group, dtype, randn, gen)
         print(f"[kernels] decoder_mlp_step ({tag})", flush=True)
-        rows["decoder_mlp_step"][tag] = check_mlp(dims, B, dtype, randn)
+        rows["decoder_mlp_step"][tag] = check_mlp(dims, B * group, dtype, randn)
         torch.cuda.empty_cache()
+    if group > 1:
+        time_beam_ranking(dims, B, group, randn)
     return rows
 
 
-def check_append(dims, B: int, dtype, randn) -> dict:
-    """The append self-attention at the step shapes: q, k_new, v_new
-    [B, H, 64] (q pre-scaled, unit-scale scores), caches [L, B, H, 448, 64]
-    of unit-scale values.  Checked at W = 256, pos = 255 and at W = 448
-    with non-zero key_start, both outputs against the plain version and
-    both caches: the kernel's slot pos equals k_new and v_new, and no other
+def check_cross(dims, A: int, G: int, dtype, randn) -> dict:
+    """The cross kernel at the step shapes: pre-scaled q [A, G, H, 64] of
+    unit-scale scores against unit-scale kv [L, A, H, 2, 64, 1500], last
+    layer."""
+    T, H, L = dims.n_audio_ctx, dims.n_text_head, dims.n_text_layer
+    dh = dims.head_dim
+    isz = torch.tensor([], dtype=dtype).element_size()
+    qx = randn(A, G, H, dh, dtype=dtype, scale=dh**-0.5)
+    kv = randn(L, A, H, 2, dh, T, dtype=dtype)
+    layer = L - 1
+
+    def sdpa_cross():
+        kt, vt = kv[layer, :, :, 0], kv[layer, :, :, 1]
+        return F.scaled_dot_product_attention(
+            qx.transpose(1, 2), kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0
+        )
+
+    return check_kernel(
+        "cross_attention_step", dtype,
+        lambda: cross_attention_step(qx, kv, layer),
+        lambda: cross_attention_step_plain(qx, kv, layer),
+        sdpa_cross, nbytes=(A * H * 2 * dh * T + 2 * qx.numel()) * isz,
+        flops=4 * A * G * H * dh * T, reps=20,
+    )
+
+
+def check_step_attention(dims, A: int, G: int, dtype, randn, gen) -> dict:
+    """The step self-attention at the step shapes of A audios of G rows: the
+    append kernel (G = 1) or the beam kernel, with random ancestors in
+    [0, G) that differ between the rows of an audio (the row's own at slot
+    pos, as the decode loop sets it).  q, k_new, v_new [A G, H, 64] (q
+    pre-scaled, unit-scale scores), caches [L, A G, H, 448, 64] of
+    unit-scale values.  Checked at W = 256, pos = 255 and at W = 448,
+    pos = 400 with a non-zero key_start (in 1..299 for the append kernel;
+    in 1..231, the prefill's range, and varied within each audio for the
+    beam kernel, so that masking by the row's own fails), against the plain
+    version, and both caches: slot pos equals k_new and v_new, and no other
     slot changed.  Timed at W = 256, pos = 255."""
     H, dh, L, n_ctx = dims.n_text_head, dims.head_dim, dims.n_text_layer, dims.n_text_ctx
+    B = A * G
+    dev = torch.device("cuda")
     isz = torch.tensor([], dtype=dtype).element_size()
     layer = L - 1
     q = randn(B, H, dh, dtype=dtype, scale=dh**-0.5)
     k_new, v_new = randn(B, H, dh, dtype=dtype), randn(B, H, dh, dtype=dtype)
     k_all, v_all = randn(L, B, H, n_ctx, dh, dtype=dtype), randn(L, B, H, n_ctx, dh, dtype=dtype)
-    ks_nonzero = torch.arange(B, device=q.device) * 37 % 299 + 1  # in 1..299
-    tol = tolerance("self_attention_append_step", dtype)
+    if G == 1:
+        name, kernel, plain = (
+            "self_attention_append_step", self_attention_append_step,
+            self_attention_append_step_plain,
+        )
+        extra, ks_top = (), 299
+    else:
+        name, kernel, plain = (
+            "beam_self_attention_step", beam_self_attention_step, beam_self_attention_step_plain,
+        )
+        anc = torch.randint(0, G, (B, n_ctx), generator=gen, device=dev, dtype=torch.int32)
+        anc[:, [STEP_WINDOW - 1, 400]] = (torch.arange(B, device=dev) % G).to(torch.int32)[:, None]
+        extra, ks_top = (anc, G), 231
+    ks_nonzero = torch.arange(B, device=dev) * 37 % ks_top + 1
+
+    def run(fn, caches, pos, ks, W):
+        return fn(q, k_new, v_new, *caches, layer, pos, ks, *extra, window=W)
+
+    tol = tolerance(name, dtype)
     tag = str(dtype).split(".")[-1]
     worst = (0.0, 0.0)
     for W, pos, ks in ((STEP_WINDOW, STEP_WINDOW - 1, None), (n_ctx, 400, ks_nonzero)):
         before = (k_all.clone(), v_all.clone())
         plain_caches = (k_all.clone(), v_all.clone())
-        got = self_attention_append_step(q, k_new, v_new, k_all, v_all, layer, pos, ks, window=W)
-        want = self_attention_append_step_plain(
-            q, k_new, v_new, *plain_caches, layer, pos, ks, window=W
-        )
-        err = compare(f"self_attention_append_step {tag} W {W} pos {pos}"
-                      f"{' key_start 1..299' if ks is not None else ''}", (got,), (want,), tol)
+        got = run(kernel, (k_all, v_all), pos, ks, W)
+        want = run(plain, plain_caches, pos, ks, W)
+        err = compare(f"{name} {tag} W {W} pos {pos}"
+                      f"{f' key_start 1..{ks_top}' if ks is not None else ''}", (got,), (want,),
+                      tol)
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
-        for cache, new, old, plain in zip((k_all, v_all), (k_new, v_new), before, plain_caches):
+        for cache, new, old, plain_cache in zip((k_all, v_all), (k_new, v_new), before,
+                                                plain_caches):
             if not torch.equal(cache[layer, :, :, pos], new):
-                raise AssertionError("self_attention_append_step: slot pos is not k_new/v_new")
+                raise AssertionError(f"{name}: slot pos is not k_new/v_new")
             cache_rest, old_rest = cache.clone(), old.clone()
             cache_rest[layer, :, :, pos] = 0
             old_rest[layer, :, :, pos] = 0
-            if not torch.equal(cache_rest, old_rest) or not torch.equal(cache, plain):
-                raise AssertionError("self_attention_append_step: a slot other than pos changed")
+            if not torch.equal(cache_rest, old_rest) or not torch.equal(cache, plain_cache):
+                raise AssertionError(f"{name}: a slot other than pos changed")
         del before, plain_caches
     print("  cache write: slot pos equals k_new and v_new exactly; no other slot changed",
           flush=True)
 
     W, pos = STEP_WINDOW, STEP_WINDOW - 1
-    ids = torch.arange(W, device=q.device)
+    ids = torch.arange(W, device=dev)
     mask = (ids <= pos)[None, None, None, :].expand(B, 1, 1, W)
+    first = torch.arange(B, device=dev) // G * G
 
-    def sdpa():  # the attention alone, over the window, without the write
-        return F.scaled_dot_product_attention(
-            q[:, :, None], k_all[layer, :, :, :W], v_all[layer, :, :, :W], attn_mask=mask,
-            scale=1.0,
-        )
+    def sdpa():  # the attention alone over the window, without the write;
+        # for the beam kernel after resolving the ancestors by a gather
+        if G == 1:
+            k, v = k_all[layer, :, :, :W], v_all[layer, :, :, :W]
+        else:
+            src = first[:, None] + anc[:, :W].long()
+            k = k_all[layer][src, :, ids].transpose(1, 2)
+            v = v_all[layer][src, :, ids].transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask, scale=1.0)
 
     n = pos + 1  # visible slots of every row
+    if G == 1:
+        kv_rows, table = B * n, 0
+    else:
+        # rows of one audio that share an ancestor at a slot share its K/V
+        # row: the function needs each distinct (source row, slot) read once
+        kv_rows = torch.unique((first[:, None] + anc[:, :n].long()) * n + ids[:n]).numel()
+        table = B * n * 4
+        print(f"  bound: {kv_rows} distinct (source row, slot) pairs of this run's "
+              f"ancestors, of {B * n} (row, slot) reads", flush=True)
     return check_kernel(
-        "self_attention_append_step", dtype,
-        lambda: self_attention_append_step(q, k_new, v_new, k_all, v_all, layer, pos, window=W),
-        lambda: self_attention_append_step_plain(
-            q, k_new, v_new, k_all, v_all, layer, pos, window=W
-        ),
-        sdpa, nbytes=(2 * B * H * n * dh + 6 * B * H * dh) * isz, flops=4 * B * H * n * dh,
-        reps=50, checked=worst,
+        name, dtype,
+        lambda: run(kernel, (k_all, v_all), pos, None, W),
+        lambda: run(plain, (k_all, v_all), pos, None, W),
+        sdpa,
+        nbytes=(2 * kv_rows * H * dh + 6 * B * H * dh) * isz + table,
+        flops=4 * B * H * n * dh, reps=50, checked=worst,
     )
+
+
+def time_beam_ranking(dims, A: int, G: int, randn) -> None:
+    """Device time of the beam step's ranking of each beam's candidates: a
+    stable descending sort of the cumulative log-probs [A, G, vocab] f32
+    (torch.topk gives no order for ties on the card; the sort gives the
+    reference's, the lower index first), and torch.topk beside it."""
+    cum = randn(A, G, dims.n_vocab)
+    ms_sort = timed_ms(lambda: decode_loop._sort_desc(cum), reps=50)
+    ms_topk = timed_ms(lambda: cum.topk(G + 1, dim=-1), reps=50)
+    print(f"[kernels] beam ranking over [{A}, {G}, {dims.n_vocab}] f32: stable sort "
+          f"{ms_sort:.4f} ms a step (eager; torch.topk {ms_topk:.4f} ms)", flush=True)
 
 
 def check_mlp(dims, B: int, dtype, randn) -> dict:
@@ -479,20 +576,158 @@ def parity(dims, label: str) -> None:
     torch.cuda.empty_cache()
 
 
-def e2e(dims, name: str, batch: int) -> dict:
-    print(f"[e2e] {name} bf16 batch {batch}, {SAMPLE_LEN}-step budget, {E2E_REPS} timed runs",
+SOP = 50360  # <|startofprev|>
+
+
+def bench_prompts(rng, n_audio: int, n_text_ctx: int):
+    """Per-audio prompts of 200..221 tokens, as bench.py's BENCH_PROMPTED
+    builds them: they fill the 232-wide prefill bucket.  Returns
+    (initial tokens, key_start, sample_begin, sot_idx)."""
+    prompts = [rng.integers(300, 40_000, size=int(200 + (i % 4) * 7)).tolist()
+               for i in range(n_audio)]
+    initial, key_start, sample_begin, sot_idx = build_batch_prompts(
+        prompts, [SOT], SOT, SOP, n_text_ctx=n_text_ctx
+    )
+    assert sample_begin == 232, sample_begin
+    return initial.astype(np.int64), key_start.astype(np.int64), sample_begin, sot_idx
+
+
+def selection_margins(logits, s, beam: int, eot: int) -> torch.Tensor:
+    """[n_audio] one beam step's selection margin: the gap between the
+    score of the beam-th unfinished candidate, in the order the step ranks
+    them, and the next candidate's.  A swap there changes which candidates
+    continue."""
+    n_audio = logits.shape[0] // beam
+    cum = (s.sum_logprobs[:, None] + log_softmax(logits)).view(n_audio, beam, -1)
+    top, tok = (t[..., : beam + 1] for t in decode_loop._sort_desc(cum))
+    score, order = decode_loop._sort_desc(top.reshape(n_audio, -1))
+    tok = tok.reshape(n_audio, -1).gather(1, order)
+    last = ((tok != eot).cumsum(dim=-1) < beam).sum(dim=-1, keepdim=True)  # the beam-th unfinished
+    gap = score.gather(1, last) - score.gather(1, last + 1)
+    return gap[:, 0].nan_to_num(nan=float("inf"))
+
+
+def parity_beam(dims, label: str, beam: int) -> None:
+    print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, prompted, beam {beam}",
           flush=True)
+    model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    cfg = filter_config(dims)
+    rng = np.random.default_rng(2)
+    audio = np.stack([
+        rng.standard_normal(480_000).astype(np.float32) * np.float32(0.05 * (i + 1))
+        for i in range(PARITY_WINDOWS)
+    ])
+    initial, key_start, sample_begin, sot_idx = bench_prompts(rng, PARITY_WINDOWS, dims.n_text_ctx)
+    sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
+    mode = BeamSearchMode(beam_size=beam, patience=1.0)
+    margins = torch.full((PARITY_WINDOWS,), float("inf"), device=model.device)
+    n_close = torch.zeros(PARITY_WINDOWS, dtype=torch.long, device=model.device)
+    step_fn, logits_fn = decode_loop._beam_step, decode_loop._step_logits
+    step_diffs = []
+
+    def recording_step(logits, s, *args):
+        # the plain path's selection margins, read from each step's inputs
+        nonlocal margins, n_close
+        m = selection_margins(logits, s, beam, cfg.token_id_eot)
+        margins, n_close = torch.minimum(margins, m), n_close + (m < 1e-3)
+        return step_fn(logits, s, *args)
+
+    def checking_logits(model, tokens, pos, cross_kv, cache, *args, ancestors=None):
+        # at the positions of BEAM_CHECK_POS, the plain step on a copy of the
+        # kernel path's own state (tokens, ancestor table, caches), then the
+        # kernel step: the filtered logits of both
+        *head, kernels = args
+        if pos not in BEAM_CHECK_POS:
+            return logits_fn(model, tokens, pos, cross_kv, cache, *args, ancestors=ancestors)
+        want = logits_fn(model, tokens, pos, cross_kv, KVCache(cache.k.clone(), cache.v.clone()),
+                         *head, False, ancestors=ancestors.clone())
+        got = logits_fn(model, tokens, pos, cross_kv, cache, *args, ancestors=ancestors)
+        if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+            raise AssertionError(f"step at position {pos}: filtered-logit masks differ")
+        fin = torch.isfinite(want)
+        step_diffs.append((pos, (got[fin] - want[fin]).abs().max().item()))
+        return got
+
+    out = {}
+    reset_launches()
+    for kernels in (True, False):
+        mel = log_mel_frontend(audio, dims.n_mels, kernels=kernels)
+        if kernels:
+            decode_loop._step_logits = checking_logits
+        else:
+            decode_loop._beam_step = recording_step
+        try:
+            out[kernels] = decode_beam(
+                model, mel, initial, sample_begin, sot_idx, cfg, mode, sample_len, NO_SPEECH,
+                key_start=key_start, kernels=kernels,
+            )
+        finally:
+            decode_loop._beam_step, decode_loop._step_logits = step_fn, logits_fn
+        if kernels:
+            print(f"  kernel-path launches: {dict(LAUNCHES)} (with {len(step_diffs)} plain "
+                  f"steps of the logits check, which launch no kernel)", flush=True)
+    torch.cuda.synchronize()
+
+    for pos, d in step_diffs:
+        print(f"  step at position {pos} (window {256 if pos < 256 else dims.n_text_ctx}), on "
+              f"the kernel path's state: filtered logits max_abs_err {d:.3e} (tolerance 1e-3)",
+              flush=True)
+    if not step_diffs or max(d for _, d in step_diffs) > 1e-3:
+        raise AssertionError(f"incremental-step filtered logits: {step_diffs} (tolerance 1e-3)")
+
+    res_k, res_p = out[True], out[False]
+    print(f"  steps: kernel path {res_k.steps}, plain path {res_p.steps}", flush=True)
+    dn = (res_k.no_speech_probs - res_p.no_speech_probs).abs().max().item()
+    print(f"  no-speech probs: max_abs_err {dn:.3e} (tolerance 1e-5)", flush=True)
+    if dn > 1e-5:
+        raise AssertionError("no-speech probabilities differ beyond 1e-5")
+    # scores are f32 sums of up to 216 log-probs, near -1,200 at random
+    # weights, where one f32 step is 1.2e-4: a flat 1e-4 is less than one
+    # step there, so the tolerance adds 2e-6 |plain|, some 20 steps
+    for a in range(PARITY_WINDOWS):
+        m, close = margins[a].item(), int(n_close[a])
+        margin = (f"smallest plain selection margin {m:.3e} (below 1e-3 at {close} of "
+                  f"{res_p.steps + 1} steps)")
+        if torch.equal(res_k.candidates[a], res_p.candidates[a]):
+            d = (res_k.scores[a] - res_p.scores[a]).abs()
+            share = (d / (1e-4 + SCORE_RTOL * res_p.scores[a].abs())).max().item()
+            print(f"  audio {a}: {beam} candidates identical; scores max_abs_err "
+                  f"{d.max().item():.3e} (tolerance 1e-4 + {SCORE_RTOL:g}|plain|, share used "
+                  f"{share:.3f}); {margin}", flush=True)
+            if share > 1:
+                raise AssertionError(f"audio {a}: scores differ beyond the tolerance")
+            continue
+        print(f"  audio {a}: candidates differ; {margin}", flush=True)
+        if m >= 1e-3:
+            raise AssertionError(f"audio {a}: candidates differ with margin {m:.3e} >= 1e-3")
+    del model
+    torch.cuda.empty_cache()
+
+
+def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
+    """One path in bf16 at full width and depth: greedy and unprompted, or
+    (``beam`` > 0) beam search prompted as bench.py's BENCH_PROMPTED."""
+    what = f"beam {beam}, prompted" if beam else "greedy, unprompted"
+    print(f"[e2e] {name} bf16 batch {batch}, {what}, {E2E_REPS} timed runs", flush=True)
     t0 = time.perf_counter()
     model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
     print(f"  init_random {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = filter_config(dims)
     rng = np.random.default_rng(0)
     audio = rng.standard_normal((batch, 480_000)).astype(np.float32) * np.float32(0.1)
-    initial = np.full((batch, 1), SOT, np.int64)
+    if beam:
+        initial, key_start, sample_begin, sot_idx = bench_prompts(rng, batch, dims.n_text_ctx)
+        sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
+        mode, decode, group = BeamSearchMode(beam_size=beam, patience=1.0), decode_beam, beam
+    else:
+        initial, key_start, sample_begin, sot_idx = np.full((batch, 1), SOT, np.int64), None, 1, 0
+        sample_len, mode, decode, group = SAMPLE_LEN, GreedyMode(), decode_greedy, 1
+    print(f"  sample_begin {sample_begin}, budget {sample_len} tokens", flush=True)
 
     def run(a):
         mel = log_mel_frontend(a, dims.n_mels, dtype=torch.bfloat16)
-        res = decode_greedy(model, mel, initial, 1, 0, cfg, GreedyMode(), SAMPLE_LEN, NO_SPEECH)
+        res = decode(model, mel, initial, sample_begin, sot_idx, cfg, mode, sample_len,
+                     NO_SPEECH, key_start=key_start)
         torch.cuda.synchronize()
         return res
 
@@ -504,46 +739,75 @@ def e2e(dims, name: str, batch: int) -> dict:
         res = run(audio)
         times.append(time.perf_counter() - t0)
         launches = dict(LAUNCHES)
-        # the one-token prefill is a decoder pass of width 1, so it takes
-        # the cross kernel too, but not the two incremental-step kernels
-        n_steps = res.steps + 1
+        # a one-token prefill is a decoder pass of width 1, so it takes the
+        # cross kernel too, but not the incremental-step kernels
+        steps = res.steps
+        n_passes = steps + (1 if sample_begin == 1 else 0)
+        L = dims.n_text_layer
         expect = {
             "log_mel": 1,
             "ln_fused": dims.n_audio_layer,
             "residual_ln": dims.n_audio_layer,
             "encoder_attention_merged": dims.n_audio_layer,
-            "cross_attention_step": dims.n_text_layer * n_steps,
-            "self_attention_append_step": dims.n_text_layer * res.steps,
-            "decoder_mlp_step": dims.n_text_layer * res.steps,
+            "cross_attention_step": L * n_passes,
+            "self_attention_append_step": 0 if beam else L * steps,
+            "beam_self_attention_step": L * steps if beam else 0,
+            "decoder_mlp_step": L * steps,
         }
-        if res.steps < 1 or launches != expect:
+        if steps < 1 or launches != expect:
             raise AssertionError(f"e2e: launches {launches}, expected {expect}")
 
-    cand = res.candidates[:, 0]
-    if cand.shape != (batch, dims.n_text_ctx) or not torch.isfinite(res.scores).all():
+    n_ctx = dims.n_text_ctx
+    cand = res.candidates
+    if cand.shape != (batch, group, n_ctx) or not torch.isfinite(res.scores).all():
         raise AssertionError("e2e: malformed decode result")
-    if not ((cand[:, 0] == SOT).all() and (cand[:, 1] >= cfg.token_id_ts_begin).all()):
+    prompt = torch.as_tensor(initial, device=cand.device)
+    if not ((cand[:, :, :sample_begin] == prompt[:, None]).all()
+            and (cand[:, :, sample_begin] >= cfg.token_id_ts_begin).all()):
         raise AssertionError("e2e: prompt or forced first timestamp missing")
+    if not ((cand[:, :, sample_begin + 1:] == cfg.token_id_eot).any(dim=-1)).all():
+        raise AssertionError("e2e: a candidate without EOT")
     if not (0 <= res.no_speech_probs).all() or not (res.no_speech_probs <= 1).all():
         raise AssertionError("e2e: no-speech probabilities outside [0, 1]")
     elapsed = float(np.median(times))
     print(f"  steps {res.steps}; runs {', '.join(f'{t:.3f}' for t in times)} s; "
           f"median {elapsed:.3f} s, {batch * 30.0 / elapsed:.2f} audio-s/s", flush=True)
     print(f"  launches of each run: {launches}", flush=True)
-    print(f"  cross_attention_step: {launches['cross_attention_step'] / n_steps:g} a pass "
-          f"over {n_steps} width-1 decoder passes; the append and MLP kernels "
-          f"{launches['decoder_mlp_step'] / res.steps:g} a step over {res.steps} steps",
-          flush=True)
+    step_kernel = "beam_self_attention_step" if beam else "self_attention_append_step"
+    print(f"  cross_attention_step: {launches['cross_attention_step'] / n_passes:g} a pass "
+          f"over {n_passes} width-1 decoder passes; {step_kernel} and the MLP kernel "
+          f"{launches['decoder_mlp_step'] / steps:g} a step over {steps} steps", flush=True)
+    if beam:
+        sel, avg, lengths = rank_max_likelihood(res, sample_begin, cfg.token_id_eot, None)
+        picked = [cand[a, sel[a], sample_begin : sample_begin + lengths[a, sel[a]]].tolist()
+                  for a in range(batch)]
+        print(f"  selected candidate of each audio (rank_max_likelihood, no length penalty): "
+              f"slots {sel.tolist()}, avg_logprob {[round(x, 4) for x in avg.tolist()]}, "
+              f"tokens {json.dumps(picked)}", flush=True)
 
-    # split of the run: the frontend and encoder alone, the rest is the
-    # prefill and the step loop
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.encoder(log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16))
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t0
-    print(f"  split: mel+encoder {t_enc:.3f} s; prefill+steps {elapsed - t_enc:.3f} s "
-          f"({(elapsed - t_enc) / n_steps * 1e3:.2f} ms a decoder pass)", flush=True)
+    # split of the median run: the frontend and encoder alone, then with the
+    # prefill; the rest is the step loop
+    def timed_part(with_prefill: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16)
+        if with_prefill:
+            _encode_and_prefill(
+                model, mel, prompt, sample_begin, sot_idx, group, cfg, NO_SPEECH,
+                None if key_start is None else torch.as_tensor(key_start, device=prompt.device),
+                True,
+            )
+        else:
+            model.encoder(mel)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    t_enc, t_pre = timed_part(False), timed_part(True)
+    t_steps = elapsed - t_pre
+    print(f"  split: mel+encoder {t_enc:.3f} s; prefill {t_pre - t_enc:.3f} s; steps "
+          f"{t_steps:.3f} s, {t_steps / steps * 1e3:.2f} ms a step (a width-1 decoder pass "
+          f"and the token update); prefill+steps over the width-1 passes "
+          f"{(elapsed - t_enc) / n_passes * 1e3:.2f} ms a pass", flush=True)
     profile_run(run, audio)
     del model
     torch.cuda.empty_cache()
@@ -557,6 +821,7 @@ OWN_KERNELS = {
     "attn_bf16_kernel": "encoder_attention_merged",
     "cross_attn_kernel": "cross_attention_step",
     "self_append_kernel": "self_attention_append_step",
+    "beam_self_kernel": "beam_self_attention_step",
     "mlp_fc1_gelu_kernel": "decoder_mlp_step (fc1 + GELU)",
     "mlp_fc2_kernel": "decoder_mlp_step (fc2)",
 }
@@ -569,6 +834,8 @@ def device_kind(name: str) -> str:
     low = name.lower()
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "library: matmul"
+    if any(s in low for s in ("sort", "radix")):
+        return "library: sort (beam ranking)"
     if any(s in low for s in ("reduce", "softmax", "argmax")):
         return "library: reductions/softmax"
     if any(s in low for s in ("memcpy", "copy", "cat", "index", "scatter", "gather")):
@@ -621,6 +888,8 @@ KERNELS = {
                              "whisper_rs_tpu/ops/decode_attention.py:748"),
     "self_attention_append_step": ("cuda", "whisper_rs_tpu_torch/csrc/self_attention.cu",
                                    "whisper_rs_tpu/ops/decode_attention.py:525"),
+    "beam_self_attention_step": ("cuda", "whisper_rs_tpu_torch/csrc/self_attention.cu",
+                                 "whisper_rs_tpu/ops/decode_attention.py:924"),
     "decoder_mlp_step": ("cuda", "whisper_rs_tpu_torch/csrc/decoder_mlp.cu",
                          "whisper_rs_tpu/ops/decoder_mlp_fused.py:121"),
 }
@@ -646,45 +915,56 @@ def main() -> int:
     def phase_done(phase: str, t0: float) -> None:
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    def label(m: str, b: int, beam: int) -> str:
+        return f"{m} b{b}" + (f" beam{beam}" if beam else "")
+
     rows, launches = {}, {}
-    for m, b in CONFIGS:
+    for m, b, beam in PATHS:
         t0 = time.perf_counter()
         dtypes = (torch.float32, torch.bfloat16) if m == "base.en" else (torch.bfloat16,)
-        rows[m] = kernel_checks(dims_for(m), b, dtypes)
-        phase_done(f"kernels {m} b{b}", t0)
-    for m, _ in CONFIGS:
+        rows[label(m, b, beam)] = kernel_checks(dims_for(m), b, dtypes, group=max(beam, 1))
+        phase_done(f"kernels {label(m, b, beam)}", t0)
+    for m, _, beam in PATHS:
         t0 = time.perf_counter()
-        dims, label = dims_for(m), f"{m} full width"
+        dims, text = dims_for(m), f"{m} full width"
         if m in PARITY_DEPTH:
             n = PARITY_DEPTH[m]
             dims = dataclasses.replace(dims, n_audio_layer=n, n_text_layer=n)
-            label += f", depth cut to {n} + {n} layers (dataclasses.replace: {dims})"
-        parity(dims, label)
+            text += f", depth cut to {n} + {n} layers (dataclasses.replace: {dims})"
+        if beam:
+            parity_beam(dims, text, beam)
+        else:
+            parity(dims, text)
         phase_done(f"parity {m}", t0)
-    for m, b in CONFIGS:
+    for m, b, beam in PATHS:
         t0 = time.perf_counter()
-        launches[m] = e2e(dims_for(m), m, b)
-        phase_done(f"e2e {m} b{b}", t0)
+        launches[label(m, b, beam)] = e2e(dims_for(m), m, b, beam)
+        phase_done(f"e2e {label(m, b, beam)}", t0)
 
-    main_model = CONFIGS[-1][0]  # large-v3 b12: the slice's flagship path
+    # each kernel's headline numbers come from the beam path, which runs
+    # every kernel but the append self-attention; that one's from large-v3
     line = []
     for name, (route, source, replaces) in KERNELS.items():
         by_config = {}
-        for m, b in CONFIGS:
-            r = rows[m][name].get("bf16", rows[m][name].get("f32"))
-            by_config[f"{m} b{b}"] = {
-                "dtype": "bf16" if "bf16" in rows[m][name] else "f32",
-                "launches": launches[m][name],
+        for m, b, beam in PATHS:
+            checked = rows[label(m, b, beam)][name]
+            if not checked:
+                continue
+            r = checked.get("bf16", checked.get("f32"))
+            by_config[label(m, b, beam)] = {
+                "dtype": "bf16" if "bf16" in checked else "f32",
+                "launches": launches[label(m, b, beam)][name],
                 **{k: r[k] for k in ("max_abs_err", "atol", "rtol", "tol_share", "ms",
                                      "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                "f32": {k: v for k, v in rows[m][name].get("f32", {}).items()
+                "f32": {k: v for k, v in checked.get("f32", {}).items()
                         if k in ("max_abs_err", "tol_share", "ms", "plain_ms", "bound_ms",
                                  "library_ms")},
             }
-        main = by_config[f"{main_model} b{CONFIGS[-1][1]}"]
+        main_config = label(*PATHS[-1]) if label(*PATHS[-1]) in by_config else label(*PATHS[1])
+        main = by_config[main_config]
         line.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "config": f"{main_model} b{CONFIGS[-1][1]}",
+            "config": main_config,
             **{k: main[k] for k in ("launches", "max_abs_err", "atol", "rtol", "tol_share",
                                     "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},

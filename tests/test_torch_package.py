@@ -1,7 +1,8 @@
 """Package contract of the PyTorch port: it imports neither JAX nor the JAX
 package; its entry points never drop to the CPU unasked; its kernel
 wrappers launch or raise on anything but a CPU tensor; every CUDA source
-is built; chip_smoke.py refuses to run without a GPU."""
+is built; chip_smoke.py refuses to run without a GPU, and its bf16
+tolerances fail kernels with the faults planted here."""
 
 import ast
 import importlib
@@ -92,6 +93,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(name, monkeypatch
 
 def _meta_calls():
     from whisper_rs_tpu_torch.ops.decode_attention import (
+        beam_self_attention_step,
         cross_attention_step,
         self_attention_append_step,
     )
@@ -113,6 +115,10 @@ def _meta_calls():
             m(1, 2, 64), m(1, 2, 64), m(1, 2, 64), m(1, 1, 2, 16, 64), m(1, 1, 2, 16, 64), 0, 3,
             window=8,
         ),
+        "beam_self_attention_step": lambda: beam_self_attention_step(
+            m(2, 2, 64), m(2, 2, 64), m(2, 2, 64), m(1, 2, 2, 16, 64), m(1, 2, 2, 16, 64), 0, 3,
+            None, torch.empty(2, 16, dtype=torch.int32, device="meta"), 2, window=8,
+        ),
         "decoder_mlp_step": lambda: decoder_mlp_step(m(2, 128), m(512, 128), m(512), m(128, 512)),
     }
 
@@ -121,7 +127,8 @@ def _meta_calls():
     "name",
     [
         "raw_log10_mel", "ln_fused", "residual_ln", "encoder_attention_merged",
-        "cross_attention_step", "self_attention_append_step", "decoder_mlp_step",
+        "cross_attention_step", "self_attention_append_step", "beam_self_attention_step",
+        "decoder_mlp_step",
     ],
 )
 def test_wrappers_raise_off_the_cpu_without_a_kernel(name):
@@ -232,3 +239,70 @@ def test_chip_smoke_bf16_tolerance_rejects_faulty_step_kernels(chip_smoke, fault
     name, (right, wrong) = _faulty_step_kernel(fault)
     with pytest.raises(AssertionError, match="disagrees"):
         chip_smoke.compare(name, (wrong,), (right,), chip_smoke.tolerance(name, torch.bfloat16))
+
+
+def _faulty_beam_attention(fault):
+    """A bf16 beam self-attention at chip_smoke's unit-scale inputs and its
+    W = 448, pos = 400 check (A = 2 audios of G = 5 beams, random
+    ancestors, key_start varied within each audio): the right output and one
+    with a fault."""
+    from whisper_rs_tpu_torch.ops.decode_attention import (
+        beam_self_attention_step_plain,
+        self_attention_append_step_plain,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    A, G, H, n_ctx, dh, pos = 2, 5, 8, 448, 64, 400
+    B = A * G
+    q = (torch.randn(B, H, dh, generator=gen) * dh**-0.5).bfloat16()
+    k_new, v_new = (torch.randn(B, H, dh, generator=gen).bfloat16() for _ in range(2))
+    k_all, v_all = (torch.randn(1, B, H, n_ctx, dh, generator=gen).bfloat16() for _ in range(2))
+    anc = torch.randint(0, G, (B, n_ctx), generator=gen, dtype=torch.int32)
+    anc[:, pos] = torch.arange(B, dtype=torch.int32) % G
+    key_start = torch.arange(B) * 37 % 231 + 1
+    first = torch.arange(B) // G * G
+    right = beam_self_attention_step_plain(
+        q, k_new, v_new, k_all.clone(), v_all.clone(), 0, pos, key_start, anc, G, window=n_ctx
+    )
+    if fault == "beam_ignores_ancestors":  # reads the row's own cache
+        return right, self_attention_append_step_plain(
+            q, k_new, v_new, k_all.clone(), v_all.clone(), 0, pos, key_start[first], window=n_ctx
+        )
+    # resolves the ancestors but masks by the row's own key_start
+    ids = torch.arange(n_ctx)
+    src = first[:, None] + anc.long()
+    own = [c[0][src, :, ids].transpose(1, 2)[None].contiguous() for c in (k_all, v_all)]
+    return right, self_attention_append_step_plain(
+        q, k_new, v_new, *own, 0, pos, key_start, window=n_ctx
+    )
+
+
+@pytest.mark.parametrize("fault", ["beam_ignores_ancestors", "beam_masks_by_own_key_start"])
+def test_chip_smoke_bf16_tolerance_rejects_faulty_beam_attention(chip_smoke, fault):
+    """The bf16 tolerance of the beam self-attention check fails a kernel
+    that reads the row's own cache instead of its ancestors', and one that
+    masks by the row's own key_start instead of its audio's first row's."""
+    right, wrong = _faulty_beam_attention(fault)
+    name = "beam_self_attention_step"
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.compare(name, (wrong,), (right,), chip_smoke.tolerance(name, torch.bfloat16))
+
+
+def test_chip_smoke_selection_margin_is_the_gap_after_the_beam_th_unfinished(chip_smoke):
+    """The beam parity excuses a candidate mismatch only where the plain
+    path's selection margin fell below 1e-3: the gap between the beam-th
+    unfinished candidate and the next.  A near tie elsewhere in the ranking
+    (here an EOT and an unfinished candidate 2e-4 apart) does not count."""
+    from types import SimpleNamespace
+
+    V, beam, eot = 50, 2, 7
+    raw = torch.full((beam, V), -30.0)
+    raw[0, [eot, 3, 4]] = torch.tensor([-0.5, -0.5002, -1.5])
+    raw[1, [5, 6, 8]] = torch.tensor([-1.0, -2.0, -2.5])
+    lp = torch.log_softmax(raw, dim=-1)
+    # ranked: 5 (beam 1), EOT, 3 (the second unfinished), 6, 4, 8
+    margin = chip_smoke.selection_margins(lp, SimpleNamespace(sum_logprobs=torch.zeros(beam)),
+                                          beam, eot)
+    assert margin.shape == (1,)
+    assert margin.item() == pytest.approx((lp[0, 3] - lp[1, 6]).item(), rel=1e-6)
+    assert margin.item() > 0.5

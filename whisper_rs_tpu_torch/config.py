@@ -1,8 +1,8 @@
 """Model configuration registry (counterpart of ``whisper_rs_tpu/config.py``).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-Only what the greedy window decode needs is here: ``ModelDims``, the
-registry of released Whisper sizes and ``GreedyMode``.
+Only what the window decode needs is here: ``ModelDims``, the registry of
+released Whisper sizes, ``GreedyMode`` and ``BeamSearchMode``.
 """
 
 from __future__ import annotations
@@ -88,3 +88,13 @@ class GreedyMode:
 
     group_size: int = 1
     temperature: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamSearchMode:
+    """Beam-search token extraction: ``beam_size`` rows per audio; the
+    search stops once ``max(beam_size, round(patience * beam_size))``
+    sequences of every audio have finished."""
+
+    beam_size: int = 5
+    patience: float = 1.0

@@ -1,33 +1,48 @@
-// One greedy decode step's self-attention for layer l, with this step's K/V
-// column appended to the cache inside the kernel:
-//   K[l, b, h, pos] = k_new[b, h];  V[l, b, h, pos] = v_new[b, h];
-//   out[b, h] = softmax_j(q[b, h] . K[l, b, h, j]) V[l, b, h, j]
-// over the slots key_start[b] <= j <= pos of the first W (the rest masked),
-// with f32 scores, f32 weights w = e / sum(e) (never rounded to the cache
-// dtype) and an f32 sum, cast to the query dtype.
+// One decode step's self-attention for layer l, with this step's K/V column
+// written into the cache inside the kernel, in two entry points over one
+// body:
+//
+//   append (greedy):  K[l, b, h, pos] = k_new[b, h];  V[l, b, h, pos] = v_new[b, h];
+//                     out[b, h] = softmax_j(q[b, h] . K[l, b, h, j]) V[l, b, h, j]
+//                     over the slots key_start[b] <= j <= pos of the first W;
+//   beam:             the same write, but slot j of row b = a G + g is read
+//                     from row r(b, j) = a G + anc[b, j] (the beam-local
+//                     ancestor that holds beam b's key at position j), and
+//                     the visible slots are key_start[a G] <= j <= pos (the
+//                     audio's first row).
+//
+// Masked slots are left out, with f32 scores, f32 weights w = e / sum(e)
+// (never rounded to the cache dtype) and an f32 sum, cast to the query dtype.
 //
 // Replaces: whisper_rs_tpu/ops/decode_attention.py::
-// self_attention_append_step (kernel body _self_append_kernel).  The TPU
+// self_attention_append_step (kernel body _self_append_kernel) and
+// beam_self_attention_step (kernel body _beam_self_kernel).  The TPU append
 // kernel kept both planes transposed and lane-padded to 512, spliced the
 // column into a VMEM copy and wrote back the aligned 128-wide block, with
-// DMAs double-buffered across programs; all of that served Mosaic's tiling
-// and the sequential grid.  Here the cache stays ctx-major
+// DMAs double-buffered across programs.  The TPU beam kernel, which cannot
+// gather rows, read all G source beams' blocks and built a G-fold
+// all-pairs q.k, then picked each (beam, position)'s ancestor with a
+// select.  All of that served Mosaic.  Here the cache stays ctx-major
 // [L, B, H, n_ctx, 64]: a key row is 64 contiguous elements (128 bytes in
-// bf16), so 16-byte loads are coalesced, and the column write is one row.
+// bf16), so a row of any source beam is one coalesced read, and the beam
+// kernel reads exactly one K row and one V row per (row, head, slot): a
+// gather at read time, with no G-fold compute and no copy of the cache.
 // The layer index is a pointer offset, so nothing is sliced per layer.
 //
 // Bound on the H100: bytes.  Each step must read the visible K and V rows,
 // 2 * B * H * (pos - key_start + 1) * 64 elements (15.7 MB at large-v3 b12,
 // W = 256, pos = 255, bf16: 4.7 us at the H100 SXM data-sheet 3.35 TB/s,
-// 700 W power limit), for 4 FLOP per element pair.
+// 700 W power limit), for 4 FLOP per element pair; the beam kernel adds
+// the ancestor table's 4 bytes per visible slot.
 //
-// Design: one block of 8 warps per (head, row), 240 blocks at large-v3 b12
-// and 1024 at base.en b128.  The block first writes its own (b, h) column,
-// which no other block reads, and uses the fresh k and v from the inputs
-// for slot pos rather than re-reading it.  Only slots key_start..pos are
+// Design: one block of 8 warps per (head, row).  The block first writes its
+// own (b, h) column, which no other block reads: at slot pos every row's
+// ancestor is itself (the decode loop sets that column of the table to the
+// identity before the step), so the block uses the fresh k and v from the
+// inputs for slot pos rather than re-reading it.  Only slots lo..pos are
 // read: masked slots have weight exactly 0 in f32 (exp of NEG - max
-// underflows), so skipping them changes nothing.  A group of 8 lanes (16
-// in f32) reads one key row with 16-byte loads; the scores go to shared
+// underflows), so skipping them changes nothing.  A group of 8 lanes (16 in
+// f32) reads one key row with 16-byte loads; the scores go to shared
 // memory, the block takes max and sum, and the same lane groups then walk
 // V with the weights, reduced across groups and warps in a fixed order
 // (deterministic, no atomics).  Simple first: two passes over the rows, no
@@ -64,17 +79,19 @@ __device__ __forceinline__ void load16(const bf16* p, float (&x)[8]) {
     }
 }
 
+// The body of both kernels for block (h, b).  anc: null for the append
+// kernel (every slot from row b, key_start of row b); else the [B, n_ctx]
+// beam-local ancestor table of groups of G rows.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
-                   const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
-                   const long long* __restrict__ key_start, T* __restrict__ out,
-                   int B, int H, int n_ctx, int layer, int pos, int W) {
+__device__ __forceinline__ void attend_step(
+    const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
+    T* __restrict__ kc, T* __restrict__ vc, const long long* __restrict__ key_start,
+    const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H, int n_ctx,
+    int layer, int pos, int W, float* ws) {
     constexpr int VEC = Vec16<T>::N;  // elements per 16-byte load
     constexpr int LPR = DH / VEC;     // lanes per key row: 8 (bf16) or 16 (f32)
     constexpr int KPW = 32 / LPR;     // key rows per warp pass: 4 or 2
     constexpr int STRIDE = WARPS * KPW;
-    extern __shared__ float ws[];     // [n] scores, then weights, of slots lo..hi
     __shared__ float red[WARPS][DH];
     __shared__ float stat[WARPS];
 
@@ -82,19 +99,25 @@ self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int grp = lane / LPR, seg = lane % LPR;
     const size_t row = (size_t)b * H + h;
-    const size_t plane = (((size_t)layer * B + b) * H + h) * (size_t)n_ctx * DH;
-    T* kp = kc + plane;
-    T* vp = vc + plane;
+    const size_t row_stride = (size_t)H * n_ctx * DH;  // between batch rows
+    const size_t head = (size_t)layer * B * row_stride + (size_t)h * n_ctx * DH;
+    const int first = anc ? (b / G) * G : b;  // the audio's first row (beam)
     const T* kn = knew + row * DH;
     const T* vn = vnew + row * DH;
 
-    // append: this block's own column, read by no other block
+    // the cache row that holds slot j of this block's row
+    auto slot = [&](T* c, int j) -> const T* {
+        const int r = anc ? first + anc[(size_t)b * n_ctx + j] : b;
+        return c + head + (size_t)r * row_stride + (size_t)j * DH;
+    };
+
+    // this block's own column, read by no other block
     if (tid < DH) {
-        kp[(size_t)pos * DH + tid] = kn[tid];
-        vp[(size_t)pos * DH + tid] = vn[tid];
+        kc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = kn[tid];
+        vc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = vn[tid];
     }
 
-    const long long ks = key_start ? key_start[b] : 0;
+    const long long ks = key_start ? key_start[first] : 0;
     int lo = ks > 0 ? (ks > pos ? pos + 1 : (int)ks) : 0;
     int hi = pos;
     // every slot masked (key_start past pos): all scores are NEG, so the
@@ -117,7 +140,7 @@ self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
         float part = 0.f;
         if (j <= hi && !empty) {
             float kx[VEC];
-            load16((j == pos ? kn : kp + (size_t)j * DH) + seg * VEC, kx);
+            load16((j == pos ? kn : slot(kc, j)) + seg * VEC, kx);
 #pragma unroll
             for (int e = 0; e < VEC; ++e) part = fmaf(qx[e], kx[e], part);
         }
@@ -160,7 +183,7 @@ self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
         if (j <= hi) {
             const float wj = ws[j - lo];
             float vx[VEC];
-            load16((j == pos ? vn : vp + (size_t)j * DH) + seg * VEC, vx);
+            load16((j == pos ? vn : slot(vc, j)) + seg * VEC, vx);
 #pragma unroll
             for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wj, vx[e], acc[e]);
         }
@@ -185,16 +208,52 @@ self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(THREADS)
+self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
+                   const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
+                   const long long* __restrict__ key_start, T* __restrict__ out,
+                   int B, int H, int n_ctx, int layer, int pos, int W) {
+    extern __shared__ float ws[];  // [n] scores, then weights, of slots lo..hi
+    attend_step<T>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
+                   pos, W, ws);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+beam_self_kernel(const T* __restrict__ q, const T* __restrict__ knew,
+                 const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
+                 const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
+                 T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
+    extern __shared__ float ws[];
+    attend_step<T>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
+                   W, ws);
+}
+
+template <typename T>
 int launch(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
-           const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
-           int window, void* stream) {
+           const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
+           int layer, int pos, int window, void* stream) {
     if (window < 1 || window > MAX_WINDOW || window > n_ctx || pos < 0 || pos >= window)
         return static_cast<int>(cudaErrorInvalidValue);
-    self_append_kernel<T><<<dim3(H, B), THREADS, (size_t)window * sizeof(float),
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(knew), static_cast<const T*>(vnew),
-        static_cast<T*>(kc), static_cast<T*>(vc), static_cast<const long long*>(key_start),
-        static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
+    const dim3 grid(H, B);
+    const size_t smem = (size_t)window * sizeof(float);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* q_ = static_cast<const T*>(q);
+    const T* kn = static_cast<const T*>(knew);
+    const T* vn = static_cast<const T*>(vnew);
+    T* kc_ = static_cast<T*>(kc);
+    T* vc_ = static_cast<T*>(vc);
+    const long long* ks = static_cast<const long long*>(key_start);
+    T* o = static_cast<T*>(out);
+    if (anc == nullptr) {
+        self_append_kernel<T><<<grid, THREADS, smem, s>>>(q_, kn, vn, kc_, vc_, ks, o, B, H,
+                                                          n_ctx, layer, pos, window);
+    } else {
+        if (G < 1 || B % G) return static_cast<int>(cudaErrorInvalidValue);
+        beam_self_kernel<T><<<grid, THREADS, smem, s>>>(q_, kn, vn, kc_, vc_, ks,
+                                                        static_cast<const int*>(anc), G, o, B,
+                                                        H, n_ctx, layer, pos, window);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,14 +266,34 @@ extern "C" int self_attention_append_bf16(const void* q, const void* knew, const
                                           void* kc, void* vc, const void* key_start, void* out,
                                           int B, int H, int n_ctx, int layer, int pos,
                                           int window, void* stream) {
-    return launch<bf16>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos,
-                        window, stream);
+    return launch<bf16>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
+                        pos, window, stream);
 }
 
 extern "C" int self_attention_append_f32(const void* q, const void* knew, const void* vnew,
                                          void* kc, void* vc, const void* key_start, void* out,
                                          int B, int H, int n_ctx, int layer, int pos,
                                          int window, void* stream) {
-    return launch<float>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos,
-                         window, stream);
+    return launch<float>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
+                         pos, window, stream);
+}
+
+// As the append entry points, plus anc: [B, n_ctx] int32, beam-local
+// ancestors in [0, G) with anc[b, pos] == b % G; B a multiple of G.
+extern "C" int beam_self_attention_bf16(const void* q, const void* knew, const void* vnew,
+                                        void* kc, void* vc, const void* key_start,
+                                        const void* anc, int G, void* out, int B, int H,
+                                        int n_ctx, int layer, int pos, int window,
+                                        void* stream) {
+    return launch<bf16>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
+                        window, stream);
+}
+
+extern "C" int beam_self_attention_f32(const void* q, const void* knew, const void* vnew,
+                                       void* kc, void* vc, const void* key_start,
+                                       const void* anc, int G, void* out, int B, int H,
+                                       int n_ctx, int layer, int pos, int window,
+                                       void* stream) {
+    return launch<float>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer,
+                         pos, window, stream);
 }

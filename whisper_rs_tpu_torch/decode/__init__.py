@@ -1,7 +1,8 @@
-"""Greedy window decode: filters, prompts, the step loop and ranking."""
+"""Window decode, greedy and beam search: filters, prompts, the step loops
+and ranking."""
 
 from .filters import FilterConfig, apply_filters
-from .loop import DecodeResult, decode_greedy
+from .loop import DecodeResult, decode_beam, decode_greedy
 from .prompt import PREFILL_BUCKETS, build_batch_prompts, prefill_bucket
 from .ranker import rank_max_likelihood
 
@@ -11,6 +12,7 @@ __all__ = [
     "FilterConfig",
     "apply_filters",
     "build_batch_prompts",
+    "decode_beam",
     "decode_greedy",
     "prefill_bucket",
     "rank_max_likelihood",

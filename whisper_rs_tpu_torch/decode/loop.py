@@ -1,11 +1,22 @@
-"""Greedy single-window decode at temperature 0 (counterpart of
-``whisper_rs_tpu/decode/loop.py``): encoder, cross K/V precompute, prompt
-prefill, then a host loop of incremental decoder steps with the logit
-filters, argmax and EOT bookkeeping, in phases of growing attention window.
+"""Single-window decode (counterpart of ``whisper_rs_tpu/decode/loop.py``):
+encoder, cross K/V precompute, prompt prefill, then a host loop of
+incremental decoder steps with the logit filters, in phases of growing
+attention window.  Two token extractors:
 
-The loop checks ``finished.all()`` on the host once a step.  Temperature
-sampling is not ported: the reference draws its noise from JAX's threefry
-generator, which torch cannot reproduce.
+  * greedy at temperature 0 (``decode_greedy``): argmax and EOT
+    bookkeeping; the loop checks ``finished.all()`` on the host once a step;
+  * beam search (``decode_beam``): per-beam top-(beam+1) candidates ranked
+    per audio, EOT candidates into a capacity-capped finished buffer in
+    score order, and the cache read through an ancestor table (gather at
+    read: the cache never moves); the loop checks the finished counts on
+    the host once a step.
+
+Ties among equal scores are broken as JAX's ``lax.top_k`` and stable
+``argsort`` break them: the lower index first.  ``torch.topk`` promises no
+order for ties on the card, so every ranking here is a stable sort.
+
+Temperature sampling is not ported: the reference draws its noise from
+JAX's threefry generator, which torch cannot reproduce.
 """
 
 from __future__ import annotations
@@ -15,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from ..config import GreedyMode
+from ..config import BeamSearchMode, GreedyMode
 from ..models.whisper import CrossKV, KVCache, Whisper, precompute_cross_kv
 from .filters import FilterConfig, apply_filters, log_softmax
 
@@ -70,15 +81,16 @@ def _encode_and_prefill(
 def _step_logits(
     model: Whisper, tokens, pos: int, cross_kv: CrossKV, cache: KVCache,
     cfg: FilterConfig, sample_begin: int, key_start, group: int, ctx_window: int,
-    kernels: bool,
+    kernels: bool, ancestors=None,
 ):
     """One incremental step: feed the token at pos-1, return the filtered
-    logits for position pos.  The step takes the append self-attention and
-    fused MLP kernels, which write the cache in place; the prefill never
-    does, as in the JAX loop."""
+    logits for position pos.  The step takes the append self-attention (the
+    beam kernel with ``ancestors``) and fused MLP kernels, which write the
+    cache in place; the prefill never does, as in the JAX loop."""
     logits = model.decoder(
         tokens[:, pos - 1 : pos], pos - 1, cross_kv, cache, key_start=key_start,
         cross_group=group, ctx_window=ctx_window, kernels=kernels, incremental=True,
+        ancestors=ancestors,
     )
     return apply_filters(cfg, logits[:, 0], tokens, pos, sample_begin)
 
@@ -168,6 +180,174 @@ def decode_greedy(
     return DecodeResult(
         candidates=tokens.reshape(n_audio, group, n_ctx),
         scores=sum_lp.reshape(n_audio, group),
+        no_speech_probs=no_speech,
+        audio_features=feats,
+        steps=step - 1,
+    )
+
+
+# ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _BeamState:
+    tokens: torch.Tensor  # [n_audio*beam, n_ctx]
+    sum_logprobs: torch.Tensor  # [n_audio*beam] f32
+    # finished buffer; slot ``cap`` (the last) takes the writes the
+    # reference drops, and is cut off at the end
+    fin_tokens: torch.Tensor  # [n_audio, cap + 1, n_ctx]
+    fin_scores: torch.Tensor  # [n_audio, cap + 1] f32
+    fin_count: torch.Tensor  # [n_audio]
+    # gather-at-read ancestor table [B, n_ctx] int32, beam-local: logical
+    # beam b's K/V at position j is in physical row b - b % beam + anc[b, j]
+    # (the JAX table holds that global row; a gather within one audio keeps
+    # the local values valid, and the kernel takes them as they are)
+    anc: torch.Tensor
+
+
+def _sort_desc(x: torch.Tensor):
+    """Values descending along the last dim, the lower index first among
+    equal values: the order of ``lax.top_k`` and of a stable ``argsort`` of
+    the negated values."""
+    return torch.sort(x, dim=-1, descending=True, stable=True)
+
+
+def _beam_step(logits, s: _BeamState, pos: int, beam: int, cap: int, eot: int) -> _BeamState:
+    """One beam-search update (JAX ``_beam_step``): per audio, each beam's
+    top-(beam+1) candidates ranked together by cumulative logprob; EOT
+    candidates that outrank the beam-th unfinished one go into the finished
+    buffer in score order, up to ``cap``; the best ``beam`` unfinished
+    candidates continue, with their tokens and ancestor rows gathered from
+    their source beams.  Writes token ``pos``."""
+    n_total, V = logits.shape
+    n_audio = n_total // beam
+    n_ctx = s.tokens.shape[-1]
+    K = beam * (beam + 1)
+    dev = logits.device
+    ar_k = torch.arange(K, device=dev)
+    row0 = torch.arange(n_audio, device=dev)[:, None] * beam  # each audio's first row
+
+    cum = (s.sum_logprobs[:, None] + log_softmax(logits)).view(n_audio, beam, V)
+    top_lp, top_tok = (t[..., : beam + 1] for t in _sort_desc(cum))
+    score = top_lp.reshape(n_audio, K)
+    tok = top_tok.reshape(n_audio, K)
+    src = (ar_k // (beam + 1)).expand(n_audio, K)
+
+    score, order = _sort_desc(score)
+    tok, src = tok.gather(1, order), src.gather(1, order)
+    is_fin = tok == eot
+
+    # continuing beams: the first ``beam`` unfinished in score order (every
+    # beam gives at least ``beam`` unfinished candidates, so there are enough)
+    unf = ~is_fin
+    rank_unf = unf.cumsum(dim=-1)
+    sel_pos = torch.where(unf & (rank_unf <= beam), ar_k, K)
+    sel_idx = sel_pos.sort(dim=-1).values[:, :beam]
+    new_score = score.gather(1, sel_idx).reshape(-1)
+    new_tok = tok.gather(1, sel_idx).reshape(-1)
+    global_src = (src.gather(1, sel_idx) + row0).reshape(-1)
+    tokens = s.tokens[global_src]
+    tokens[:, pos] = new_tok
+
+    # finished candidates: only EOTs that outrank the beam-th unfinished one
+    eligible = is_fin & (rank_unf < beam)
+    slot = s.fin_count[:, None] + eligible.cumsum(dim=-1) - 1
+    writable = eligible & (slot < cap)
+    slot = torch.where(writable, slot, cap)
+    cand = s.tokens[(src + row0).reshape(-1)].view(n_audio, K, n_ctx)
+    cand[:, :, pos] = tok
+    s.fin_tokens.scatter_(1, slot[:, :, None].expand(n_audio, K, n_ctx), cand)
+    s.fin_scores.scatter_(1, slot, score)
+
+    return _BeamState(
+        tokens=tokens,
+        sum_logprobs=new_score,
+        fin_tokens=s.fin_tokens,
+        fin_scores=s.fin_scores,
+        fin_count=s.fin_count + writable.sum(dim=-1),
+        anc=s.anc[global_src],
+    )
+
+
+def decode_beam(
+    model: Whisper,
+    mel: torch.Tensor,  # [n_audio, n_mels, 3000] on the model's device
+    initial_tokens,  # [n_audio, P] prompt (array or tensor)
+    sample_begin: int,
+    sot_idx: int,
+    cfg: FilterConfig,
+    mode: BeamSearchMode,
+    sample_len: int,
+    no_speech_id: int,
+    key_start=None,  # [n_audio] first valid prompt slot per row
+    kernels: bool = True,
+) -> DecodeResult:
+    """Beam-search decode of one batch of 30 s windows: ``beam_size`` rows
+    per audio share one cross K/V, and every step reads the self-attention
+    cache through the ancestor table.  Candidates [n_audio, cap, n_ctx] with
+    ``cap = max(beam, round(patience * beam))``, EOT-terminated.
+    ``kernels=False`` runs every kernel's plain version instead."""
+    beam = mode.beam_size
+    cap = max(beam, int(round(mode.patience * beam)))
+    dev = model.device
+    eot = cfg.token_id_eot
+    n_ctx = model.dims.n_text_ctx
+    initial_tokens = torch.as_tensor(initial_tokens, dtype=torch.long, device=dev)
+    if key_start is not None:
+        key_start = torch.as_tensor(key_start, dtype=torch.long, device=dev)
+
+    tokens, logits, cache, cross_kv, no_speech, feats, key_start = _encode_and_prefill(
+        model, mel.to(dev), initial_tokens, sample_begin, sot_idx, beam, cfg,
+        no_speech_id, key_start, kernels,
+    )
+    B = tokens.shape[0]
+    n_audio = B // beam
+    own = torch.arange(B, dtype=torch.int32, device=dev) % beam  # each row's own beam
+
+    # only beam 0 of each audio is live at the first step, so the identical
+    # prefixes of the others never enter the top candidates
+    s = _BeamState(
+        tokens=tokens,
+        sum_logprobs=torch.where(
+            own == 0, torch.zeros((), device=dev), torch.full((), BIG_NEG, device=dev)
+        ),
+        fin_tokens=torch.zeros((n_audio, cap + 1, n_ctx), dtype=torch.long, device=dev),
+        fin_scores=torch.full((n_audio, cap + 1), BIG_NEG, dtype=torch.float32, device=dev),
+        fin_count=torch.zeros((n_audio,), dtype=torch.long, device=dev),
+        anc=own[:, None].expand(B, n_ctx).contiguous(),
+    )
+    # the first step takes the prefill logits; the prefill wrote every row
+    # itself, so each row's own beam is the right table for it
+    s = _beam_step(logits, s, sample_begin, beam, cap, eot)
+
+    step, pos = 1, sample_begin + 1
+    for W in _phase_windows(n_ctx, initial_tokens.shape[1], sample_len):
+        while step < sample_len and pos < W and not bool((s.fin_count >= cap).all()):
+            # slot pos-1, written by this step, belongs to each row itself
+            s.anc[:, pos - 1] = own
+            logits = _step_logits(
+                model, s.tokens, pos, cross_kv, cache, cfg, sample_begin, key_start,
+                beam, W, kernels, ancestors=s.anc,
+            )
+            s = _beam_step(logits, s, pos, beam, cap, eot)
+            step, pos = step + 1, pos + 1
+
+    # finalize: each audio with fewer than ``beam`` finished sequences is
+    # filled up from its live beams, best first, EOT-terminated
+    write_pos = min(pos, n_ctx - 1)
+    live_tokens = s.tokens.view(n_audio, beam, n_ctx).clone()
+    live_tokens[:, :, write_pos] = eot
+    live_scores, order = _sort_desc(s.sum_logprobs.view(n_audio, beam))
+    live_tokens = live_tokens.gather(1, order[:, :, None].expand(n_audio, beam, n_ctx))
+    slot = s.fin_count[:, None] + torch.arange(beam, device=dev)
+    slot = torch.where(slot < beam, slot, cap)
+    s.fin_tokens.scatter_(1, slot[:, :, None].expand(n_audio, beam, n_ctx), live_tokens)
+    s.fin_scores.scatter_(1, slot, live_scores)
+    return DecodeResult(
+        candidates=s.fin_tokens[:, :cap],
+        scores=s.fin_scores[:, :cap],
         no_speech_probs=no_speech,
         audio_features=feats,
         steps=step - 1,

@@ -19,9 +19,12 @@ every width-1 decoder pass takes the cross-attention kernel of
 (``incremental=True``) also takes the append self-attention kernel, which
 writes the step's K/V column and masks by ``pos`` and ``key_start`` itself
 (no additive mask is built), and the fused MLP kernel of
-``ops/decoder_mlp_fused.py``.  Projections, the logits, the prefill's
-self-attention, cross-attention and MLP stay ``torch.matmul``, as the JAX
-package left them to XLA.
+``ops/decoder_mlp_fused.py``.  A beam step (``ancestors`` given) takes the
+beam self-attention kernel instead of the append kernel: it writes the
+column the same way and reads each slot from the row that the ancestor
+table names (gather at read; the cache never moves).  Projections, the
+logits, the prefill's self-attention, cross-attention and MLP stay
+``torch.matmul``, as the JAX package left them to XLA.
 
 The KV cache is updated in place.  Its planes are ctx-major
 ``[L, B, H, n_ctx, dh]``; the cross K/V keeps the JAX fused layout
@@ -40,6 +43,8 @@ from torch import nn
 
 from ..config import ModelDims
 from ..ops.decode_attention import (
+    beam_self_attention_step,
+    beam_self_attention_step_plain,
     cross_attention_step,
     cross_attention_step_plain,
     self_attention_append_step,
@@ -197,11 +202,13 @@ class ResidualAttentionBlock(nn.Module):
 
     def decoder_forward(
         self, x, layer: int, pos_offset: int, mask, window: int, cross_kv: CrossKV,
-        cache: KVCache, cross_group: int, kernels: bool, key_start=None,
+        cache: KVCache, cross_group: int, kernels: bool, key_start=None, anc_local=None,
     ) -> torch.Tensor:
         """One decoder block.  ``mask`` None marks an incremental step: the
-        append kernel writes the K/V column and masks by ``pos_offset`` and
-        ``key_start``, and the MLP takes the fused kernel."""
+        append kernel (the beam kernel with ``anc_local``, [B, n_ctx] int32
+        beam-local ancestors) writes the K/V column and masks by
+        ``pos_offset`` and ``key_start``, and the MLP takes the fused
+        kernel."""
         B, T, D = x.shape
         H = self.attn.n_head
         dh = D // H
@@ -211,12 +218,18 @@ class ResidualAttentionBlock(nn.Module):
         h = layer_norm(x, self.attn_ln)
         if mask is None:
             hs = h[:, 0]
-            fn = self_attention_append_step if kernels else self_attention_append_step_plain
-            attn = fn(
+            args = (
                 (self.attn.query(hs) * scale).view(B, H, dh),
                 self.attn.key(hs).view(B, H, dh), self.attn.value(hs).view(B, H, dh),
-                cache.k, cache.v, layer, pos_offset, key_start, window=window,
-            ).reshape(B, 1, D)
+                cache.k, cache.v, layer, pos_offset, key_start,
+            )
+            if anc_local is None:
+                fn = self_attention_append_step if kernels else self_attention_append_step_plain
+                attn = fn(*args, window=window)
+            else:
+                fn = beam_self_attention_step if kernels else beam_self_attention_step_plain
+                attn = fn(*args, anc_local, cross_group, window=window)
+            attn = attn.reshape(B, 1, D)
         else:
             q = split_heads(self.attn.query(h), H) * scale
             cache.k[layer, :, :, pos_offset : pos_offset + T] = split_heads(self.attn.key(h), H)
@@ -313,7 +326,8 @@ class TextDecoder(nn.Module):
         cross_group: int = 1,
         ctx_window: Optional[int] = None,  # cap on attended cache slots
         kernels: bool = True,
-        incremental: bool = False,  # a greedy step: the append and MLP kernels
+        incremental: bool = False,  # a step: the append (or beam) and MLP kernels
+        ancestors: Optional[torch.Tensor] = None,  # [B, n_ctx] int32 beam-local (beam)
     ) -> torch.Tensor:
         """One decoder pass; returns f32 logits [B, T (or K), n_vocab] and
         updates ``cache`` in place.
@@ -324,7 +338,14 @@ class TextDecoder(nn.Module):
         sits at 0, and a pad query keeps its own slot visible so its softmax
         row is never empty (no NaN).  An ``incremental`` step (T = 1, after
         the prefill, so ``pos_offset >= key_start``) builds no mask: the
-        append kernel masks by position itself."""
+        append kernel masks by position itself.
+
+        ``ancestors`` (an incremental beam step, rows in groups of
+        ``cross_group`` beams) names for each row b and slot j the beam of
+        b's audio whose row holds that K/V (physical row ``b - b % G +
+        ancestors[b, j]``); its column ``pos_offset`` must be ``b % G``.
+        The step then takes the beam kernel, which masks by the key_start
+        of each audio's first row."""
         B, T = tokens.shape
         dev = tokens.device
         n_ctx = self.positional_embedding.shape[0]
@@ -341,13 +362,15 @@ class TextDecoder(nn.Module):
             mask = None
         else:
             mask = self._mask(q_pos, W, key_start)
+        if ancestors is not None and not incremental:
+            raise ValueError("ancestors are read by an incremental step only")
 
         dtype = self.positional_embedding.dtype
         x = self.token_embedding.weight[tokens].to(dtype) + pos.to(dtype)
         for layer, block in enumerate(self.blocks):
             x = block.decoder_forward(
                 x, layer, pos_offset, mask, W, cross_kv, cache, cross_group, kernels,
-                key_start,
+                key_start, ancestors,
             )
         if logit_positions is not None:
             x = x[:, logit_positions]

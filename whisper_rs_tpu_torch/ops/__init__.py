@@ -16,6 +16,7 @@ LAUNCHES = {
     "encoder_attention_merged": 0,
     "cross_attention_step": 0,
     "self_attention_append_step": 0,
+    "beam_self_attention_step": 0,
     "decoder_mlp_step": 0,
 }
 

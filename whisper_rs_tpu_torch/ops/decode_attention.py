@@ -9,6 +9,13 @@ Math, as in the Pallas kernel: f32 scores of the pre-scaled q, masked slots
 at the finite NEG, ``w = e / sum(e)`` kept in f32 (never rounded to the
 cache dtype), ``w V`` accumulated in f32 and cast to the query dtype.
 
+``beam_self_attention_step`` (the same source, the same body): one beam
+step's self-attention with the ancestors resolved at read time.  Rows are
+beams of A audios in groups of G (``b = a G + g``); slot j of row b is read
+from row ``a G + anc_local[b, j]``, and the visible slots are
+``key_start[a G] <= j <= pos``, the key_start of the audio's first row, as
+in the Pallas kernel.  The column write and the math are the append step's.
+
 ``cross_attention_step`` (``csrc/cross_attention.cu``): G query rows per
 audio share one encoder K/V, read from the fused layout
 ``kv [L, A, H, 2, dh, Tk]`` (K^T and V^T planes, see ``models.whisper.
@@ -37,6 +44,27 @@ def _check_append_args(name, q, k_all, layer: int, pos: int, window: int):
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     if not 0 <= pos < window <= n_ctx:
         raise ValueError(f"{name}: needs 0 <= pos ({pos}) < window ({window}) <= n_ctx ({n_ctx})")
+
+
+def _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *extra):
+    """What the CUDA step kernels take: head dim 64; q, k_new, v_new and the
+    caches f32 or bf16 alike; key_start int64 [B]; every tensor contiguous,
+    16-byte aligned and on q's device."""
+    if k_all.shape[-1] != HEAD_DIM or k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError(f"{name}: q, k_new, v_new must be [B, H, {HEAD_DIM}] alike")
+    if v_all.shape != k_all.shape:
+        raise ValueError(f"{name}: k_all {tuple(k_all.shape)} vs v_all {tuple(v_all.shape)}")
+    tensors = (q, k_new, v_new, k_all, v_all)
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}")
+    B = k_all.shape[1]
+    if key_start is not None and (key_start.dtype != torch.int64 or key_start.shape != (B,)):
+        raise ValueError(f"{name}: key_start must be int64 [{B}]")
+    for t in tensors + extra + (() if key_start is None else (key_start,)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on different devices")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned")
 
 
 def self_attention_append_step_plain(
@@ -78,21 +106,8 @@ def self_attention_append_step(
     if not q.is_cuda:
         raise ValueError(f"{name}: unsupported device {q.device}")
     _check_append_args(name, q, k_all, layer, pos, window)
+    _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
-    if dh != HEAD_DIM or k_new.shape != q.shape or v_new.shape != q.shape:
-        raise ValueError(f"{name}: q, k_new, v_new must be [B, H, {HEAD_DIM}] alike")
-    if v_all.shape != k_all.shape:
-        raise ValueError(f"{name}: k_all {tuple(k_all.shape)} vs v_all {tuple(v_all.shape)}")
-    tensors = (q, k_new, v_new, k_all, v_all)
-    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors):
-        raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}")
-    if key_start is not None and (key_start.dtype != torch.int64 or key_start.shape != (B,)):
-        raise ValueError(f"{name}: key_start must be int64 [{B}]")
-    for t in tensors + (() if key_start is None else (key_start,)):
-        if t.device != q.device:
-            raise ValueError(f"{name}: tensors on different devices")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned")
     out = torch.empty_like(q)
     symbol = "self_attention_append_bf16" if q.dtype == torch.bfloat16 else "self_attention_append_f32"
     fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, P))
@@ -107,10 +122,91 @@ def self_attention_append_step(
     return out
 
 
-def _no_int8(k_scale, v_scale):
+def _check_beam_args(name, q, k_all, layer, pos, window, key_start, anc_local, group):
+    _check_append_args(name, q, k_all, layer, pos, window)
+    L, B, H, n_ctx, dh = k_all.shape
+    if group < 1 or B % group:
+        raise ValueError(f"{name}: {B} rows are not groups of {group}")
+    if anc_local.shape != (B, n_ctx):
+        raise ValueError(f"{name}: anc_local {tuple(anc_local.shape)}, want ({B}, {n_ctx})")
+    if key_start is not None and key_start.shape != (B,):
+        raise ValueError(f"{name}: key_start {tuple(key_start.shape)}, want ({B},)")
+
+
+def beam_self_attention_step_plain(
+    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
+    v_all: torch.Tensor, layer: int, pos: int, key_start, anc_local: torch.Tensor,
+    group: int, *, window: int, k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """Plain version: writes ``k_new``/``v_new`` [B, H, dh] into slot ``pos``
+    of ``k_all``/``v_all`` [L, B, H, n_ctx, dh] at ``layer`` in place, then
+    attends with slot j of row ``b = a G + g`` taken from row
+    ``a G + anc_local[b, j]``; returns [B, H, dh]."""
+    _no_int8(k_scale, v_scale, "beam self-attention caches")
+    _check_beam_args(
+        "beam_self_attention_step", q, k_all, layer, pos, window, key_start, anc_local, group
+    )
+    B = q.shape[0]
+    k_all[layer, :, :, pos] = k_new
+    v_all[layer, :, :, pos] = v_new
+    first = torch.arange(B, device=q.device) // group * group  # each audio's first row
+    ids = torch.arange(window, device=q.device)
+    src = first[:, None] + anc_local[:, :window].long()  # [B, W] physical rows
+    k = k_all[layer][src, :, ids].transpose(1, 2).float()  # [B, H, W, dh]
+    v = v_all[layer][src, :, ids].transpose(1, 2).float()
+    s = torch.einsum("bhd,bhwd->bhw", q.float(), k)
+    visible = (ids[None, :] <= pos).expand(B, window)
+    if key_start is not None:
+        visible = visible & (ids[None, :] >= key_start[first][:, None])
+    s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhw,bhwd->bhd", w, v).to(q.dtype)
+
+
+def beam_self_attention_step(
+    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
+    v_all: torch.Tensor, layer: int, pos: int, key_start, anc_local: torch.Tensor,
+    group: int, *, window: int, k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """One beam step's self-attention at ``layer``, with this step's K/V
+    column written into the cache in place: the kernel on the card, the
+    plain version on the CPU.  q, k_new, v_new [B, H, dh] (q pre-scaled);
+    caches [L, B, H, n_ctx, dh]; ``key_start`` [B] int64 or None (zeros);
+    ``anc_local`` [B, n_ctx] int32 beam-local ancestors in [0, group), with
+    ``anc_local[b, pos] == b % group`` (the row's own fresh column)."""
+    if q.device.type == "cpu":
+        return beam_self_attention_step_plain(
+            q, k_new, v_new, k_all, v_all, layer, pos, key_start, anc_local, group,
+            window=window, k_scale=k_scale, v_scale=v_scale,
+        )
+    name = "beam_self_attention_step"
+    if not q.is_cuda:
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _no_int8(k_scale, v_scale, "beam self-attention caches")
+    _check_beam_args(name, q, k_all, layer, pos, window, key_start, anc_local, group)
+    _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, anc_local)
+    if anc_local.dtype != torch.int32:
+        raise ValueError(f"{name}: anc_local must be int32")
+    L, B, H, n_ctx, dh = k_all.shape
+    out = torch.empty_like(q)
+    symbol = "beam_self_attention_bf16" if q.dtype == torch.bfloat16 else "beam_self_attention_f32"
+    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, P))
+    err = fn(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+        None if key_start is None else key_start.data_ptr(), anc_local.data_ptr(), int(group),
+        out.data_ptr(), B, H, n_ctx, int(layer), int(pos), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check("self_attention", symbol, err)
+    LAUNCHES["beam_self_attention_step"] += 1
+    return out
+
+
+def _no_int8(k_scale, v_scale, what: str = "cross K/V"):
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
-            "int8 cross K/V (k_scale/v_scale) waits for the quantisation slice"
+            f"int8 {what} (k_scale/v_scale) waits for the quantisation slice"
         )
 
 
