@@ -2,15 +2,19 @@
 
     python3 chip_smoke.py
 
-Three paths, seeded random weights: greedy decode of base.en at batch 128
+Four paths, seeded random weights: greedy decode of base.en at batch 128
 and of large-v3 at batch 12 (full width and depth: 128 mel bins, D 1280, 20
-heads, 32 + 32 layers, vocab 51866), unprompted, 224-token budget; and beam
+heads, 32 + 32 layers, vocab 51866), unprompted, 224-token budget; beam
 search (beam 5, patience 1.0) of medium.en at batch 8 (full width and
 depth: 80 mel bins, D 1024, 16 heads, 24 + 24 layers, vocab 51864; 40
 decoder rows), prompted as bench.py's BENCH_PROMPTED builds its prompts
 (232-wide prefill, window phases 256 and 448, the 224-token budget capped
-by the context at 216 steps).  Phases, in order; any mismatch raises and
-the script exits nonzero:
+by the context at 216 steps); and greedy decode of medium.en at batch 8,
+prompted the same way, through each of the incremental step's three
+routes (``decode_greedy(step_kernel=...)``): ``layer``, the whole decoder
+step in one launch of the megakernel; ``ctx``, torch's column write and
+the read-only fused self-attention; ``append``, the default.  Phases, in
+order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
@@ -21,15 +25,21 @@ the script exits nonzero:
               mel (f32) and the encoder kernels in bf16; the cross kernel
               (G = 5 rows an audio on the beam path) and the step kernels
               in f32 and bf16 everywhere: the append self-attention on the
-              greedy paths, the beam self-attention on the beam path.
-              Printed: max abs/rel error against the kernel's tolerance,
-              kernel ms, plain ms, bound ms (the larger of bytes over
-              3.35 TB/s and operations over the peak rate of their type)
-              and library ms (one PyTorch call for the same function, timed
-              only as a yardstick).  Calls shorter than a millisecond are
-              timed as CUDA graphs of many calls, so the host's launch time
-              stays out of the device time.  The beam path also times its
-              per-step candidate ranking (a stable sort over the vocab);
+              greedy paths, the beam self-attention on the beam path; on
+              the routes' path the fused self-attention, the cross kernel
+              and the MLP at 8 rows, and the whole-step kernel (f32 at full
+              depth, bf16 at LAYER_BF16_DEPTH layers; beside its time the
+              layered step's as a CUDA graph).  Printed: max abs/rel error
+              against the kernel's tolerance, kernel ms, plain ms, bound ms
+              (the larger of bytes over 3.35 TB/s and operations over the
+              peak rate of their type) and library ms (one PyTorch call for
+              the same function, timed only as a yardstick; none for the
+              whole step, which also prints the mean time of each of its
+              eight phases from one launch with its phase clock).  Calls
+              shorter than a millisecond are timed as CUDA graphs of many
+              calls, so the host's launch time stays out of the device
+              time.  The beam path also times its per-step candidate
+              ranking (a stable sort over the vocab);
   4. parity   f32, 4 seeded 30 s windows, through the kernels and through
               the plain versions: base.en at full width, and large-v3 at
               full width with the depth cut to 4 + 4 layers, log_mel_frontend
@@ -43,16 +53,27 @@ the script exits nonzero:
               2e-6|plain| and no-speech probabilities within 1e-5, unless
               the plain path's selection margin (the beam-th unfinished
               candidate's score less the next one's) of that audio fell
-              below 1e-3 at some step;
-  5. e2e      each path in bf16, timed 3 times, with every launch count set
-              to 0 just before each run and read just after: each kernel
-              launched as expected (cross attention n_text_layer times a
-              width-1 decoder pass, the step self-attention and the fused
-              MLP n_text_layer times an incremental step, the beam kernel
-              and never the append kernel on the beam path); audio-s/s of
-              the median run, and the mel+encoder / prefill / steps split;
-              the beam path prints each audio's selected candidate;
-  6. profile  one more e2e run of each under torch.profiler: its idle share
+              below 1e-3 at some step; medium.en cut to 4 + 4 layers,
+              prompted, decode_greedy through the layer and ctx routes: the
+              same four steps' filtered logits within 1e-3, tokens equal per
+              row unless the plain path's top-2 margin at the first
+              divergent position is below 1e-3;
+  5. e2e      each path in bf16, timed 3 times (the ctx and append routes
+              once each), with every launch count set to 0 just before each
+              run and read just after: each kernel launched as expected
+              (cross attention n_text_layer times a width-1 decoder pass,
+              the step self-attention and the fused MLP n_text_layer times
+              an incremental step, the beam kernel and never the append
+              kernel on the beam path; on the layer route the whole-step
+              kernel once a step and none of the layered step's kernels);
+              audio-s/s of the median run, and the mel+encoder / prefill /
+              steps split; the beam path prints each audio's selected
+              candidate; on the routes' path, one incremental step of each
+              route under torch.profiler gives its device launches a
+              step;
+  6. profile  one more e2e run of each under torch.profiler (the first three
+              paths cut to PROFILE_STEPS tokens, which keeps the trace's
+              processing short; the layer route in full): its idle share
               and where its device time goes;
   7. the kernels line (JSON), the card line, and last the contract line.
 
@@ -86,7 +107,13 @@ from whisper_rs_tpu_torch.decode import (
 from whisper_rs_tpu_torch.decode import loop as decode_loop
 from whisper_rs_tpu_torch.decode.filters import log_softmax
 from whisper_rs_tpu_torch.decode.loop import _encode_and_prefill
-from whisper_rs_tpu_torch.models import KVCache, init_random, precompute_cross_kv
+from whisper_rs_tpu_torch.models import (
+    CrossKV,
+    KVCache,
+    TextDecoder,
+    init_random,
+    precompute_cross_kv,
+)
 from whisper_rs_tpu_torch.ops import LAUNCHES, reset_launches
 from whisper_rs_tpu_torch.ops.build import build_all
 from whisper_rs_tpu_torch.ops.decode_attention import (
@@ -96,6 +123,13 @@ from whisper_rs_tpu_torch.ops.decode_attention import (
     cross_attention_step_plain,
     self_attention_append_step,
     self_attention_append_step_plain,
+    self_attention_fused_step,
+    self_attention_fused_step_plain,
+)
+from whisper_rs_tpu_torch.ops.decoder_layer_fused import (
+    decoder_step_fused,
+    decoder_step_fused_plain,
+    decoder_step_weights,
 )
 from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step, decoder_mlp_step_plain
 from whisper_rs_tpu_torch.ops.encoder_attention import (
@@ -114,6 +148,16 @@ MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, no TF32
 # (model, audios a batch, beam size; 0 for greedy) of each path
 PATHS = (("base.en", 128, 0), ("large-v3", 12, 0), ("medium.en", 8, 5))
+# the greedy-step routes' path: medium.en, audios a batch, prompted; the
+# append route is the default and the yardstick of the other two
+ROUTES_PATH = ("medium.en", 8)
+ROUTES = ("layer", "ctx", "append")
+GREEDY_CHECK_POS = (233, 255, 256, 400)  # steps checked plain vs kernel, routes parity
+LAYER_BF16_DEPTH = 4  # decoder layers of the whole-step kernel's bf16 check
+# the whole-step kernel's phases, in order (csrc/decoder_layer.cu)
+PHASES = ("ln1+qkv", "self-attention", "out-proj", "ln2+cross-q", "cross-attention",
+          "cross-out", "ln3+fc1+gelu", "fc2")
+PROFILE_STEPS = 48  # incremental steps of the profiled run of the first three paths
 PARITY_DEPTH = {"large-v3": 4, "medium.en": 4}  # layers kept in the parity phase
 SAMPLE_LEN = 224
 PARITY_WINDOWS = 4
@@ -134,6 +178,19 @@ STEP_WINDOW = 256  # the append kernel is timed at W = 256, pos = W - 1
 # ulp (2^-8 relative) where the two sums land on either side of a boundary,
 # and a GELU value rounded on the other side now and then.
 TOL_F32 = (1e-4, 1e-4)
+# The whole-step kernel's bf16 check runs LAYER_BF16_DEPTH layers: the
+# residual is rounded to bf16 after every sub-block, so a sum taken in
+# another order that lands on the other side of a rounding boundary moves
+# x by one bf16 ulp, and that step feeds every later layer.  At 4 layers
+# of the check's inputs |x| reaches about 6.5, where one ulp is 2^-5 =
+# 0.031, and the kernel differs from its plain version by up to 2 such
+# ulps (0.0625, measured on the H100; plain versions that differ only in
+# the order of their sums do the same on the CPU,
+# tests/test_torch_package.py).  The atol is 3 of them, the rtol one ulp
+# of each element.  A step that skips one layer's cross-attention misses
+# by 3.5 times the tolerance or more, one that masks from key_start + 1 by
+# 1.3 times at W 448 and 3.4 times at W 256.
+TOL_LAYER_BF16 = (3 * 2**-5, 1e-2)
 TOL_BF16 = {
     "ln_fused": (1e-3, 1e-2),
     "residual_ln": (1e-3, 1e-2),
@@ -142,6 +199,8 @@ TOL_BF16 = {
     "self_attention_append_step": (2e-3, 1e-2),
     "beam_self_attention_step": (2e-3, 1e-2),
     "decoder_mlp_step": (1e-3, 1e-2),
+    "self_attention_fused_step": (2e-3, 1e-2),
+    "decoder_step_fused": TOL_LAYER_BF16,
 }
 
 
@@ -218,7 +277,8 @@ def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph
                  checked=None):
     """Compare the kernel with its plain version (or take ``checked``, the
     (max abs error, tolerance share) of a comparison made by the caller),
-    then time the kernel, the plain version and the library call."""
+    then time the kernel, the plain version and the library call (None
+    where no one PyTorch call computes the function)."""
     tol = tolerance(name, dtype)
     if checked is None:
         got, want = kernel(), plain()
@@ -233,13 +293,13 @@ def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph
         "tol_share": share,
         "ms": timed_ms(kernel, reps, graph),
         "plain_ms": timed_ms(plain, max(1, reps // 4), graph),
-        "library_ms": timed_ms(library, reps, graph),
+        "library_ms": None if library is None else timed_ms(library, reps, graph),
     }
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    lib = "none" if library is None else f"{row['library_ms']:.4f} ms"
     print(
         f"    kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
-        f"library {row['library_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})",
+        f"library {lib} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
         flush=True,
     )
     return row
@@ -361,18 +421,19 @@ def check_cross(dims, A: int, G: int, dtype, randn) -> dict:
     )
 
 
-def check_step_attention(dims, A: int, G: int, dtype, randn, gen) -> dict:
+def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = False) -> dict:
     """The step self-attention at the step shapes of A audios of G rows: the
-    append kernel (G = 1) or the beam kernel, with random ancestors in
-    [0, G) that differ between the rows of an audio (the row's own at slot
-    pos, as the decode loop sets it).  q, k_new, v_new [A G, H, 64] (q
-    pre-scaled, unit-scale scores), caches [L, A G, H, 448, 64] of
-    unit-scale values.  Checked at W = 256, pos = 255 and at W = 448,
-    pos = 400 with a non-zero key_start (in 1..299 for the append kernel;
-    in 1..231, the prefill's range, and varied within each audio for the
-    beam kernel, so that masking by the row's own fails), against the plain
-    version, and both caches: slot pos equals k_new and v_new, and no other
-    slot changed.  Timed at W = 256, pos = 255."""
+    append kernel (G = 1), the read-only fused kernel (G = 1, ``fused``) or
+    the beam kernel, with random ancestors in [0, G) that differ between the
+    rows of an audio (the row's own at slot pos, as the decode loop sets
+    it).  q, k_new, v_new [A G, H, 64] (q pre-scaled, unit-scale scores),
+    caches [L, A G, H, 448, 64] of unit-scale values.  Checked at W = 256,
+    pos = 255 and at W = 448, pos = 400 with a non-zero key_start (in
+    1..299 for the append kernel; in 1..231, the prefill's range, for the
+    fused kernel at both, and varied within each audio for the beam kernel,
+    so that masking by the row's own fails), against the plain version, and
+    both caches: slot pos equals k_new and v_new, and no other slot changed
+    (the fused kernel changes none).  Timed at W = 256, pos = 255."""
     H, dh, L, n_ctx = dims.n_text_head, dims.head_dim, dims.n_text_layer, dims.n_text_ctx
     B = A * G
     dev = torch.device("cuda")
@@ -381,12 +442,19 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen) -> dict:
     q = randn(B, H, dh, dtype=dtype, scale=dh**-0.5)
     k_new, v_new = randn(B, H, dh, dtype=dtype), randn(B, H, dh, dtype=dtype)
     k_all, v_all = randn(L, B, H, n_ctx, dh, dtype=dtype), randn(L, B, H, n_ctx, dh, dtype=dtype)
-    if G == 1:
+    new, extra = (k_new, v_new), ()
+    if fused:
+        name, kernel, plain = (
+            "self_attention_fused_step", self_attention_fused_step,
+            self_attention_fused_step_plain,
+        )
+        new, ks_top = (), 231
+    elif G == 1:
         name, kernel, plain = (
             "self_attention_append_step", self_attention_append_step,
             self_attention_append_step_plain,
         )
-        extra, ks_top = (), 299
+        ks_top = 299
     else:
         name, kernel, plain = (
             "beam_self_attention_step", beam_self_attention_step, beam_self_attention_step_plain,
@@ -395,14 +463,16 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen) -> dict:
         anc[:, [STEP_WINDOW - 1, 400]] = (torch.arange(B, device=dev) % G).to(torch.int32)[:, None]
         extra, ks_top = (anc, G), 231
     ks_nonzero = torch.arange(B, device=dev) * 37 % ks_top + 1
+    checks = ((STEP_WINDOW, STEP_WINDOW - 1, ks_nonzero if fused else None),
+              (n_ctx, 400, ks_nonzero))
 
     def run(fn, caches, pos, ks, W):
-        return fn(q, k_new, v_new, *caches, layer, pos, ks, *extra, window=W)
+        return fn(q, *new, *caches, layer, pos, ks, *extra, window=W)
 
     tol = tolerance(name, dtype)
     tag = str(dtype).split(".")[-1]
     worst = (0.0, 0.0)
-    for W, pos, ks in ((STEP_WINDOW, STEP_WINDOW - 1, None), (n_ctx, 400, ks_nonzero)):
+    for W, pos, ks in checks:
         before = (k_all.clone(), v_all.clone())
         plain_caches = (k_all.clone(), v_all.clone())
         got = run(kernel, (k_all, v_all), pos, ks, W)
@@ -411,17 +481,18 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen) -> dict:
                       f"{f' key_start 1..{ks_top}' if ks is not None else ''}", (got,), (want,),
                       tol)
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
-        for cache, new, old, plain_cache in zip((k_all, v_all), (k_new, v_new), before,
-                                                plain_caches):
-            if not torch.equal(cache[layer, :, :, pos], new):
-                raise AssertionError(f"{name}: slot pos is not k_new/v_new")
+        for cache, old, plain_cache in zip((k_all, v_all), before, plain_caches):
             cache_rest, old_rest = cache.clone(), old.clone()
-            cache_rest[layer, :, :, pos] = 0
-            old_rest[layer, :, :, pos] = 0
+            if new:
+                if not torch.equal(cache[layer, :, :, pos], new[0 if cache is k_all else 1]):
+                    raise AssertionError(f"{name}: slot pos is not k_new/v_new")
+                cache_rest[layer, :, :, pos] = 0
+                old_rest[layer, :, :, pos] = 0
             if not torch.equal(cache_rest, old_rest) or not torch.equal(cache, plain_cache):
-                raise AssertionError(f"{name}: a slot other than pos changed")
+                raise AssertionError(f"{name}: a cache slot changed that should not")
         del before, plain_caches
-    print("  cache write: slot pos equals k_new and v_new exactly; no other slot changed",
+    print("  cache: " + ("unchanged" if fused else
+                         "slot pos equals k_new and v_new exactly; no other slot changed"),
           flush=True)
 
     W, pos = STEP_WINDOW, STEP_WINDOW - 1
@@ -449,12 +520,13 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen) -> dict:
         table = B * n * 4
         print(f"  bound: {kv_rows} distinct (source row, slot) pairs of this run's "
               f"ancestors, of {B * n} (row, slot) reads", flush=True)
+    vectors = 2 if fused else 6  # q in, out; and k_new, v_new in, the column out
     return check_kernel(
         name, dtype,
         lambda: run(kernel, (k_all, v_all), pos, None, W),
         lambda: run(plain, (k_all, v_all), pos, None, W),
         sdpa,
-        nbytes=(2 * kv_rows * H * dh + 6 * B * H * dh) * isz + table,
+        nbytes=(2 * kv_rows * H * dh + vectors * B * H * dh) * isz + table,
         flops=4 * B * H * n * dh, reps=50, checked=worst,
     )
 
@@ -491,6 +563,171 @@ def check_mlp(dims, B: int, dtype, randn) -> dict:
         three_calls, nbytes=(8 * D * D + 4 * D + 2 * B * D) * isz, flops=16 * B * D * D,
         reps=50,
     )
+
+
+def random_decoder(dims, n_layer: int, dtype, gen, device) -> TextDecoder:
+    """A ``TextDecoder`` of ``dims``' width with ``n_layer`` layers of seeded
+    random weights drawn on ``device``: linear weights N(0, 1/n_in),
+    embeddings N(0, 0.02^2), biases and LayerNorm offsets N(0, 0.1^2) and
+    LayerNorm scales 1 + N(0, 0.1^2), so that a bias or a LayerNorm
+    parameter a kernel drops or misplaces shows."""
+    with torch.device("meta"):
+        dec = TextDecoder(dims.n_vocab, dims.n_text_ctx, dims.n_text_state, dims.n_text_head,
+                          n_layer)
+    dec = dec.to_empty(device=device)
+    with torch.no_grad():
+        for name, p in dec.named_parameters():
+            r = torch.randn(p.shape, generator=gen, device=device)
+            if "embedding" in name:
+                p.copy_(r * 0.02)
+            elif p.dim() == 2:
+                p.copy_(r * p.shape[1] ** -0.5)
+            else:
+                p.copy_(r * 0.1 + (1.0 if name.endswith("ln.weight") else 0.0))
+    return dec.to(dtype)
+
+
+def layer_step_case(dims, n_layer: int, B: int, G: int, dtype, gen, device):
+    """Inputs of one whole-decoder step of B rows in groups of G: x [B, D]
+    (the embedded token), the cross K/V [L, B / G, H, 2, 64, Tk] and both
+    caches [L, B, H, n_ctx, 64], all of unit scale."""
+    D, H, n_ctx = dims.n_text_state, dims.n_text_head, dims.n_text_ctx
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    return (randn(B, D), randn(n_layer, B // G, H, 2, 64, dims.n_audio_ctx),
+            randn(n_layer, B, H, n_ctx, 64), randn(n_layer, B, H, n_ctx, 64))
+
+
+def layer_step(fn, weights, x, kv, caches, pos: int, ks, H: int, G: int, W: int) -> tuple:
+    """One whole-decoder step by ``fn`` (the kernel's wrapper or its plain
+    version) on ``caches``, written in place: (x out, the K columns
+    [L, B, H, 64] and the V columns written at pos)."""
+    kc, vc = caches
+    out = fn(x, weights, kv, kc, vc, pos, ks, n_head=H, group=G, window=W)
+    return out, kc[:, :, :, pos].clone(), vc[:, :, :, pos].clone()
+
+
+def check_layer_step(dims, B: int, dtype, gen) -> dict:
+    """The whole-decoder-step kernel against its plain version on seeded
+    random decoders (``random_decoder``) and unit-scale inputs: in f32 at
+    full depth, in bf16 at LAYER_BF16_DEPTH layers (see TOL_BF16); at W 256,
+    pos 255 and W 448, pos 400 with key_start in 1..231, and once with
+    G = 2 (B / 2 audios of 2 rows) at W 448, pos 400.  Compared: x out and
+    every K/V column written; every other cache slot unchanged.  Timed at
+    full depth, W 256, pos 255, no key_start, with CUDA events around
+    back-to-back launches (a cooperative launch is not captured in a
+    graph here); beside it the port's layered step as a CUDA graph (one
+    incremental ``TextDecoder.forward``, ``step_kernel="append"``, at the
+    same state) and the layer route's forward (this kernel with the
+    embedding, the final LayerNorm and the logits around it)."""
+    dev = torch.device("cuda")
+    L, H, D, n_ctx = dims.n_text_layer, dims.n_text_head, dims.n_text_state, dims.n_text_ctx
+    Tk = dims.n_audio_ctx
+    isz = torch.tensor([], dtype=dtype).element_size()
+    tag = str(dtype).split(".")[-1]
+    name = "decoder_step_fused"
+    tol = tolerance(name, dtype)
+    depth = L if dtype == torch.float32 else LAYER_BF16_DEPTH
+    dec = random_decoder(dims, depth, dtype, gen, dev)
+    weights = decoder_step_weights(dec.blocks)
+    ks = torch.arange(B, device=dev) * 37 % 231 + 1
+    worst = (0.0, 0.0)
+    for G, W, pos in ((1, STEP_WINDOW, STEP_WINDOW - 1), (1, n_ctx, 400), (2, n_ctx, 400)):
+        x, kv, kc, vc = layer_step_case(dims, depth, B, G, dtype, gen, dev)
+        before = (kc.clone(), vc.clone())
+        plain_caches = (kc.clone(), vc.clone())
+        got = layer_step(decoder_step_fused, weights, x, kv, (kc, vc), pos, ks, H, G, W)
+        want = layer_step(decoder_step_fused_plain, weights, x, kv, plain_caches, pos, ks, H, G,
+                          W)
+        err = compare(f"{name} {tag} {depth} layers G {G} W {W} pos {pos} key_start 1..231 "
+                      f"(x, K and V columns)", got, want, tol)
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        for cache, old in zip((kc, vc), before):
+            rest, old_rest = cache.clone(), old.clone()
+            rest[:, :, :, pos] = 0
+            old_rest[:, :, :, pos] = 0
+            if not torch.equal(rest, old_rest):
+                raise AssertionError(f"{name}: a cache slot other than pos changed")
+        del x, kv, kc, vc, before, plain_caches
+    print("  cache: only slot pos of each layer written", flush=True)
+
+    if depth != L:
+        del dec, weights
+        torch.cuda.empty_cache()
+        dec = random_decoder(dims, L, dtype, gen, dev)
+        weights = decoder_step_weights(dec.blocks)
+    W, pos = STEP_WINDOW, STEP_WINDOW - 1
+    x, kv, kc, vc = layer_step_case(dims, L, B, 1, dtype, gen, dev)
+    tokens = torch.randint(0, dims.n_vocab, (B, 1), generator=gen, device=dev)
+
+    def forward(route):
+        return dec(tokens, pos, CrossKV(kv), KVCache(kc, vc), ctx_window=W, incremental=True,
+                   step_kernel=route, step_weights=weights)
+
+    layered_ms = timed_ms(lambda: forward("append"), reps=10, graph=True)
+    route_ms = timed_ms(lambda: forward("layer"), reps=20)
+    nbytes = (sum(t.numel() for layer in weights.layers for t in layer) + kv.numel()
+              + 2 * L * B * H * (pos + 1) * 64 + 2 * L * B * D + 2 * B * D) * isz
+    flops = 2 * B * 14 * D * D * L + 4 * B * H * 64 * ((pos + 1) + Tk) * L
+    row = check_kernel(
+        name, dtype,
+        lambda: decoder_step_fused(x, weights, kv, kc, vc, pos, None, n_head=H, group=1,
+                                   window=W),
+        lambda: decoder_step_fused_plain(x, weights, kv, kc, vc, pos, None, n_head=H, group=1,
+                                         window=W),
+        None, nbytes=nbytes, flops=flops, reps=20, graph=False, checked=worst,
+    )
+    row["layered_step_ms"], row["layer_route_forward_ms"] = layered_ms, route_ms
+    print(f"    layered step (step_kernel=\"append\", one TextDecoder.forward, CUDA graph) "
+          f"{layered_ms:.4f} ms | layer route forward {route_ms:.4f} ms", flush=True)
+
+    # one more launch with the kernel's phase clock: the mean time of each
+    # phase over the layers (block 0's view, its barrier wait included)
+    clock = torch.zeros(8 * L + 1, dtype=torch.int64, device=dev)
+    decoder_step_fused(x, weights, kv, kc, vc, pos, None, n_head=H, group=1, window=W,
+                       clock=clock)
+    torch.cuda.synchronize()
+    spans = (clock[1:] - clock[:-1]).view(L, 8).double().mean(dim=0) / 1e3  # us
+    phase_bytes = [3 * D * D, 2 * B * H * (pos + 1) * 64, D * D, D * D, kv[0].numel(), D * D,
+                   4 * D * D, 4 * D * D]
+    row["phase_us"] = dict(zip(PHASES, spans.tolist()))
+    print(f"    phases, mean over {L} layers of one clocked launch "
+          f"({(clock[-1] - clock[0]).item() / 1e6:.4f} ms in all): " + "; ".join(
+              f"{name} {us:.1f} us ({n * isz / us / 1e3:.0f} GB/s)"
+              for name, us, n in zip(PHASES, spans.tolist(), phase_bytes)), flush=True)
+    del dec, weights, x, kv, kc, vc
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_checks_routes(dims, B: int) -> dict:
+    """The kernels of the two greedy-step routes at their shapes (B rows,
+    G = 1), in f32 and bf16: on the ctx route the read-only fused
+    self-attention, the cross kernel and the MLP; on the layer route the
+    whole-decoder-step kernel.  Returns {kernel: {"f32" | "bf16": row}}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {name: {} for name in KERNELS}
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] self_attention_fused_step ({tag})", flush=True)
+        rows["self_attention_fused_step"][tag] = check_step_attention(
+            dims, B, 1, dtype, randn, gen, fused=True
+        )
+        print(f"[kernels] cross_attention_step ({tag}, 1 row an audio)", flush=True)
+        rows["cross_attention_step"][tag] = check_cross(dims, B, 1, dtype, randn)
+        print(f"[kernels] decoder_mlp_step ({tag})", flush=True)
+        rows["decoder_mlp_step"][tag] = check_mlp(dims, B, dtype, randn)
+        print(f"[kernels] decoder_step_fused ({tag})", flush=True)
+        rows["decoder_step_fused"][tag] = check_layer_step(dims, B, dtype, gen)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def filter_config(dims):
@@ -704,6 +941,226 @@ def parity_beam(dims, label: str, beam: int) -> None:
     torch.cuda.empty_cache()
 
 
+def parity_routes(dims, label: str) -> None:
+    """The greedy decode through each of the two step routes, f32, prompted
+    as BENCH_PROMPTED: through the kernels and through the plain versions.
+    The filtered logits of the steps at GREEDY_CHECK_POS (the first step,
+    both ends of the 256 phase, one at 448), plain against kernel on the
+    kernel path's own state, within 1e-3; tokens equal per row unless the
+    plain path's top-2 margin at the first divergent position is below
+    1e-3; no-speech probabilities within 1e-5."""
+    print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, prompted, greedy, step_kernel "
+          f"layer and ctx", flush=True)
+    model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    cfg = filter_config(dims)
+    rng = np.random.default_rng(2)
+    audio = np.stack([
+        rng.standard_normal(480_000).astype(np.float32) * np.float32(0.05 * (i + 1))
+        for i in range(PARITY_WINDOWS)
+    ])
+    initial, key_start, sample_begin, sot_idx = bench_prompts(rng, PARITY_WINDOWS, dims.n_text_ctx)
+    sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
+    logits_fn, update_fn = decode_loop._step_logits, decode_loop._greedy_update
+    for route in ("layer", "ctx"):
+        step_diffs, margins = [], {}
+
+        def checking_logits(model, tokens, pos, cross_kv, cache, *args, **kw):
+            # at GREEDY_CHECK_POS, the plain step on a copy of the kernel
+            # path's state, then the kernel step: the filtered logits of both
+            if pos not in GREEDY_CHECK_POS:
+                return logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
+            *head, kernels = args
+            want = logits_fn(model, tokens, pos, cross_kv,
+                             KVCache(cache.k.clone(), cache.v.clone()), *head, False, **kw)
+            got = logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
+            if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+                raise AssertionError(f"{route} step at position {pos}: filtered-logit masks differ")
+            fin = torch.isfinite(want)
+            step_diffs.append((pos, (got[fin] - want[fin]).abs().max().item()))
+            return got
+
+        def recording_update(logits, tokens, pos, *args):
+            # the plain path's top-2 margin of every row at every position
+            top = logits.topk(2, dim=-1).values
+            margins[pos] = (top[:, 0] - top[:, 1]).tolist()
+            return update_fn(logits, tokens, pos, *args)
+
+        out = {}
+        for kernels in (True, False):
+            reset_launches()
+            mel = log_mel_frontend(audio, dims.n_mels, kernels=kernels)
+            if kernels:
+                decode_loop._step_logits = checking_logits
+            else:
+                decode_loop._greedy_update = recording_update
+            try:
+                out[kernels] = decode_greedy(
+                    model, mel, initial, sample_begin, sot_idx, cfg, GreedyMode(), sample_len,
+                    NO_SPEECH, key_start=key_start, kernels=kernels, step_kernel=route,
+                )
+            finally:
+                decode_loop._step_logits, decode_loop._greedy_update = logits_fn, update_fn
+            if kernels:
+                print(f"  {route}: kernel-path launches {dict(LAUNCHES)} (with "
+                      f"{len(step_diffs)} plain steps of the logits check)", flush=True)
+        torch.cuda.synchronize()
+        for pos, d in step_diffs:
+            print(f"  {route} step at position {pos}, on the kernel path's state: filtered logits "
+                  f"max_abs_err {d:.3e} (tolerance 1e-3)", flush=True)
+        if not step_diffs or step_diffs[0][0] != GREEDY_CHECK_POS[0] or max(
+                d for _, d in step_diffs) > 1e-3:
+            raise AssertionError(f"{route}: step logits {step_diffs} (tolerance 1e-3)")
+        res_k, res_p = out[True], out[False]
+        dn = (res_k.no_speech_probs - res_p.no_speech_probs).abs().max().item()
+        print(f"  {route}: steps {res_k.steps} (plain {res_p.steps}); no-speech probs "
+              f"max_abs_err {dn:.3e} (tolerance 1e-5)", flush=True)
+        if dn > 1e-5:
+            raise AssertionError("no-speech probabilities differ beyond 1e-5")
+        tk, tp = res_k.candidates[:, 0], res_p.candidates[:, 0]
+        for r in range(PARITY_WINDOWS):
+            diff = (tk[r] != tp[r]).nonzero()
+            if diff.numel() == 0:
+                print(f"  {route} row {r}: identical", flush=True)
+                continue
+            pos = int(diff[0])
+            margin = margins[pos][r]
+            print(f"  {route} row {r}: diverges at position {pos}; plain top-2 margin "
+                  f"{margin:.3e}", flush=True)
+            if margin >= 1e-3:
+                raise AssertionError(f"{route} row {r} diverges at {pos} with margin {margin:.3e}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def expected_launches(dims, steps: int, n_passes: int, route: str) -> dict:
+    """The launch count of each kernel on one e2e batch: cross attention
+    n_text_layer times a width-1 decoder pass, the step kernels of the route
+    n_text_layer times an incremental step (the beam kernel in the append
+    kernel's place on the beam path), the whole-step kernel once a step."""
+    L = dims.n_text_layer
+    layered = route != "layer"
+    return {
+        "log_mel": 1,
+        "ln_fused": dims.n_audio_layer,
+        "residual_ln": dims.n_audio_layer,
+        "encoder_attention_merged": dims.n_audio_layer,
+        "cross_attention_step": L * (n_passes if layered else n_passes - steps),
+        "self_attention_append_step": L * steps if route == "append" else 0,
+        "beam_self_attention_step": L * steps if route == "beam" else 0,
+        "decoder_mlp_step": L * steps if layered else 0,
+        "self_attention_fused_step": L * steps if route == "ctx" else 0,
+        "decoder_step_fused": steps if route == "layer" else 0,
+    }
+
+
+def e2e_routes(dims, name: str, batch: int) -> dict:
+    """Greedy decode of ``batch`` audios in bf16 at full width and depth,
+    prompted as BENCH_PROMPTED, through each step route: ``layer`` timed
+    E2E_REPS times and profiled once, ``ctx`` and ``append`` timed once
+    each, on the same audios and prompts.  Returns {route: launches}."""
+    print(f"[e2e] {name} bf16 batch {batch}, greedy, prompted: step_kernel layer {E2E_REPS} "
+          f"timed runs, ctx and append one each", flush=True)
+    t0 = time.perf_counter()
+    model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+    print(f"  init_random {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = filter_config(dims)
+    rng = np.random.default_rng(0)
+    audio = rng.standard_normal((batch, 480_000)).astype(np.float32) * np.float32(0.1)
+    initial, key_start, sample_begin, sot_idx = bench_prompts(rng, batch, dims.n_text_ctx)
+    sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
+    print(f"  sample_begin {sample_begin}, budget {sample_len} tokens", flush=True)
+
+    def run(a, route, budget=sample_len):
+        mel = log_mel_frontend(a, dims.n_mels, dtype=torch.bfloat16)
+        res = decode_greedy(model, mel, initial, sample_begin, sot_idx, cfg, GreedyMode(), budget,
+                            NO_SPEECH, key_start=key_start, step_kernel=route)
+        torch.cuda.synchronize()
+        return res
+
+    for route in ROUTES:  # warm-up: kernel libraries, cuBLAS set-up
+        run(audio + np.float32(0.001), route, budget=4)
+    prompt = torch.as_tensor(initial, device="cuda")
+    ks = torch.as_tensor(key_start, device="cuda")
+
+    def timed_part(with_prefill: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16)
+        if with_prefill:
+            _encode_and_prefill(model, mel, prompt, sample_begin, sot_idx, 1, cfg, NO_SPEECH, ks,
+                                True)
+        else:
+            model.encoder(mel)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    t_enc, t_pre = timed_part(False), timed_part(True)
+    print(f"  split: mel+encoder {t_enc:.3f} s; prefill {t_pre - t_enc:.3f} s", flush=True)
+    launches, results = {}, {}
+    for route in ROUTES:
+        times = []
+        for _ in range(E2E_REPS if route == "layer" else 1):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = run(audio, route)
+            times.append(time.perf_counter() - t0)
+            launches[route] = dict(LAUNCHES)
+            expect = expected_launches(dims, res.steps, res.steps, route)
+            if res.steps < 1 or launches[route] != expect:
+                raise AssertionError(f"e2e {route}: launches {launches[route]}, expected {expect}")
+        cand = res.candidates
+        if cand.shape != (batch, 1, dims.n_text_ctx) or not torch.isfinite(res.scores).all():
+            raise AssertionError(f"e2e {route}: malformed decode result")
+        if not ((cand[:, 0, :sample_begin] == prompt).all()
+                and (cand[:, 0, sample_begin] >= cfg.token_id_ts_begin).all()
+                and (cand[:, 0, sample_begin + 1:] == cfg.token_id_eot).any(dim=-1).all()):
+            raise AssertionError(f"e2e {route}: prompt, first timestamp or EOT missing")
+        if not ((0 <= res.no_speech_probs) & (res.no_speech_probs <= 1)).all():
+            raise AssertionError(f"e2e {route}: no-speech probabilities outside [0, 1]")
+        results[route] = res
+        elapsed = float(np.median(times))
+        steps = res.steps
+        print(f"  {route}: steps {steps}; runs {', '.join(f'{t:.3f}' for t in times)} s; "
+              f"median {elapsed:.3f} s, {batch * 30.0 / elapsed:.2f} audio-s/s; steps "
+              f"{elapsed - t_pre:.3f} s, {(elapsed - t_pre) / steps * 1e3:.2f} ms a step; "
+              f"launches of the port's kernels a step "
+              f"{sum(launches[route].values()) / steps:.2f}", flush=True)
+        print(f"  {route} launches: {launches[route]}", flush=True)
+    # one incremental step of each route (the loop body of decode_greedy,
+    # its host sync included) under torch.profiler, from the same prefill
+    tokens, filtered, cache, cross_kv, _, _, ks_b = _encode_and_prefill(
+        model, log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16), prompt, sample_begin,
+        sot_idx, 1, cfg, NO_SPEECH, ks, True,
+    )
+    sum_lp = torch.zeros(batch, device="cuda")
+    done = torch.zeros(batch, dtype=torch.bool, device="cuda")
+    sum_lp, done = decode_loop._greedy_update(filtered, tokens, sample_begin, sum_lp, done,
+                                              cfg.token_id_eot)
+    weights = decoder_step_weights(model.decoder.blocks)
+    for route in ROUTES:
+        state = KVCache(cache.k.clone(), cache.v.clone())
+
+        def step():
+            pos = sample_begin + 1
+            logits = decode_loop._step_logits(
+                model, tokens, pos, cross_kv, state, cfg, sample_begin, ks_b, 1, 256, True,
+                step_kernel=route, step_weights=weights)
+            bool(decode_loop._greedy_update(logits, tokens, pos, sum_lp, done,
+                                            cfg.token_id_eot)[1].all())
+
+        print(f"  {route}: one step under torch.profiler: {device_launches(step)} device "
+              f"launches (kernels and copies)", flush=True)
+        del state
+    same = [int((results[r].candidates == results["append"].candidates).all(dim=-1).sum())
+            for r in ROUTES]
+    print(f"  rows whose tokens equal the append route's (bf16 rounds at other places on each "
+          f"route): {dict(zip(ROUTES, same))} of {batch}", flush=True)
+    profile_run(lambda a: run(a, "layer"), audio, "one e2e run of the layer route")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
     """One path in bf16 at full width and depth: greedy and unprompted, or
     (``beam`` > 0) beam search prompted as bench.py's BENCH_PROMPTED."""
@@ -724,9 +1181,9 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
         sample_len, mode, decode, group = SAMPLE_LEN, GreedyMode(), decode_greedy, 1
     print(f"  sample_begin {sample_begin}, budget {sample_len} tokens", flush=True)
 
-    def run(a):
+    def run(a, budget=sample_len):
         mel = log_mel_frontend(a, dims.n_mels, dtype=torch.bfloat16)
-        res = decode(model, mel, initial, sample_begin, sot_idx, cfg, mode, sample_len,
+        res = decode(model, mel, initial, sample_begin, sot_idx, cfg, mode, budget,
                      NO_SPEECH, key_start=key_start)
         torch.cuda.synchronize()
         return res
@@ -743,17 +1200,7 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
         # cross kernel too, but not the incremental-step kernels
         steps = res.steps
         n_passes = steps + (1 if sample_begin == 1 else 0)
-        L = dims.n_text_layer
-        expect = {
-            "log_mel": 1,
-            "ln_fused": dims.n_audio_layer,
-            "residual_ln": dims.n_audio_layer,
-            "encoder_attention_merged": dims.n_audio_layer,
-            "cross_attention_step": L * n_passes,
-            "self_attention_append_step": 0 if beam else L * steps,
-            "beam_self_attention_step": L * steps if beam else 0,
-            "decoder_mlp_step": L * steps,
-        }
+        expect = expected_launches(dims, steps, n_passes, "beam" if beam else "append")
         if steps < 1 or launches != expect:
             raise AssertionError(f"e2e: launches {launches}, expected {expect}")
 
@@ -808,7 +1255,8 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
           f"{t_steps:.3f} s, {t_steps / steps * 1e3:.2f} ms a step (a width-1 decoder pass "
           f"and the token update); prefill+steps over the width-1 passes "
           f"{(elapsed - t_enc) / n_passes * 1e3:.2f} ms a pass", flush=True)
-    profile_run(run, audio)
+    profile_run(lambda a: run(a, PROFILE_STEPS), audio,
+                f"one e2e run cut to {PROFILE_STEPS} tokens")
     del model
     torch.cuda.empty_cache()
     return launches
@@ -824,6 +1272,8 @@ OWN_KERNELS = {
     "beam_self_kernel": "beam_self_attention_step",
     "mlp_fc1_gelu_kernel": "decoder_mlp_step (fc1 + GELU)",
     "mlp_fc2_kernel": "decoder_mlp_step (fc2)",
+    "self_fused_kernel": "self_attention_fused_step",
+    "decoder_step_kernel": "decoder_step_fused",
 }
 
 
@@ -843,7 +1293,29 @@ def device_kind(name: str) -> str:
     return "library: elementwise/other"
 
 
-def profile_run(run, audio) -> None:
+def device_launches(fn, warmup: int = 2) -> int:
+    """Device launches (kernels and copies on the card) of one call of
+    ``fn`` under torch.profiler.  The profiler records ``warmup`` calls
+    before the one it reports: a window of a single short call lost its
+    first events on the H100 (the whole-step kernel among them).  Only the
+    count is read: the durations of this short window were not plausible on
+    the H100 (11.96 ms for a layer-route step whose kernels take 4.4 ms)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=1, repeat=1)) as prof:
+        for _ in range(warmup + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key != "Activity Buffer Request"]
+    return sum(e.count for e in events)
+
+
+def profile_run(run, audio, what: str) -> None:
     """One more run of the e2e batch under torch.profiler: its wall time, its
     device busy time (the sum of kernel durations; one stream, so kernels do
     not overlap) and idle share, device time by kind, and the top kernels."""
@@ -862,7 +1334,7 @@ def profile_run(run, audio) -> None:
         print("[profile] the trace holds no device time: not measured", flush=True)
         return
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[profile] one e2e run under torch.profiler: wall {wall_ms:.1f} ms; "
+    print(f"[profile] {what} under torch.profiler: wall {wall_ms:.1f} ms; "
           f"device busy {busy_ms:.1f} ms; idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     by_kind: dict = {}
     for e in events:
@@ -892,6 +1364,10 @@ KERNELS = {
                                  "whisper_rs_tpu/ops/decode_attention.py:924"),
     "decoder_mlp_step": ("cuda", "whisper_rs_tpu_torch/csrc/decoder_mlp.cu",
                          "whisper_rs_tpu/ops/decoder_mlp_fused.py:121"),
+    "self_attention_fused_step": ("cuda", "whisper_rs_tpu_torch/csrc/self_attention.cu",
+                                  "whisper_rs_tpu/ops/decode_attention.py:285"),
+    "decoder_step_fused": ("cuda", "whisper_rs_tpu_torch/csrc/decoder_layer.cu",
+                           "whisper_rs_tpu/ops/decoder_layer_fused.py:499"),
 }
 
 
@@ -919,55 +1395,79 @@ def main() -> int:
         return f"{m} b{b}" + (f" beam{beam}" if beam else "")
 
     rows, launches = {}, {}
+    routes_model, routes_batch = ROUTES_PATH
+    routes_label = f"{routes_model} b{routes_batch} greedy"
+    layer_label, ctx_label = (f"{routes_label} prompted, {r}" for r in ("layer", "ctx"))
     for m, b, beam in PATHS:
         t0 = time.perf_counter()
         dtypes = (torch.float32, torch.bfloat16) if m == "base.en" else (torch.bfloat16,)
         rows[label(m, b, beam)] = kernel_checks(dims_for(m), b, dtypes, group=max(beam, 1))
         phase_done(f"kernels {label(m, b, beam)}", t0)
-    for m, _, beam in PATHS:
+    t0 = time.perf_counter()
+    checked = kernel_checks_routes(dims_for(routes_model), routes_batch)
+    rows[layer_label] = {name: checked[name] if name == "decoder_step_fused" else {}
+                         for name in KERNELS}
+    rows[ctx_label] = {name: {} if name == "decoder_step_fused" else checked[name]
+                       for name in KERNELS}
+    phase_done(f"kernels {routes_label} routes", t0)
+
+    for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
         dims, text = dims_for(m), f"{m} full width"
         if m in PARITY_DEPTH:
             n = PARITY_DEPTH[m]
             dims = dataclasses.replace(dims, n_audio_layer=n, n_text_layer=n)
             text += f", depth cut to {n} + {n} layers (dataclasses.replace: {dims})"
-        if beam:
+        if beam is None:
+            parity_routes(dims, text)
+        elif beam:
             parity_beam(dims, text, beam)
         else:
             parity(dims, text)
-        phase_done(f"parity {m}", t0)
+        phase_done(f"parity {m}" + (" greedy routes" if beam is None else ""), t0)
     for m, b, beam in PATHS:
         t0 = time.perf_counter()
         launches[label(m, b, beam)] = e2e(dims_for(m), m, b, beam)
         phase_done(f"e2e {label(m, b, beam)}", t0)
+    t0 = time.perf_counter()
+    by_route = e2e_routes(dims_for(routes_model), routes_model, routes_batch)
+    launches[layer_label], launches[ctx_label] = by_route["layer"], by_route["ctx"]
+    phase_done(f"e2e {routes_label} routes", t0)
 
-    # each kernel's headline numbers come from the beam path, which runs
-    # every kernel but the append self-attention; that one's from large-v3
+    # each kernel's headline numbers come from the path of this slice that
+    # runs it: the whole-step kernel's from the layer route, the fused
+    # self-attention's from the ctx route; the append kernel's from
+    # large-v3; every other kernel's from the beam path
+    headline = {"decoder_step_fused": layer_label, "self_attention_fused_step": ctx_label,
+                "self_attention_append_step": label(*PATHS[1])}
+    configs = [label(*path) for path in PATHS] + [layer_label, ctx_label]
+    extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us")
     line = []
     for name, (route, source, replaces) in KERNELS.items():
         by_config = {}
-        for m, b, beam in PATHS:
-            checked = rows[label(m, b, beam)][name]
+        for config in configs:
+            checked = rows[config][name]
             if not checked:
                 continue
             r = checked.get("bf16", checked.get("f32"))
-            by_config[label(m, b, beam)] = {
+            by_config[config] = {
                 "dtype": "bf16" if "bf16" in checked else "f32",
-                "launches": launches[label(m, b, beam)][name],
+                "launches": launches[config][name],
                 **{k: r[k] for k in ("max_abs_err", "atol", "rtol", "tol_share", "ms",
                                      "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                **{k: r[k] for k in extra_keys if k in r},
                 "f32": {k: v for k, v in checked.get("f32", {}).items()
                         if k in ("max_abs_err", "tol_share", "ms", "plain_ms", "bound_ms",
-                                 "library_ms")},
+                                 "library_ms") + extra_keys},
             }
-        main_config = label(*PATHS[-1]) if label(*PATHS[-1]) in by_config else label(*PATHS[1])
+        main_config = headline.get(name, label(*PATHS[-1]))
         main = by_config[main_config]
         line.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "config": main_config,
             **{k: main[k] for k in ("launches", "max_abs_err", "atol", "rtol", "tol_share",
                                     "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "library_ms") + extra_keys if k in main},
             "by_config": by_config,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

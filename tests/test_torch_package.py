@@ -96,7 +96,9 @@ def _meta_calls():
         beam_self_attention_step,
         cross_attention_step,
         self_attention_append_step,
+        self_attention_fused_step,
     )
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import DecoderStepWeights, decoder_step_fused
     from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step
     from whisper_rs_tpu_torch.ops.encoder_attention import encoder_attention_merged
     from whisper_rs_tpu_torch.ops.encoder_fused import ln_fused, residual_ln
@@ -120,6 +122,13 @@ def _meta_calls():
             None, torch.empty(2, 16, dtype=torch.int32, device="meta"), 2, window=8,
         ),
         "decoder_mlp_step": lambda: decoder_mlp_step(m(2, 128), m(512, 128), m(512), m(128, 512)),
+        "self_attention_fused_step": lambda: self_attention_fused_step(
+            m(1, 2, 64), m(1, 1, 2, 16, 64), m(1, 1, 2, 16, 64), 0, 3, window=8,
+        ),
+        "decoder_step_fused": lambda: decoder_step_fused(
+            m(2, 128), DecoderStepWeights((), m(1, 21)), m(1, 2, 2, 2, 64, 8),
+            m(1, 2, 2, 16, 64), m(1, 2, 2, 16, 64), 3, None, n_head=2, group=1, window=8,
+        ),
     }
 
 
@@ -128,7 +137,7 @@ def _meta_calls():
     [
         "raw_log10_mel", "ln_fused", "residual_ln", "encoder_attention_merged",
         "cross_attention_step", "self_attention_append_step", "beam_self_attention_step",
-        "decoder_mlp_step",
+        "decoder_mlp_step", "self_attention_fused_step", "decoder_step_fused",
     ],
 )
 def test_wrappers_raise_off_the_cpu_without_a_kernel(name):
@@ -306,3 +315,62 @@ def test_chip_smoke_selection_margin_is_the_gap_after_the_beam_th_unfinished(chi
     assert margin.shape == (1,)
     assert margin.item() == pytest.approx((lp[0, 3] - lp[1, 6]).item(), rel=1e-6)
     assert margin.item() > 0.5
+
+
+def _layer_step_outputs(chip_smoke, fault=None):
+    """Row 12 in bf16 at chip_smoke's first check: medium.en width (vocab
+    cut, the step never reads the embedding), LAYER_BF16_DEPTH layers, 8
+    rows, W 256, pos 255, key_start in 1..231; the plain step's outputs (x, K and V
+    columns), with a fault planted or, for "reordered", every product summed
+    in f64 as another order of f32 sums would round."""
+    import dataclasses
+
+    from whisper_rs_tpu_torch.config import dims_for
+    from whisper_rs_tpu_torch.ops import decoder_layer_fused as dlf
+
+    dims = dataclasses.replace(dims_for("medium.en"), n_vocab=64)
+    depth, B, W, pos = chip_smoke.LAYER_BF16_DEPTH, 8, 256, 255
+    gen = torch.Generator().manual_seed(3)
+    dec = chip_smoke.random_decoder(dims, depth, torch.bfloat16, gen, "cpu")
+    weights = dlf.decoder_step_weights(dec.blocks)
+    x, kv, kc, vc = chip_smoke.layer_step_case(dims, depth, B, 1, torch.bfloat16, gen, "cpu")
+    ks = torch.arange(B) * 37 % 231 + 1
+
+    def run(weights=weights, ks=ks):
+        return chip_smoke.layer_step(dlf.decoder_step_fused_plain, weights, x, kv,
+                                     (kc.clone(), vc.clone()), pos, ks, dims.n_text_head, 1, W)
+
+    right = run()
+    if fault == "masks_from_key_start_plus_1":
+        return right, run(ks=ks + 1)
+    if fault == "skips_layer_1_cross_attention":  # its out-projection and bias to 0
+        layers = [list(layer) for layer in weights.layers]
+        wco = dlf.WEIGHT_NAMES.index("cross_attn.out.weight")
+        layers[1][wco] = torch.zeros_like(layers[1][wco])
+        layers[1][wco + 1] = torch.zeros_like(layers[1][wco + 1])
+        return right, run(dlf.DecoderStepWeights(tuple(map(tuple, layers)), weights.table))
+    real_dot = dlf._dot
+    dlf._dot = lambda a, w: (a.double() @ w.double().T).to(a.dtype)
+    try:
+        return right, run()
+    finally:
+        dlf._dot = real_dot
+
+
+@pytest.mark.parametrize("fault", ["skips_layer_1_cross_attention", "masks_from_key_start_plus_1"])
+def test_chip_smoke_bf16_tolerance_rejects_faulty_layer_step(chip_smoke, fault):
+    """The whole-step kernel's bf16 tolerance at 4 layers fails a step that
+    skips one layer's cross-attention or masks from key_start + 1."""
+    right, wrong = _layer_step_outputs(chip_smoke, fault)
+    name = "decoder_step_fused"
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.compare(name, wrong, right, chip_smoke.tolerance(name, torch.bfloat16))
+
+
+def test_chip_smoke_bf16_tolerance_takes_sums_in_another_order(chip_smoke):
+    """...and takes a step whose products are summed in another order, as
+    the kernel's are, with a margin: under 0.7 of the tolerance."""
+    right, reordered = _layer_step_outputs(chip_smoke, "reordered")
+    name = "decoder_step_fused"
+    _, share = chip_smoke.compare(name, reordered, right, chip_smoke.tolerance(name, torch.bfloat16))
+    assert 0 < share < 0.7

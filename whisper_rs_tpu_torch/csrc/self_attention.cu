@@ -1,6 +1,5 @@
-// One decode step's self-attention for layer l, with this step's K/V column
-// written into the cache inside the kernel, in two entry points over one
-// body:
+// One decode step's self-attention for layer l, in three entry points over
+// one body:
 //
 //   append (greedy):  K[l, b, h, pos] = k_new[b, h];  V[l, b, h, pos] = v_new[b, h];
 //                     out[b, h] = softmax_j(q[b, h] . K[l, b, h, j]) V[l, b, h, j]
@@ -9,14 +8,18 @@
 //                     from row r(b, j) = a G + anc[b, j] (the beam-local
 //                     ancestor that holds beam b's key at position j), and
 //                     the visible slots are key_start[a G] <= j <= pos (the
-//                     audio's first row).
+//                     audio's first row);
+//   fused (greedy):   the append step with the write compiled out: the caller
+//                     has written slot pos already, and the kernel only reads.
 //
 // Masked slots are left out, with f32 scores, f32 weights w = e / sum(e)
 // (never rounded to the cache dtype) and an f32 sum, cast to the query dtype.
 //
 // Replaces: whisper_rs_tpu/ops/decode_attention.py::
-// self_attention_append_step (kernel body _self_append_kernel) and
-// beam_self_attention_step (kernel body _beam_self_kernel).  The TPU append
+// self_attention_append_step (kernel body _self_append_kernel),
+// beam_self_attention_step (kernel body _beam_self_kernel) and
+// self_attention_fused_step (kernel body _self_fused_kernel, the TPU's
+// read-only kernel over ctx-major planes, which are this port's layout).  The TPU append
 // kernel kept both planes transposed and lane-padded to 512, spliced the
 // column into a VMEM copy and wrote back the aligned 128-wide block, with
 // DMAs double-buffered across programs.  The TPU beam kernel, which cannot
@@ -35,11 +38,12 @@
 // 700 W power limit), for 4 FLOP per element pair; the beam kernel adds
 // the ancestor table's 4 bytes per visible slot.
 //
-// Design: one block of 8 warps per (head, row).  The block first writes its
-// own (b, h) column, which no other block reads: at slot pos every row's
-// ancestor is itself (the decode loop sets that column of the table to the
-// identity before the step), so the block uses the fresh k and v from the
-// inputs for slot pos rather than re-reading it.  Only slots lo..pos are
+// Design: one block of 8 warps per (head, row).  The append and beam blocks
+// first write their own (b, h) column, which no other block reads: at slot
+// pos every row's ancestor is itself (the decode loop sets that column of
+// the table to the identity before the step), so the block uses the fresh
+// k and v from the inputs for slot pos rather than re-reading it; the
+// fused block reads slot pos from the cache.  Only slots lo..pos are
 // read: masked slots have weight exactly 0 in f32 (exp of NEG - max
 // underflows), so skipping them changes nothing.  A group of 8 lanes (16 in
 // f32) reads one key row with 16-byte loads; the scores go to shared
@@ -79,10 +83,12 @@ __device__ __forceinline__ void load16(const bf16* p, float (&x)[8]) {
     }
 }
 
-// The body of both kernels for block (h, b).  anc: null for the append
-// kernel (every slot from row b, key_start of row b); else the [B, n_ctx]
-// beam-local ancestor table of groups of G rows.
-template <typename T>
+// The body of the three kernels for block (h, b).  anc: null for the append
+// and fused kernels (every slot from row b, key_start of row b); else the
+// [B, n_ctx] beam-local ancestor table of groups of G rows.  WRITE: this
+// step's column comes in knew/vnew and is written here; without it, knew
+// and vnew are unused and slot pos is read from the cache like any other.
+template <typename T, bool WRITE>
 __device__ __forceinline__ void attend_step(
     const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
     T* __restrict__ kc, T* __restrict__ vc, const long long* __restrict__ key_start,
@@ -102,8 +108,8 @@ __device__ __forceinline__ void attend_step(
     const size_t row_stride = (size_t)H * n_ctx * DH;  // between batch rows
     const size_t head = (size_t)layer * B * row_stride + (size_t)h * n_ctx * DH;
     const int first = anc ? (b / G) * G : b;  // the audio's first row (beam)
-    const T* kn = knew + row * DH;
-    const T* vn = vnew + row * DH;
+    const T* kn = WRITE ? knew + row * DH : nullptr;
+    const T* vn = WRITE ? vnew + row * DH : nullptr;
 
     // the cache row that holds slot j of this block's row
     auto slot = [&](T* c, int j) -> const T* {
@@ -112,7 +118,7 @@ __device__ __forceinline__ void attend_step(
     };
 
     // this block's own column, read by no other block
-    if (tid < DH) {
+    if (WRITE && tid < DH) {
         kc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = kn[tid];
         vc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = vn[tid];
     }
@@ -140,7 +146,7 @@ __device__ __forceinline__ void attend_step(
         float part = 0.f;
         if (j <= hi && !empty) {
             float kx[VEC];
-            load16((j == pos ? kn : slot(kc, j)) + seg * VEC, kx);
+            load16((WRITE && j == pos ? kn : slot(kc, j)) + seg * VEC, kx);
 #pragma unroll
             for (int e = 0; e < VEC; ++e) part = fmaf(qx[e], kx[e], part);
         }
@@ -183,7 +189,7 @@ __device__ __forceinline__ void attend_step(
         if (j <= hi) {
             const float wj = ws[j - lo];
             float vx[VEC];
-            load16((j == pos ? vn : slot(vc, j)) + seg * VEC, vx);
+            load16((WRITE && j == pos ? vn : slot(vc, j)) + seg * VEC, vx);
 #pragma unroll
             for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wj, vx[e], acc[e]);
         }
@@ -214,8 +220,8 @@ self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                    const long long* __restrict__ key_start, T* __restrict__ out,
                    int B, int H, int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];  // [n] scores, then weights, of slots lo..hi
-    attend_step<T>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
-                   pos, W, ws);
+    attend_step<T, true>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
+                         pos, W, ws);
 }
 
 template <typename T>
@@ -225,8 +231,18 @@ beam_self_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                  const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
                  T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                   W, ws);
+    attend_step<T, true>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer,
+                         pos, W, ws);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+self_fused_kernel(const T* __restrict__ q, T* __restrict__ kc, T* __restrict__ vc,
+                  const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
+                  int n_ctx, int layer, int pos, int W) {
+    extern __shared__ float ws[];
+    attend_step<T, false>(q, nullptr, nullptr, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx,
+                          layer, pos, W, ws);
 }
 
 template <typename T>
@@ -245,7 +261,10 @@ int launch(const void* q, const void* knew, const void* vnew, void* kc, void* vc
     T* vc_ = static_cast<T*>(vc);
     const long long* ks = static_cast<const long long*>(key_start);
     T* o = static_cast<T*>(out);
-    if (anc == nullptr) {
+    if (knew == nullptr) {
+        self_fused_kernel<T><<<grid, THREADS, smem, s>>>(q_, kc_, vc_, ks, o, B, H, n_ctx, layer,
+                                                         pos, window);
+    } else if (anc == nullptr) {
         self_append_kernel<T><<<grid, THREADS, smem, s>>>(q_, kn, vn, kc_, vc_, ks, o, B, H,
                                                           n_ctx, layer, pos, window);
     } else {
@@ -296,4 +315,22 @@ extern "C" int beam_self_attention_f32(const void* q, const void* knew, const vo
                                        void* stream) {
     return launch<float>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer,
                          pos, window, stream);
+}
+
+// The append entry points without k_new/v_new: slot pos of both caches was
+// written by the caller; the kernel reads slots key_start[b] <= j <= pos
+// and writes nothing but out.
+extern "C" int self_attention_fused_bf16(const void* q, void* kc, void* vc,
+                                         const void* key_start, void* out, int B, int H,
+                                         int n_ctx, int layer, int pos, int window,
+                                         void* stream) {
+    return launch<bf16>(q, nullptr, nullptr, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx,
+                        layer, pos, window, stream);
+}
+
+extern "C" int self_attention_fused_f32(const void* q, void* kc, void* vc, const void* key_start,
+                                        void* out, int B, int H, int n_ctx, int layer, int pos,
+                                        int window, void* stream) {
+    return launch<float>(q, nullptr, nullptr, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx,
+                         layer, pos, window, stream);
 }

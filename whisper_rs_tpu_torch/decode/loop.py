@@ -28,6 +28,7 @@ import torch
 
 from ..config import BeamSearchMode, GreedyMode
 from ..models.whisper import CrossKV, KVCache, Whisper, precompute_cross_kv
+from ..ops.decoder_layer_fused import decoder_step_weights
 from .filters import FilterConfig, apply_filters, log_softmax
 
 BIG_NEG = -1e9  # finite stand-in for -inf in scores
@@ -81,16 +82,17 @@ def _encode_and_prefill(
 def _step_logits(
     model: Whisper, tokens, pos: int, cross_kv: CrossKV, cache: KVCache,
     cfg: FilterConfig, sample_begin: int, key_start, group: int, ctx_window: int,
-    kernels: bool, ancestors=None,
+    kernels: bool, ancestors=None, step_kernel: str = "append", step_weights=None,
 ):
     """One incremental step: feed the token at pos-1, return the filtered
-    logits for position pos.  The step takes the append self-attention (the
-    beam kernel with ``ancestors``) and fused MLP kernels, which write the
-    cache in place; the prefill never does, as in the JAX loop."""
+    logits for position pos.  The step takes the route ``step_kernel`` of
+    ``TextDecoder.forward`` (the append self-attention and fused MLP
+    kernels by default; the beam kernel with ``ancestors``), which writes
+    the cache in place; the prefill never does, as in the JAX loop."""
     logits = model.decoder(
         tokens[:, pos - 1 : pos], pos - 1, cross_kv, cache, key_start=key_start,
         cross_group=group, ctx_window=ctx_window, kernels=kernels, incremental=True,
-        ancestors=ancestors,
+        ancestors=ancestors, step_kernel=step_kernel, step_weights=step_weights,
     )
     return apply_filters(cfg, logits[:, 0], tokens, pos, sample_begin)
 
@@ -134,9 +136,14 @@ def decode_greedy(
     no_speech_id: int,
     key_start=None,  # [n_audio] first valid prompt slot per row
     kernels: bool = True,
+    step_kernel: str = "append",
 ) -> DecodeResult:
     """Greedy decode of one batch of 30 s windows.  ``kernels=False`` runs
-    every kernel's plain version instead (the reference path on the card)."""
+    every kernel's plain version instead (the reference path on the card).
+    ``step_kernel`` is the incremental steps' route (``TextDecoder.
+    forward``): ``"append"`` (the default), ``"ctx"`` or ``"layer"``, the
+    whole-step kernel, whose weight table is built here once, before the
+    step loop."""
     if mode.temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported: the reference's noise comes from "
@@ -157,6 +164,7 @@ def decode_greedy(
     )
     B = tokens.shape[0]
     n_audio = B // group
+    step_weights = decoder_step_weights(model.decoder.blocks) if step_kernel == "layer" else None
 
     sum_lp = torch.zeros(B, dtype=torch.float32, device=dev)
     finished = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -167,7 +175,7 @@ def decode_greedy(
         while step < sample_len and pos < W and not bool(finished.all()):
             logits = _step_logits(
                 model, tokens, pos, cross_kv, cache, cfg, sample_begin, key_start,
-                group, W, kernels,
+                group, W, kernels, step_kernel=step_kernel, step_weights=step_weights,
             )
             sum_lp, finished = _greedy_update(logits, tokens, pos, sum_lp, finished, eot)
             step, pos = step + 1, pos + 1

@@ -16,15 +16,26 @@ The encoder's LayerNorms, residual adds and self-attention run through the
 kernel wrappers of ``ops/`` (the plain versions when ``kernels=False``);
 every width-1 decoder pass takes the cross-attention kernel of
 ``ops/decode_attention.py``.  An incremental greedy step
-(``incremental=True``) also takes the append self-attention kernel, which
-writes the step's K/V column and masks by ``pos`` and ``key_start`` itself
-(no additive mask is built), and the fused MLP kernel of
-``ops/decoder_mlp_fused.py``.  A beam step (``ancestors`` given) takes the
-beam self-attention kernel instead of the append kernel: it writes the
-column the same way and reads each slot from the row that the ancestor
-table names (gather at read; the cache never moves).  Projections, the
-logits, the prefill's self-attention, cross-attention and MLP stay
-``torch.matmul``, as the JAX package left them to XLA.
+(``incremental=True``) takes one of three routes, ``step_kernel``:
+
+  * ``"append"`` (the default): the append self-attention kernel, which
+    writes the step's K/V column and masks by ``pos`` and ``key_start``
+    itself (no additive mask is built), and the fused MLP kernel of
+    ``ops/decoder_mlp_fused.py``;
+  * ``"ctx"``: torch writes the K/V column, then the read-only fused
+    self-attention kernel attends over the cache; the MLP as above (the
+    JAX package's ``WHISPER_FUSED_SELF=ctx``);
+  * ``"layer"``: after the embedding, one launch of the whole-step kernel
+    of ``ops/decoder_layer_fused.py`` runs every layer, then the final
+    LayerNorm and the logits (the JAX ``WHISPER_PALLAS_DECODE=layer``).
+
+A beam step (``ancestors`` given) takes the beam self-attention kernel in
+the append kernel's place: it writes the column the same way and reads
+each slot from the row that the ancestor table names (gather at read; the
+cache never moves); the other two routes are greedy only, as in the JAX
+package.  Projections, the logits, the prefill's self-attention,
+cross-attention and MLP stay ``torch.matmul``, as the JAX package left
+them to XLA.
 
 The KV cache is updated in place.  Its planes are ctx-major
 ``[L, B, H, n_ctx, dh]``; the cross K/V keeps the JAX fused layout
@@ -49,11 +60,20 @@ from ..ops.decode_attention import (
     cross_attention_step_plain,
     self_attention_append_step,
     self_attention_append_step_plain,
+    self_attention_fused_step,
+    self_attention_fused_step_plain,
+)
+from ..ops.decoder_layer_fused import (
+    decoder_step_fused,
+    decoder_step_fused_plain,
+    decoder_step_weights,
 )
 from ..ops.decoder_mlp_fused import decoder_mlp_step, decoder_mlp_step_plain, gelu
 from ..ops.encoder_attention import encoder_attention_merged, encoder_attention_merged_plain
 from ..ops.encoder_fused import ln_fused, ln_fused_plain, residual_ln, residual_ln_plain
 
+
+STEP_KERNELS = ("append", "ctx", "layer")  # an incremental greedy step's routes
 
 # ---------------------------------------------------------------------------
 # primitives
@@ -203,12 +223,14 @@ class ResidualAttentionBlock(nn.Module):
     def decoder_forward(
         self, x, layer: int, pos_offset: int, mask, window: int, cross_kv: CrossKV,
         cache: KVCache, cross_group: int, kernels: bool, key_start=None, anc_local=None,
+        step_kernel: str = "append",
     ) -> torch.Tensor:
         """One decoder block.  ``mask`` None marks an incremental step: the
         append kernel (the beam kernel with ``anc_local``, [B, n_ctx] int32
         beam-local ancestors) writes the K/V column and masks by
-        ``pos_offset`` and ``key_start``, and the MLP takes the fused
-        kernel."""
+        ``pos_offset`` and ``key_start``, or (``step_kernel="ctx"``) torch
+        writes the column and the fused kernel only reads; the MLP takes
+        the fused kernel."""
         B, T, D = x.shape
         H = self.attn.n_head
         dh = D // H
@@ -218,17 +240,21 @@ class ResidualAttentionBlock(nn.Module):
         h = layer_norm(x, self.attn_ln)
         if mask is None:
             hs = h[:, 0]
-            args = (
-                (self.attn.query(hs) * scale).view(B, H, dh),
-                self.attn.key(hs).view(B, H, dh), self.attn.value(hs).view(B, H, dh),
-                cache.k, cache.v, layer, pos_offset, key_start,
-            )
-            if anc_local is None:
-                fn = self_attention_append_step if kernels else self_attention_append_step_plain
-                attn = fn(*args, window=window)
+            q = (self.attn.query(hs) * scale).view(B, H, dh)
+            k_new, v_new = self.attn.key(hs).view(B, H, dh), self.attn.value(hs).view(B, H, dh)
+            if step_kernel == "ctx":
+                cache.k[layer, :, :, pos_offset] = k_new
+                cache.v[layer, :, :, pos_offset] = v_new
+                fn = self_attention_fused_step if kernels else self_attention_fused_step_plain
+                attn = fn(q, cache.k, cache.v, layer, pos_offset, key_start, window=window)
             else:
-                fn = beam_self_attention_step if kernels else beam_self_attention_step_plain
-                attn = fn(*args, anc_local, cross_group, window=window)
+                args = (q, k_new, v_new, cache.k, cache.v, layer, pos_offset, key_start)
+                if anc_local is None:
+                    fn = self_attention_append_step if kernels else self_attention_append_step_plain
+                    attn = fn(*args, window=window)
+                else:
+                    fn = beam_self_attention_step if kernels else beam_self_attention_step_plain
+                    attn = fn(*args, anc_local, cross_group, window=window)
             attn = attn.reshape(B, 1, D)
         else:
             q = split_heads(self.attn.query(h), H) * scale
@@ -328,6 +354,8 @@ class TextDecoder(nn.Module):
         kernels: bool = True,
         incremental: bool = False,  # a step: the append (or beam) and MLP kernels
         ancestors: Optional[torch.Tensor] = None,  # [B, n_ctx] int32 beam-local (beam)
+        step_kernel: str = "append",  # an incremental step's route: append, ctx, layer
+        step_weights=None,  # DecoderStepWeights of the "layer" route, built once
     ) -> torch.Tensor:
         """One decoder pass; returns f32 logits [B, T (or K), n_vocab] and
         updates ``cache`` in place.
@@ -345,7 +373,12 @@ class TextDecoder(nn.Module):
         b's audio whose row holds that K/V (physical row ``b - b % G +
         ancestors[b, j]``); its column ``pos_offset`` must be ``b % G``.
         The step then takes the beam kernel, which masks by the key_start
-        of each audio's first row."""
+        of each audio's first row.
+
+        ``step_kernel`` picks an incremental greedy step's route (see the
+        module docstring): ``"append"``, ``"ctx"`` or ``"layer"``; the last
+        reads ``step_weights`` (``ops.decoder_layer_fused.
+        decoder_step_weights`` of ``self.blocks``), built here when None."""
         B, T = tokens.shape
         dev = tokens.device
         n_ctx = self.positional_embedding.shape[0]
@@ -364,14 +397,30 @@ class TextDecoder(nn.Module):
             mask = self._mask(q_pos, W, key_start)
         if ancestors is not None and not incremental:
             raise ValueError("ancestors are read by an incremental step only")
+        if step_kernel not in STEP_KERNELS:
+            raise ValueError(f"step_kernel must be one of {STEP_KERNELS}, not {step_kernel!r}")
+        if step_kernel != "append" and not incremental:
+            raise ValueError(f"step_kernel {step_kernel!r} is an incremental step's route")
+        if step_kernel != "append" and ancestors is not None:
+            raise ValueError(f"step_kernel {step_kernel!r} is greedy only: a beam step "
+                             "(ancestors) takes the append route")
 
         dtype = self.positional_embedding.dtype
         x = self.token_embedding.weight[tokens].to(dtype) + pos.to(dtype)
-        for layer, block in enumerate(self.blocks):
-            x = block.decoder_forward(
-                x, layer, pos_offset, mask, W, cross_kv, cache, cross_group, kernels,
-                key_start, ancestors,
-            )
+        if step_kernel == "layer":
+            if step_weights is None:
+                step_weights = decoder_step_weights(self.blocks)
+            fn = decoder_step_fused if kernels else decoder_step_fused_plain
+            x = fn(
+                x[:, 0].contiguous(), step_weights, cross_kv.kv, cache.k, cache.v, pos_offset,
+                key_start, n_head=self.blocks[0].attn.n_head, group=cross_group, window=W,
+            )[:, None]
+        else:
+            for layer, block in enumerate(self.blocks):
+                x = block.decoder_forward(
+                    x, layer, pos_offset, mask, W, cross_kv, cache, cross_group, kernels,
+                    key_start, ancestors, step_kernel,
+                )
         if logit_positions is not None:
             x = x[:, logit_positions]
         x = layer_norm(x, self.ln)

@@ -18,6 +18,8 @@ LAUNCHES = {
     "self_attention_append_step": 0,
     "beam_self_attention_step": 0,
     "decoder_mlp_step": 0,
+    "self_attention_fused_step": 0,
+    "decoder_step_fused": 0,
 }
 
 

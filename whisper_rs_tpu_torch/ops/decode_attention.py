@@ -16,6 +16,12 @@ from row ``a G + anc_local[b, j]``, and the visible slots are
 ``key_start[a G] <= j <= pos``, the key_start of the audio's first row, as
 in the Pallas kernel.  The column write and the math are the append step's.
 
+``self_attention_fused_step`` (the same source, the same body): the
+append step with the write left out.  The caller has written this step's
+K/V column at slot ``pos`` already (as XLA does before the TPU kernel);
+the kernel reads slots ``key_start[b] <= j <= pos`` and writes only its
+output.  Its math is the append step's.
+
 ``cross_attention_step`` (``csrc/cross_attention.cu``): G query rows per
 audio share one encoder K/V, read from the fused layout
 ``kv [L, A, H, 2, dh, Tk]`` (K^T and V^T planes, see ``models.whisper.
@@ -47,14 +53,15 @@ def _check_append_args(name, q, k_all, layer: int, pos: int, window: int):
 
 
 def _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *extra):
-    """What the CUDA step kernels take: head dim 64; q, k_new, v_new and the
-    caches f32 or bf16 alike; key_start int64 [B]; every tensor contiguous,
-    16-byte aligned and on q's device."""
-    if k_all.shape[-1] != HEAD_DIM or k_new.shape != q.shape or v_new.shape != q.shape:
+    """What the CUDA step kernels take: head dim 64; q, k_new, v_new (None
+    for the fused step) and the caches f32 or bf16 alike; key_start int64
+    [B]; every tensor contiguous, 16-byte aligned and on q's device."""
+    new = tuple(t for t in (k_new, v_new) if t is not None)
+    if k_all.shape[-1] != HEAD_DIM or any(t.shape != q.shape for t in new):
         raise ValueError(f"{name}: q, k_new, v_new must be [B, H, {HEAD_DIM}] alike")
     if v_all.shape != k_all.shape:
         raise ValueError(f"{name}: k_all {tuple(k_all.shape)} vs v_all {tuple(v_all.shape)}")
-    tensors = (q, k_new, v_new, k_all, v_all)
+    tensors = (q, *new, k_all, v_all)
     if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}")
     B = k_all.shape[1]
@@ -67,16 +74,14 @@ def _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *extra
             raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned")
 
 
-def self_attention_append_step_plain(
-    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
-    v_all: torch.Tensor, layer: int, pos: int, key_start=None, *, window: int,
+def self_attention_fused_step_plain(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    key_start=None, *, window: int,
 ) -> torch.Tensor:
-    """Plain version: writes ``k_new``/``v_new`` [B, H, dh] into slot ``pos``
-    of ``k_all``/``v_all`` [L, B, H, n_ctx, dh] at ``layer`` in place;
-    returns the attention output [B, H, dh] of the pre-scaled q."""
-    _check_append_args("self_attention_append_step", q, k_all, layer, pos, window)
-    k_all[layer, :, :, pos] = k_new
-    v_all[layer, :, :, pos] = v_new
+    """Plain version: the attention output [B, H, dh] of the pre-scaled q
+    over slots ``key_start[b] <= j <= pos`` of ``k_all``/``v_all``
+    [L, B, H, n_ctx, dh] at ``layer``; the caches are only read."""
+    _check_append_args("self_attention_fused_step", q, k_all, layer, pos, window)
     k = k_all[layer, :, :, :window].float()  # [B, H, W, dh]
     v = v_all[layer, :, :, :window].float()
     s = torch.einsum("bhd,bhwd->bhw", q.float(), k)
@@ -88,6 +93,19 @@ def self_attention_append_step_plain(
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = e / e.sum(dim=-1, keepdim=True)
     return torch.einsum("bhw,bhwd->bhd", w, v).to(q.dtype)
+
+
+def self_attention_append_step_plain(
+    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
+    v_all: torch.Tensor, layer: int, pos: int, key_start=None, *, window: int,
+) -> torch.Tensor:
+    """Plain version: writes ``k_new``/``v_new`` [B, H, dh] into slot ``pos``
+    of ``k_all``/``v_all`` [L, B, H, n_ctx, dh] at ``layer`` in place;
+    returns the attention output [B, H, dh] of the pre-scaled q."""
+    _check_append_args("self_attention_append_step", q, k_all, layer, pos, window)
+    k_all[layer, :, :, pos] = k_new
+    v_all[layer, :, :, pos] = v_new
+    return self_attention_fused_step_plain(q, k_all, v_all, layer, pos, key_start, window=window)
 
 
 def self_attention_append_step(
@@ -119,6 +137,37 @@ def self_attention_append_step(
     )
     check("self_attention", symbol, err)
     LAUNCHES["self_attention_append_step"] += 1
+    return out
+
+
+def self_attention_fused_step(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    key_start=None, *, window: int,
+) -> torch.Tensor:
+    """One greedy step's self-attention at ``layer`` over a cache whose slot
+    ``pos`` the caller has written: the kernel on the card, the plain
+    version on the CPU.  q [B, H, dh] pre-scaled; caches [L, B, H, n_ctx,
+    dh], read only; ``key_start`` [B] int64 or None (zeros)."""
+    if q.device.type == "cpu":
+        return self_attention_fused_step_plain(q, k_all, v_all, layer, pos, key_start,
+                                               window=window)
+    name = "self_attention_fused_step"
+    if not q.is_cuda:
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _check_append_args(name, q, k_all, layer, pos, window)
+    _check_kernel_tensors(name, q, None, None, k_all, v_all, key_start)
+    L, B, H, n_ctx, dh = k_all.shape
+    out = torch.empty_like(q)
+    symbol = "self_attention_fused_bf16" if q.dtype == torch.bfloat16 else "self_attention_fused_f32"
+    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, I, I, I, I, I, I, P))
+    err = fn(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+        None if key_start is None else key_start.data_ptr(), out.data_ptr(),
+        B, H, n_ctx, int(layer), int(pos), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check("self_attention", symbol, err)
+    LAUNCHES["self_attention_fused_step"] += 1
     return out
 
 

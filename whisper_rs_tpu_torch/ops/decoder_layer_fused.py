@@ -1,0 +1,242 @@
+"""The whole incremental decoder step, every layer, in one kernel launch
+(counterpart of ``whisper_rs_tpu/ops/decoder_layer_fused.py``; CUDA source
+``csrc/decoder_layer.cu``).
+
+  decoder_step_fused(x, weights, cross_kv, k_cache, v_cache, pos, key_start,
+                     n_head=, group=, window=) -> x after the last layer
+
+x [B, D] is the step's embedded token in the compute dtype; ``cross_kv``
+the fused cross K/V ``[L, A, H, 2, dh, Tk]`` (``models.whisper.CrossKV``);
+the caches the port's ctx-major ``[L, B, H, n_ctx, dh]``, into which each
+layer's K/V column is written at slot ``pos`` in place.  (The JAX caller
+writes the columns after the call; the caches end the same.)  Rounding
+points, as in the Pallas kernel: LayerNorm in f32; every product summed in
+f32 and rounded to the compute dtype before its bias is added; the
+self-attention's weights kept in f32 and the sum divided after P V, over
+the cache slots ``key_start[b] <= j <= pos`` (this step's column
+included); the cross-attention's weights rounded to the compute dtype
+before P V; GELU exact in f32 and the tanh form in half precision; the
+residual stream in the compute dtype between sub-blocks.
+
+The weights argument, ``DecoderStepWeights``, is built once per decode
+(``decode_greedy`` does it before its step loop): a device table of
+pointers into the model's own parameters, and the parameters themselves
+for the plain version.  A table and not a packed copy: the TPU kernel
+packed the weights into one [L, 2, n, 8n] stream because one wide DMA ran
+1.5x faster there, but on Hopper a warp reads any contiguous weight row at
+full rate, and the copy would take 705 MB more device memory at medium.en
+bf16 and a copy pass per decode.
+
+The kernel's shape check stands in for the TPU's VMEM gate: it raises on
+what the kernel cannot take, and never falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import LAUNCHES
+from .build import F, I, P, check, kernel_function
+from .decode_attention import HEAD_DIM, NEG
+from .decoder_mlp_fused import gelu
+from .encoder_fused import ln_fused_plain
+
+MAX_ROWS = 16  # rows a launch takes (one warp a row in the LayerNorms)
+GROUPS = (1, 2, 4, 8)  # rows an audio in the cross-attention
+SMEM_LIMIT = 220 * 1024  # dynamic shared memory a block may take, bytes
+
+# per layer, in the column order of the kernel's table (csrc/decoder_layer.cu)
+WEIGHT_NAMES = (
+    "attn_ln.weight", "attn_ln.bias",
+    "attn.query.weight", "attn.query.bias", "attn.key.weight",
+    "attn.value.weight", "attn.value.bias", "attn.out.weight", "attn.out.bias",
+    "cross_attn_ln.weight", "cross_attn_ln.bias",
+    "cross_attn.query.weight", "cross_attn.query.bias",
+    "cross_attn.out.weight", "cross_attn.out.bias",
+    "mlp_ln.weight", "mlp_ln.bias",
+    "mlp.0.weight", "mlp.0.bias", "mlp.2.weight", "mlp.2.bias",
+)
+
+
+@dataclasses.dataclass
+class DecoderStepWeights:
+    """Every decoder layer's step weights: ``layers[l]`` the tensors of
+    ``WEIGHT_NAMES`` (the model's own parameters, not copies); ``table``
+    [L, 21] int64 their device addresses, for the kernel.  Holding the
+    tensors keeps the addresses valid."""
+
+    layers: tuple
+    table: torch.Tensor
+
+
+def decoder_step_weights(blocks) -> DecoderStepWeights:
+    """The step weights of the decoder's ``blocks`` (an ``nn.ModuleList``
+    of ``ResidualAttentionBlock``), read in place.  Checked here, once, for
+    what the kernel takes: one dtype and one device, every tensor
+    contiguous and 16-byte aligned."""
+    layers = []
+    for block in blocks:
+        params = dict(block.named_parameters())
+        layers.append(tuple(params[name].detach() for name in WEIGHT_NAMES))
+    first = layers[0][0]
+    for t in (t for layer in layers for t in layer):
+        if t.dtype != first.dtype or t.device != first.device:
+            raise ValueError("decoder_step_weights: the weights differ in dtype or device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("decoder_step_weights: weights must be contiguous, 16-byte aligned")
+    table = torch.tensor(
+        [[t.data_ptr() for t in layer] for layer in layers], dtype=torch.int64
+    ).to(first.device)
+    return DecoderStepWeights(tuple(layers), table)
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [B, K] times w [N, K] (an ``nn.Linear`` weight) transposed, summed
+    in f32 and rounded to a's dtype (the Pallas kernel's ``_dot``)."""
+    return (a.float() @ w.float().T).to(a.dtype)
+
+
+def _check_args(name, x, weights, cross_kv, k_cache, v_cache, pos, key_start, n_head, group,
+                window):
+    B, D = x.shape
+    L, B2, H, n_ctx, dh = k_cache.shape
+    if (B2, H, dh) != (B, n_head, D // n_head) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)}, caches {tuple(k_cache.shape)} and "
+            f"{tuple(v_cache.shape)}, n_head {n_head}"
+        )
+    if group < 1 or B % group:
+        raise ValueError(f"{name}: {B} rows are not groups of {group}")
+    A = B // group
+    if cross_kv.shape[:5] != (L, A, H, 2, dh):
+        raise ValueError(f"{name}: cross_kv {tuple(cross_kv.shape)}, want ({L}, {A}, {H}, 2, "
+                         f"{dh}, Tk)")
+    if len(weights.layers) != L:
+        raise ValueError(f"{name}: {len(weights.layers)} layers of weights for {L} of cache")
+    if not 0 <= pos < window <= n_ctx:
+        raise ValueError(f"{name}: needs 0 <= pos ({pos}) < window ({window}) <= n_ctx ({n_ctx})")
+    if key_start is not None and key_start.shape != (B,):
+        raise ValueError(f"{name}: key_start {tuple(key_start.shape)}, want ({B},)")
+
+
+def decoder_step_fused_plain(
+    x: torch.Tensor, weights: DecoderStepWeights, cross_kv: torch.Tensor,
+    k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, key_start=None, *,
+    n_head: int, group: int, window: int,
+) -> torch.Tensor:
+    """Plain version, layer by layer, rounding where the kernel rounds;
+    writes each layer's K/V column into the caches at ``pos`` in place and
+    returns the final x [B, D]."""
+    _check_args("decoder_step_fused", x, weights, cross_kv, k_cache, v_cache, pos, key_start,
+                n_head, group, window)
+    B, D = x.shape
+    H, dh = n_head, D // n_head
+    A = B // group
+    scale = dh**-0.5
+    ids = torch.arange(window, device=x.device)
+    visible = (ids <= pos).expand(B, window)
+    if key_start is not None:
+        visible = visible & (ids[None, :] >= key_start[:, None])
+    visible = visible | (ids == pos)  # this step's column is always seen
+    for layer, (ln1_w, ln1_b, wq, bq, wk, wv, bv, wo, bo, ln2_w, ln2_b, wcq, bcq, wco, bco,
+                ln3_w, ln3_b, w1, b1, w2, b2) in enumerate(weights.layers):
+        h = ln_fused_plain(x, ln1_w, ln1_b)
+        q = (_dot(h, wq) + bq) * scale
+        k_cache[layer, :, :, pos] = _dot(h, wk).view(B, H, dh)
+        v_cache[layer, :, :, pos] = (_dot(h, wv) + bv).view(B, H, dh)
+        kk = k_cache[layer, :, :, :window].float()  # [B, H, W, dh]
+        vv = v_cache[layer, :, :, :window].float()
+        s = torch.einsum("bhd,bhwd->bhw", q.view(B, H, dh).float(), kk)
+        s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG))
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.einsum("bhw,bhwd->bhd", e, vv) / e.sum(dim=-1)[..., None]
+        x = x + (_dot(o.to(x.dtype).reshape(B, D), wo) + bo)
+
+        h = ln_fused_plain(x, ln2_w, ln2_b)
+        c = ((_dot(h, wcq) + bcq) * scale).view(A, group, H, dh)
+        kv = cross_kv[layer]  # [A, H, 2, dh, Tk]
+        s = torch.einsum("aghd,ahdk->aghk", c.float(), kv[:, :, 0].float())
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        w = (e / e.sum(dim=-1, keepdim=True)).to(x.dtype).float()
+        o = torch.einsum("aghk,ahdk->aghd", w, kv[:, :, 1].float()).to(x.dtype)
+        x = x + (_dot(o.reshape(B, D), wco) + bco)
+
+        h = ln_fused_plain(x, ln3_w, ln3_b)
+        x = x + (_dot(gelu(_dot(h, w1) + b1), w2) + b2)
+    return x
+
+
+def decoder_step_fused(
+    x: torch.Tensor, weights: DecoderStepWeights, cross_kv: torch.Tensor,
+    k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, key_start=None, *,
+    n_head: int, group: int, window: int, clock=None,
+) -> torch.Tensor:
+    """One incremental step through every decoder layer: the kernel on the
+    card (one launch), the plain version on the CPU.  Writes each layer's
+    K/V column into the caches at ``pos`` in place; returns x [B, D].
+    ``clock`` (card only, for measurements): an int64 tensor [8 L + 1]
+    that receives the GPU clock in ns at the kernel's start and at the end
+    of each of its eight phases a layer."""
+    if x.device.type == "cpu":
+        return decoder_step_fused_plain(
+            x, weights, cross_kv, k_cache, v_cache, pos, key_start, n_head=n_head,
+            group=group, window=window,
+        )
+    name = "decoder_step_fused"
+    if not x.is_cuda:
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _check_args(name, x, weights, cross_kv, k_cache, v_cache, pos, key_start, n_head, group,
+                window)
+    B, D = x.shape
+    L, _, H, n_ctx, dh = k_cache.shape
+    Tk = cross_kv.shape[-1]
+    if dh != HEAD_DIM or B > MAX_ROWS or group not in GROUPS or Tk % 4:
+        raise ValueError(
+            f"{name}: the kernel takes head dim {HEAD_DIM}, at most {MAX_ROWS} rows, groups of "
+            f"{GROUPS} and Tk % 4 == 0; got dh {dh}, {B} rows, group {group}, Tk {Tk}"
+        )
+    # the kernel's dynamic shared memory: the largest of the staged rows
+    # [B, 4D], the cross scores [G, Tk] f32 and the self scores [n_ctx] f32
+    smem = max(B * 4 * D * x.element_size(), group * Tk * 4, n_ctx * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory a block, over {SMEM_LIMIT}")
+    tensors = [x, cross_kv, k_cache, v_cache]  # the weights were checked once, when built
+    dtypes = [t.dtype for t in tensors] + [weights.layers[0][0].dtype]
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(d != x.dtype for d in dtypes):
+        raise ValueError(f"{name}: every tensor must be f32 or bf16 alike, got {dtypes}")
+    if key_start is not None and key_start.dtype != torch.int64:
+        raise ValueError(f"{name}: key_start must be int64")
+    if weights.table.shape != (L, len(WEIGHT_NAMES)) or weights.table.dtype != torch.int64:
+        raise ValueError(f"{name}: weight table {tuple(weights.table.shape)}")
+    if clock is not None and (clock.shape != (8 * L + 1,) or clock.dtype != torch.int64):
+        raise ValueError(f"{name}: clock must be int64 [{8 * L + 1}]")
+    extra = [t for t in (key_start, clock) if t is not None]
+    for t in tensors + [weights.table] + extra:
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on different devices")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned")
+
+    out = x.clone()
+    q = torch.empty_like(x)
+    att = torch.empty_like(x)
+    hid = torch.empty((B, 4 * D), dtype=x.dtype, device=x.device)
+    bar = torch.zeros(1, dtype=torch.int32, device=x.device)
+    symbol = "decoder_step_bf16" if x.dtype == torch.bfloat16 else "decoder_step_f32"
+    fn = kernel_function(
+        "decoder_layer", symbol,
+        (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
+    )
+    err = fn(
+        weights.table.data_ptr(), cross_kv.data_ptr(),
+        None if key_start is None else key_start.data_ptr(), out.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), q.data_ptr(), att.data_ptr(), hid.data_ptr(),
+        bar.data_ptr(), None if clock is None else clock.data_ptr(),
+        B, D, H, L, int(group), Tk, n_ctx, int(pos), int(window),
+        dh**-0.5, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check("decoder_layer", symbol, err)
+    LAUNCHES["decoder_step_fused"] += 1
+    return out
