@@ -2,19 +2,25 @@
 
     python3 chip_smoke.py
 
-Four paths, seeded random weights: greedy decode of base.en at batch 128
+Six paths, seeded random weights: greedy decode of base.en at batch 128
 and of large-v3 at batch 12 (full width and depth: 128 mel bins, D 1280, 20
 heads, 32 + 32 layers, vocab 51866), unprompted, 224-token budget; beam
 search (beam 5, patience 1.0) of medium.en at batch 8 (full width and
 depth: 80 mel bins, D 1024, 16 heads, 24 + 24 layers, vocab 51864; 40
 decoder rows), prompted as bench.py's BENCH_PROMPTED builds its prompts
 (232-wide prefill, window phases 256 and 448, the 224-token budget capped
-by the context at 216 steps); and greedy decode of medium.en at batch 8,
+by the context at 216 steps); greedy decode of medium.en at batch 8,
 prompted the same way, through each of the incremental step's three
 routes (``decode_greedy(step_kernel=...)``): ``layer``, the whole decoder
 step in one launch of the megakernel; ``ctx``, torch's column write and
-the read-only fused self-attention; ``append``, the default.  Phases, in
-order; any mismatch raises and the script exits nonzero:
+the read-only fused self-attention; ``append``, the default; and the two
+int8 paths (``INT8_PATHS``): base.en b128 greedy, unprompted, with int8
+weights (``quantize_params``) and int8 K/V (``quantize_kv=True``), whose
+steps read the cache through row 10 (``self_attention_step``) and the
+cross kernel's int8 branch; and medium.en b8 beam 5, prompted, with int8
+K/V and bf16 weights (the beam kernel's and the cross kernel's int8
+branches, the MLP kernel).  Phases, in order; any mismatch raises and the
+script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
@@ -39,7 +45,13 @@ order; any mismatch raises and the script exits nonzero:
               shorter than a millisecond are timed as CUDA graphs of many
               calls, so the host's launch time stays out of the device
               time.  The beam path also times its per-step candidate
-              ranking (a stable sort over the vocab);
+              ranking (a stable sort over the vocab).  The int8 paths: row 10
+              with int8 scales and over a bf16 cache at base.en b128 and
+              large-v3 b12, the cross kernel's int8 branch at both int8
+              paths' shapes (G = 1 and 5), the beam kernel's int8 read at
+              the beam shapes; their library call is the dequantising
+              multiply and SDPA as one CUDA graph (the beam's after a
+              gather of the ancestors' rows and scales);
   4. parity   f32, 4 seeded 30 s windows, through the kernels and through
               the plain versions: base.en at full width, and large-v3 at
               full width with the depth cut to 4 + 4 layers, log_mel_frontend
@@ -57,20 +69,29 @@ order; any mismatch raises and the script exits nonzero:
               prompted, decode_greedy through the layer and ctx routes: the
               same four steps' filtered logits within 1e-3, tokens equal per
               row unless the plain path's top-2 margin at the first
-              divergent position is below 1e-3;
-  5. e2e      each path in bf16, timed 3 times (the ctx and append routes
-              once each), with every launch count set to 0 just before each
+              divergent position is below 1e-3; the int8 paths, base.en at
+              full width (greedy, INT8_GREEDY_CHECK_POS) and medium.en beam
+              cut to 4 + 4 layers, the same checks at INT8_LOGIT_TOL, with
+              the int8 values of each checked step's column that the two
+              paths rounded apart counted;
+  5. e2e      each path in bf16, timed 3 times (large-v3, the ctx and the
+              append routes once each, E2E_REPS_CUT), after a 4-token
+              warm-up run, with every launch count set to 0 just before each
               run and read just after: each kernel launched as expected
               (cross attention n_text_layer times a width-1 decoder pass,
               the step self-attention and the fused MLP n_text_layer times
               an incremental step, the beam kernel and never the append
               kernel on the beam path; on the layer route the whole-step
-              kernel once a step and none of the layered step's kernels);
+              kernel once a step and none of the layered step's kernels;
+              on the int8 paths row 10 or the beam kernel once a layer a
+              step, never the append, fused or whole-step kernels, and no
+              MLP kernel under int8 weights);
               audio-s/s of the median run, and the mel+encoder / prefill /
               steps split; the beam path prints each audio's selected
               candidate; on the routes' path, one incremental step of each
               route under torch.profiler gives its device launches a
-              step;
+              step; on the int8-weight path, the device time of one step's
+              int8 weight casts alone;
   6. profile  one more e2e run of each under torch.profiler (the first three
               paths cut to PROFILE_STEPS tokens, which keeps the trace's
               processing short; the layer route in full): its idle share
@@ -84,6 +105,8 @@ CUDA is absent.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -113,6 +136,8 @@ from whisper_rs_tpu_torch.models import (
     TextDecoder,
     init_random,
     precompute_cross_kv,
+    quantize_kv,
+    quantize_params,
 )
 from whisper_rs_tpu_torch.ops import LAUNCHES, reset_launches
 from whisper_rs_tpu_torch.ops.build import build_all
@@ -125,6 +150,8 @@ from whisper_rs_tpu_torch.ops.decode_attention import (
     self_attention_append_step_plain,
     self_attention_fused_step,
     self_attention_fused_step_plain,
+    self_attention_step,
+    self_attention_step_plain,
 )
 from whisper_rs_tpu_torch.ops.decoder_layer_fused import (
     decoder_step_fused,
@@ -152,6 +179,22 @@ PATHS = (("base.en", 128, 0), ("large-v3", 12, 0), ("medium.en", 8, 5))
 # append route is the default and the yardstick of the other two
 ROUTES_PATH = ("medium.en", 8)
 ROUTES = ("layer", "ctx", "append")
+# the int8 paths: (model, audios a batch, beam size (0: greedy), int8 weights
+# too); both keep int8 K/V
+INT8_PATHS = (("base.en", 128, 0, True), ("medium.en", 8, 5, False))
+INT8_GREEDY_CHECK_POS = (2, 127, 128, 200)  # unprompted greedy steps checked plain vs kernel
+# The int8 parities' tolerances, set from their f32 runs on the H100
+# (PERF.md).  Where the two paths' f32 projections differ by an ulp, a K or
+# V value can round to the neighbouring int8 step (1/127 of its position's
+# amax): on the beam path 1 or 2 values of a step's column did, and the
+# checked steps' logits then differed by up to 5.2e-6 (7.2e-7 on the greedy
+# path, where none did).  The logit tolerance is about 20 times that.  The
+# beam scores, f32 sums of 216 log-probs near -1,350 where one f32 step is
+# 1.2e-4, then round apart now and then: a walk of up to 4.5e-3 (3.4e-6
+# relative) was measured, and the int8 score tolerance takes 1e-5 |plain|,
+# about 3 times that.
+INT8_LOGIT_TOL = 1e-4
+INT8_SCORE_RTOL = 1e-5
 GREEDY_CHECK_POS = (233, 255, 256, 400)  # steps checked plain vs kernel, routes parity
 LAYER_BF16_DEPTH = 4  # decoder layers of the whole-step kernel's bf16 check
 # the whole-step kernel's phases, in order (csrc/decoder_layer.cu)
@@ -166,6 +209,9 @@ PARITY_WINDOWS = 4
 BEAM_CHECK_POS = (233, 255, 256, 400)
 SCORE_RTOL = 2e-6  # beam parity scores: |d| <= 1e-4 + SCORE_RTOL |plain|
 E2E_REPS = 3
+# timed e2e runs of a path where E2E_REPS is more than the script's time
+# allows: large-v3 takes 13 s a run and is compared with nothing in the run
+E2E_REPS_CUT = {"large-v3": 1}
 STEP_WINDOW = 256  # the append kernel is timed at W = 256, pos = W - 1
 # (atol, rtol) of |kernel - plain| <= atol + rtol |plain|.  In bf16 the rtol
 # covers one bf16 ulp of the output (2^-7 relative) where the two round an
@@ -201,6 +247,7 @@ TOL_BF16 = {
     "decoder_mlp_step": (1e-3, 1e-2),
     "self_attention_fused_step": (2e-3, 1e-2),
     "decoder_step_fused": TOL_LAYER_BF16,
+    "self_attention_step": (2e-3, 1e-2),
 }
 
 
@@ -273,12 +320,22 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def rotating(n_layer: int):
+    """A function that returns the layers 0, 1, ..., n_layer - 1, 0, ... one a
+    call.  The attention kernels are timed rotating through the layers, so
+    each call finds its layer's K/V cold in the card's 50 MB L2, as a decode
+    step does (the same layer replayed stays resident where its K/V fits)."""
+    layers = itertools.cycle(range(n_layer))
+    return lambda: next(layers)
+
+
 def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph=True,
-                 checked=None):
+                 checked=None, library_call=None):
     """Compare the kernel with its plain version (or take ``checked``, the
     (max abs error, tolerance share) of a comparison made by the caller),
     then time the kernel, the plain version and the library call (None
-    where no one PyTorch call computes the function)."""
+    where no one PyTorch call computes the function; ``library_call`` says
+    what it is where it takes more than one call)."""
     tol = tolerance(name, dtype)
     if checked is None:
         got, want = kernel(), plain()
@@ -296,7 +353,10 @@ def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph
         "library_ms": None if library is None else timed_ms(library, reps, graph),
     }
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    if library_call:
+        row["library_call"] = library_call
     lib = "none" if library is None else f"{row['library_ms']:.4f} ms"
+    lib += f" ({library_call})" if library_call else ""
     print(
         f"    kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
         f"library {lib} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
@@ -395,29 +455,53 @@ def kernel_checks(dims, B: int, dtypes, group: int = 1) -> dict:
     return rows
 
 
-def check_cross(dims, A: int, G: int, dtype, randn) -> dict:
+def check_cross(dims, A: int, G: int, dtype, randn, int8: bool = False) -> dict:
     """The cross kernel at the step shapes: pre-scaled q [A, G, H, 64] of
     unit-scale scores against unit-scale kv [L, A, H, 2, 64, 1500], last
-    layer."""
+    layer; with ``int8`` the kv quantised per position as
+    ``precompute_cross_kv(quantize=True)`` does, with its f32 scales, and
+    the library call the dequantising multiply of the layer's K/V and SDPA
+    as one CUDA graph.  Timed rotating through the layers (``rotating``)."""
     T, H, L = dims.n_audio_ctx, dims.n_text_head, dims.n_text_layer
     dh = dims.head_dim
     isz = torch.tensor([], dtype=dtype).element_size()
     qx = randn(A, G, H, dh, dtype=dtype, scale=dh**-0.5)
-    kv = randn(L, A, H, 2, dh, T, dtype=dtype)
     layer = L - 1
+    scales = {}
+    if int8:
+        planes, s = quantize_kv(randn(L, A, H, 2, T, dh))  # per position, before the transpose
+        kv = planes.transpose(-1, -2).contiguous()
+        s = s.permute(3, 0, 1, 2, 4).contiguous()  # [2, L, A, H, T]
+        scales = {"k_scale": s[0], "v_scale": s[1]}
+        del planes
+        deq = torch.empty(A, H, 2, dh, T, dtype=dtype, device=kv.device)
+    else:
+        kv = randn(L, A, H, 2, dh, T, dtype=dtype)
 
-    def sdpa_cross():
-        kt, vt = kv[layer, :, :, 0], kv[layer, :, :, 1]
+    def sdpa_cross(at):
+        if int8:
+            torch.mul(kv[at], s[:, at].permute(1, 2, 0, 3)[:, :, :, None], out=deq)
+        kt, vt = (deq[:, :, 0], deq[:, :, 1]) if int8 else (kv[at, :, :, 0], kv[at, :, :, 1])
         return F.scaled_dot_product_attention(
             qx.transpose(1, 2), kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0
         )
 
+    name = "cross_attention_step"
+    checked = compare(f"{name} {str(dtype).split('.')[-1]}" + (", int8 K/V" if int8 else ""),
+                      (cross_attention_step(qx, kv, layer, **scales),),
+                      (cross_attention_step_plain(qx, kv, layer, **scales),),
+                      tolerance(name, dtype))
+    kv_bytes = A * H * 2 * dh * T * (1 if int8 else isz) + (2 * A * H * T * 4 if int8 else 0)
+    nxt = rotating(L)
     return check_kernel(
-        "cross_attention_step", dtype,
-        lambda: cross_attention_step(qx, kv, layer),
-        lambda: cross_attention_step_plain(qx, kv, layer),
-        sdpa_cross, nbytes=(A * H * 2 * dh * T + 2 * qx.numel()) * isz,
-        flops=4 * A * G * H * dh * T, reps=20,
+        name, dtype,
+        lambda: cross_attention_step(qx, kv, nxt(), **scales),
+        lambda: cross_attention_step_plain(qx, kv, nxt(), **scales),
+        lambda: sdpa_cross(nxt()), nbytes=kv_bytes + 2 * qx.numel() * isz,
+        flops=4 * A * G * H * dh * T, reps=20, checked=checked,
+        library_call=("the dequantising multiply of the layer's K/V (one torch.mul) and "
+                      "F.scaled_dot_product_attention, two calls as one CUDA graph")
+        if int8 else None,
     )
 
 
@@ -433,7 +517,8 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
     fused kernel at both, and varied within each audio for the beam kernel,
     so that masking by the row's own fails), against the plain version, and
     both caches: slot pos equals k_new and v_new, and no other slot changed
-    (the fused kernel changes none).  Timed at W = 256, pos = 255."""
+    (the fused kernel changes none).  Timed at W = 256, pos = 255, rotating
+    through the layers."""
     H, dh, L, n_ctx = dims.n_text_head, dims.head_dim, dims.n_text_layer, dims.n_text_ctx
     B = A * G
     dev = torch.device("cuda")
@@ -466,8 +551,8 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
     checks = ((STEP_WINDOW, STEP_WINDOW - 1, ks_nonzero if fused else None),
               (n_ctx, 400, ks_nonzero))
 
-    def run(fn, caches, pos, ks, W):
-        return fn(q, *new, *caches, layer, pos, ks, *extra, window=W)
+    def run(fn, caches, pos, ks, W, at=layer):
+        return fn(q, *new, *caches, at, pos, ks, *extra, window=W)
 
     tol = tolerance(name, dtype)
     tag = str(dtype).split(".")[-1]
@@ -500,14 +585,14 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
     mask = (ids <= pos)[None, None, None, :].expand(B, 1, 1, W)
     first = torch.arange(B, device=dev) // G * G
 
-    def sdpa():  # the attention alone over the window, without the write;
+    def sdpa(at):  # the attention alone over the window, without the write;
         # for the beam kernel after resolving the ancestors by a gather
         if G == 1:
-            k, v = k_all[layer, :, :, :W], v_all[layer, :, :, :W]
+            k, v = k_all[at, :, :, :W], v_all[at, :, :, :W]
         else:
             src = first[:, None] + anc[:, :W].long()
-            k = k_all[layer][src, :, ids].transpose(1, 2)
-            v = v_all[layer][src, :, ids].transpose(1, 2)
+            k = k_all[at][src, :, ids].transpose(1, 2)
+            v = v_all[at][src, :, ids].transpose(1, 2)
         return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask, scale=1.0)
 
     n = pos + 1  # visible slots of every row
@@ -521,14 +606,150 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
         print(f"  bound: {kv_rows} distinct (source row, slot) pairs of this run's "
               f"ancestors, of {B * n} (row, slot) reads", flush=True)
     vectors = 2 if fused else 6  # q in, out; and k_new, v_new in, the column out
+    nxt = rotating(L)
     return check_kernel(
         name, dtype,
-        lambda: run(kernel, (k_all, v_all), pos, None, W),
-        lambda: run(plain, (k_all, v_all), pos, None, W),
-        sdpa,
+        lambda: run(kernel, (k_all, v_all), pos, None, W, nxt()),
+        lambda: run(plain, (k_all, v_all), pos, None, W, nxt()),
+        lambda: sdpa(nxt()),
         nbytes=(2 * kv_rows * H * dh + vectors * B * H * dh) * isz + table,
         flops=4 * B * H * n * dh, reps=50, checked=worst,
     )
+
+
+def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) -> dict:
+    """Row 10 (G = 1) or the beam kernel's int8 read (G > 1) at the step
+    shapes of A audios of G rows: q [A G, H, 64] pre-scaled (unit-scale
+    scores); caches [L, A G, H, 448, 64] of unit-scale values, quantised
+    per position (``quantize_kv``, K and V from one tensor so that one
+    multiply dequantises both in the library call) or, for row 10 without
+    ``int8``, in q's dtype; the beam's random ancestors as in
+    check_step_attention.  Checked at W 256, pos 255 and at W 448, pos 400,
+    key_start in 1..231 (varied within each audio for the beam), against
+    the plain version; the caches stay unchanged.  Timed at W 256, pos 255,
+    without key_start, rotating through the layers; the library call is the
+    dequantising multiply and SDPA as one CUDA graph (the beam's after a
+    gather of the ancestors' rows and scales)."""
+    H, dh, L, n_ctx = dims.n_text_head, dims.head_dim, dims.n_text_layer, dims.n_text_ctx
+    B = A * G
+    dev = torch.device("cuda")
+    isz = torch.tensor([], dtype=dtype).element_size()
+    layer = L - 1
+    q = randn(B, H, dh, dtype=dtype, scale=dh**-0.5)
+    if int8:
+        planes, s = quantize_kv(randn(2, L, B, H, n_ctx, dh))
+        scales = {"k_scale": s[0], "v_scale": s[1]}
+    else:
+        planes, s, scales = randn(2, L, B, H, n_ctx, dh, dtype=dtype), None, {}
+    k_all, v_all = planes[0], planes[1]
+    first = torch.arange(B, device=dev) // G * G
+    if G == 1:
+        name, kernel, plain, new, extra = (
+            "self_attention_step", self_attention_step, self_attention_step_plain, (), ())
+    else:
+        name, kernel, plain, new = (
+            "beam_self_attention_step", beam_self_attention_step, beam_self_attention_step_plain,
+            (None, None))
+        anc = torch.randint(0, G, (B, n_ctx), generator=gen, device=dev, dtype=torch.int32)
+        anc[:, [STEP_WINDOW - 1, 400]] = (torch.arange(B, device=dev) % G).to(torch.int32)[:, None]
+        extra = (anc, G)
+    ks = torch.arange(B, device=dev) * 37 % 231 + 1
+
+    def run(fn, pos, ks, W, at=layer):
+        return fn(q, *new, k_all, v_all, at, pos, ks, *extra, window=W, **scales)
+
+    tol = tolerance(name, dtype)
+    dtag = str(dtype).split(".")[-1]
+    tag = f"{dtag}, {'int8' if int8 else dtag} cache"
+    worst = (0.0, 0.0)
+    before = planes.clone()
+    for W, pos in ((STEP_WINDOW, STEP_WINDOW - 1), (n_ctx, 400)):
+        err = compare(f"{name} {tag} W {W} pos {pos} key_start 1..231",
+                      (run(kernel, pos, ks, W),), (run(plain, pos, ks, W),), tol)
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+    if not torch.equal(planes, before):
+        raise AssertionError(f"{name}: the read-only step changed the cache")
+    print("  cache: unchanged", flush=True)
+    del before
+
+    W, pos = STEP_WINDOW, STEP_WINDOW - 1
+    ids = torch.arange(W, device=dev)
+    mask = (ids <= pos)[None, None, None, :].expand(B, 1, 1, W)
+    deq = torch.empty(2, B, H, W, dh, dtype=dtype, device=dev)
+    src = first[:, None] + anc[:, :W].long() if G > 1 else None
+
+    def library(at):  # one multiply dequantises K and V of the window, then SDPA
+        if G == 1:
+            window = planes[:, at, :, :, :W]
+            kv = torch.mul(window, s[:, at, :, :, :W, None], out=deq) if int8 else window
+        else:  # the gather of the ancestors' rows and scales first
+            rows = planes[:, at][:, src, :, ids].permute(2, 0, 3, 1, 4)  # [2, B, H, W, dh]
+            kv = torch.mul(rows, s[:, at][:, src, :, ids].permute(2, 0, 3, 1)[..., None],
+                           out=deq)
+        return F.scaled_dot_product_attention(q[:, :, None], kv[0], kv[1], attn_mask=mask,
+                                              scale=1.0)
+
+    n = pos + 1  # visible slots of every row
+    if G == 1:
+        kv_rows, table = B * n, 0
+    else:
+        kv_rows = torch.unique((first[:, None] + anc[:, :n].long()) * n + ids[:n]).numel()
+        table = B * n * 4
+        print(f"  bound: {kv_rows} distinct (source row, slot) pairs of this run's "
+              f"ancestors, of {B * n} (row, slot) reads", flush=True)
+    row_bytes = 2 * H * dh * (1 if int8 else isz) + (2 * H * 4 if int8 else 0)  # K, V (scales)
+    nxt = rotating(L)
+    return check_kernel(
+        name, dtype, lambda: run(kernel, pos, None, W, nxt()),
+        lambda: run(plain, pos, None, W, nxt()), lambda: library(nxt()),
+        nbytes=kv_rows * row_bytes + 2 * B * H * dh * isz + table, flops=4 * B * H * n * dh,
+        reps=50, checked=worst,
+        library_call=None if not int8 else (
+            "the dequantising multiply of the window's K and V (one torch.mul) and "
+            "F.scaled_dot_product_attention, two calls as one CUDA graph" if G == 1 else
+            "the gather of the ancestors' K/V rows and of their scales, the dequantising "
+            "multiply and F.scaled_dot_product_attention, four calls as one CUDA graph"),
+    )
+
+
+def kernel_checks_int8(rows: dict) -> None:
+    """The kernel pieces of the int8 paths, in f32 and bf16, into ``rows``
+    under the labels of main(): row 10 over an int8 cache and over a bf16
+    one at base.en b128 and large-v3 b12; the cross kernel's int8 branch
+    at both int8 paths' shapes; the beam kernel's int8 read at the beam
+    shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for m, b, beam, _ in INT8_PATHS:
+        dims, G = dims_for(m), max(beam, 1)
+        label = int8_label(m, b, beam)
+        rows.setdefault(label, {name: {} for name in KERNELS})
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            print(f"[kernels] cross_attention_step ({tag}, int8 K/V, {G} rows an audio)",
+                  flush=True)
+            rows[label]["cross_attention_step"][tag] = check_cross(dims, b, G, dtype, randn,
+                                                                   int8=True)
+            if beam:
+                print(f"[kernels] beam_self_attention_step ({tag}, int8 cache)", flush=True)
+                rows[label]["beam_self_attention_step"][tag] = check_read_step(
+                    dims, b, G, dtype, randn, gen)
+            torch.cuda.empty_cache()
+    for m, b in (("base.en", 128), ("large-v3", 12)):
+        for int8 in (True, False):
+            label = f"{m} b{b} " + ("int8" if int8 else "bf16 cache")
+            rows.setdefault(label, {name: {} for name in KERNELS})
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = "f32" if dtype == torch.float32 else "bf16"
+                print(f"[kernels] self_attention_step ({tag}, {m} b{b}, "
+                      f"{'int8' if int8 else 'compute-dtype'} cache)", flush=True)
+                rows[label]["self_attention_step"][tag] = check_read_step(
+                    dims_for(m), b, 1, dtype, randn, gen, int8=int8)
+                torch.cuda.empty_cache()
 
 
 def time_beam_ranking(dims, A: int, G: int, randn) -> None:
@@ -756,15 +977,21 @@ def plain_margin(model, mel, row: int, tokens, pos: int, cfg) -> float:
     return (top[0] - top[1]).item()
 
 
+def parity_audio():
+    """(the rng, for the prompts after it; PARITY_WINDOWS seeded 30 s
+    windows of noise, each louder than the last)."""
+    rng = np.random.default_rng(2)
+    return rng, np.stack([
+        rng.standard_normal(480_000).astype(np.float32) * np.float32(0.05 * (i + 1))
+        for i in range(PARITY_WINDOWS)
+    ])
+
+
 def parity(dims, label: str) -> None:
     print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, {SAMPLE_LEN} steps", flush=True)
     model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
     cfg = filter_config(dims)
-    rng = np.random.default_rng(2)
-    audio = np.stack([
-        rng.standard_normal(480_000).astype(np.float32) * np.float32(0.05 * (i + 1))
-        for i in range(PARITY_WINDOWS)
-    ])
+    _, audio = parity_audio()
     initial = np.full((PARITY_WINDOWS, 1), SOT, np.int64)
     out = {}
     reset_launches()
@@ -844,16 +1071,65 @@ def selection_margins(logits, s, beam: int, eot: int) -> torch.Tensor:
     return gap[:, 0].nan_to_num(nan=float("inf"))
 
 
-def parity_beam(dims, label: str, beam: int) -> None:
-    print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, prompted, beam {beam}",
-          flush=True)
+def clone_cache(cache: KVCache) -> KVCache:
+    """A copy of ``cache``, its int8 scales included."""
+    return KVCache(*(None if t is None else t.clone()
+                     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+
+
+def checking_step_logits(logits_fn, check_pos, diffs: list):
+    """A stand-in for ``decode_loop._step_logits`` on the kernel path: at
+    the positions ``check_pos`` it runs the plain step on a copy of the
+    kernel path's own state (tokens, caches and their scales, the ancestor
+    table), then the kernel step, and appends to ``diffs`` (pos, the max
+    abs difference of their filtered logits, the int8 values of the
+    column the step wrote that the two rounded apart)."""
+
+    def checking(model, tokens, pos, cross_kv, cache, *args, **kw):
+        if pos not in check_pos:
+            return logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
+        *head, kernels = args
+        plain_cache = clone_cache(cache)
+        plain_kw = {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()}
+        want = logits_fn(model, tokens, pos, cross_kv, plain_cache, *head, False, **plain_kw)
+        got = logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
+        if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+            raise AssertionError(f"step at position {pos}: filtered-logit masks differ")
+        fin = torch.isfinite(want)
+        flips = 0
+        if cache.quantized:
+            flips = sum(int((a[:, :, :, pos - 1] != b[:, :, :, pos - 1]).sum())
+                        for a, b in ((cache.k, plain_cache.k), (cache.v, plain_cache.v)))
+        diffs.append((pos, (got[fin] - want[fin]).abs().max().item(), flips))
+        return got
+
+    return checking
+
+
+def report_step_diffs(what: str, diffs: list, tol: float, check_pos) -> None:
+    for pos, d, flips in diffs:
+        print(f"  {what} step at position {pos}, on the kernel path's state: filtered logits "
+              f"max_abs_err {d:.3e} (tolerance {tol:g})"
+              + (f"; int8 values of its column rounded apart: {flips}" if flips else ""),
+              flush=True)
+    if not diffs or diffs[0][0] != check_pos[0] or max(d for _, d, _ in diffs) > tol:
+        raise AssertionError(f"{what}: step logits {diffs} (tolerance {tol:g})")
+
+
+def parity_beam(dims, label: str, beam: int, int8_kv: bool = False) -> None:
+    """Beam search through the kernels and through the plain versions, f32,
+    prompted as BENCH_PROMPTED (``int8_kv``: with int8 K/V, whose logit
+    tolerance is INT8_LOGIT_TOL, its scores' INT8_SCORE_RTOL): the steps at
+    BEAM_CHECK_POS plain against kernel on the kernel path's state;
+    candidates equal, scores within 1e-4 + SCORE_RTOL |plain|, unless the
+    plain path's selection margin of that audio fell below the logit
+    tolerance at some step; no-speech probabilities within 1e-5."""
+    tol, score_rtol = (INT8_LOGIT_TOL, INT8_SCORE_RTOL) if int8_kv else (1e-3, SCORE_RTOL)
+    print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, prompted, beam {beam}"
+          + (", int8 K/V" if int8_kv else ""), flush=True)
     model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
     cfg = filter_config(dims)
-    rng = np.random.default_rng(2)
-    audio = np.stack([
-        rng.standard_normal(480_000).astype(np.float32) * np.float32(0.05 * (i + 1))
-        for i in range(PARITY_WINDOWS)
-    ])
+    rng, audio = parity_audio()
     initial, key_start, sample_begin, sot_idx = bench_prompts(rng, PARITY_WINDOWS, dims.n_text_ctx)
     sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
     mode = BeamSearchMode(beam_size=beam, patience=1.0)
@@ -866,37 +1142,21 @@ def parity_beam(dims, label: str, beam: int) -> None:
         # the plain path's selection margins, read from each step's inputs
         nonlocal margins, n_close
         m = selection_margins(logits, s, beam, cfg.token_id_eot)
-        margins, n_close = torch.minimum(margins, m), n_close + (m < 1e-3)
+        margins, n_close = torch.minimum(margins, m), n_close + (m < tol)
         return step_fn(logits, s, *args)
-
-    def checking_logits(model, tokens, pos, cross_kv, cache, *args, ancestors=None):
-        # at the positions of BEAM_CHECK_POS, the plain step on a copy of the
-        # kernel path's own state (tokens, ancestor table, caches), then the
-        # kernel step: the filtered logits of both
-        *head, kernels = args
-        if pos not in BEAM_CHECK_POS:
-            return logits_fn(model, tokens, pos, cross_kv, cache, *args, ancestors=ancestors)
-        want = logits_fn(model, tokens, pos, cross_kv, KVCache(cache.k.clone(), cache.v.clone()),
-                         *head, False, ancestors=ancestors.clone())
-        got = logits_fn(model, tokens, pos, cross_kv, cache, *args, ancestors=ancestors)
-        if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
-            raise AssertionError(f"step at position {pos}: filtered-logit masks differ")
-        fin = torch.isfinite(want)
-        step_diffs.append((pos, (got[fin] - want[fin]).abs().max().item()))
-        return got
 
     out = {}
     reset_launches()
     for kernels in (True, False):
         mel = log_mel_frontend(audio, dims.n_mels, kernels=kernels)
         if kernels:
-            decode_loop._step_logits = checking_logits
+            decode_loop._step_logits = checking_step_logits(logits_fn, BEAM_CHECK_POS, step_diffs)
         else:
             decode_loop._beam_step = recording_step
         try:
             out[kernels] = decode_beam(
                 model, mel, initial, sample_begin, sot_idx, cfg, mode, sample_len, NO_SPEECH,
-                key_start=key_start, kernels=kernels,
+                key_start=key_start, kernels=kernels, quantize_kv=int8_kv,
             )
         finally:
             decode_loop._beam_step, decode_loop._step_logits = step_fn, logits_fn
@@ -904,13 +1164,7 @@ def parity_beam(dims, label: str, beam: int) -> None:
             print(f"  kernel-path launches: {dict(LAUNCHES)} (with {len(step_diffs)} plain "
                   f"steps of the logits check, which launch no kernel)", flush=True)
     torch.cuda.synchronize()
-
-    for pos, d in step_diffs:
-        print(f"  step at position {pos} (window {256 if pos < 256 else dims.n_text_ctx}), on "
-              f"the kernel path's state: filtered logits max_abs_err {d:.3e} (tolerance 1e-3)",
-              flush=True)
-    if not step_diffs or max(d for _, d in step_diffs) > 1e-3:
-        raise AssertionError(f"incremental-step filtered logits: {step_diffs} (tolerance 1e-3)")
+    report_step_diffs("beam", step_diffs, tol, BEAM_CHECK_POS)
 
     res_k, res_p = out[True], out[False]
     print(f"  steps: kernel path {res_k.steps}, plain path {res_p.steps}", flush=True)
@@ -923,61 +1177,53 @@ def parity_beam(dims, label: str, beam: int) -> None:
     # step there, so the tolerance adds 2e-6 |plain|, some 20 steps
     for a in range(PARITY_WINDOWS):
         m, close = margins[a].item(), int(n_close[a])
-        margin = (f"smallest plain selection margin {m:.3e} (below 1e-3 at {close} of "
+        margin = (f"smallest plain selection margin {m:.3e} (below {tol:g} at {close} of "
                   f"{res_p.steps + 1} steps)")
         if torch.equal(res_k.candidates[a], res_p.candidates[a]):
             d = (res_k.scores[a] - res_p.scores[a]).abs()
-            share = (d / (1e-4 + SCORE_RTOL * res_p.scores[a].abs())).max().item()
+            share = (d / (1e-4 + score_rtol * res_p.scores[a].abs())).max().item()
             print(f"  audio {a}: {beam} candidates identical; scores max_abs_err "
-                  f"{d.max().item():.3e} (tolerance 1e-4 + {SCORE_RTOL:g}|plain|, share used "
+                  f"{d.max().item():.3e} (tolerance 1e-4 + {score_rtol:g}|plain|, share used "
                   f"{share:.3f}); {margin}", flush=True)
             if share > 1:
                 raise AssertionError(f"audio {a}: scores differ beyond the tolerance")
             continue
         print(f"  audio {a}: candidates differ; {margin}", flush=True)
-        if m >= 1e-3:
-            raise AssertionError(f"audio {a}: candidates differ with margin {m:.3e} >= 1e-3")
+        if m >= tol:
+            raise AssertionError(f"audio {a}: candidates differ with margin {m:.3e} >= {tol:g}")
     del model
     torch.cuda.empty_cache()
 
 
-def parity_routes(dims, label: str) -> None:
-    """The greedy decode through each of the two step routes, f32, prompted
-    as BENCH_PROMPTED: through the kernels and through the plain versions.
-    The filtered logits of the steps at GREEDY_CHECK_POS (the first step,
-    both ends of the 256 phase, one at 448), plain against kernel on the
-    kernel path's own state, within 1e-3; tokens equal per row unless the
-    plain path's top-2 margin at the first divergent position is below
-    1e-3; no-speech probabilities within 1e-5."""
-    print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, prompted, greedy, step_kernel "
-          f"layer and ctx", flush=True)
+def parity_routes(dims, label: str, routes=("layer", "ctx"), int8: bool = False) -> None:
+    """The greedy decode through each step route, f32, through the kernels
+    and through the plain versions: prompted as BENCH_PROMPTED, or (``int8``:
+    int8 weights and K/V on the append route) unprompted with the logit
+    tolerance INT8_LOGIT_TOL.  The filtered logits of the steps at
+    GREEDY_CHECK_POS (INT8_GREEDY_CHECK_POS: the first step, both ends of
+    the 128 phase, one at 256), plain against kernel on the kernel path's
+    own state, within the tolerance; tokens equal per row unless the plain
+    path's top-2 margin at the first divergent position is below it;
+    no-speech probabilities within 1e-5."""
+    tol, check_pos = (INT8_LOGIT_TOL, INT8_GREEDY_CHECK_POS) if int8 else (1e-3, GREEDY_CHECK_POS)
+    print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, "
+          + ("unprompted, greedy, int8 weights and K/V" if int8 else
+             f"prompted, greedy, step_kernel {' and '.join(routes)}"), flush=True)
     model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    if int8:
+        quantize_params(model)
     cfg = filter_config(dims)
-    rng = np.random.default_rng(2)
-    audio = np.stack([
-        rng.standard_normal(480_000).astype(np.float32) * np.float32(0.05 * (i + 1))
-        for i in range(PARITY_WINDOWS)
-    ])
-    initial, key_start, sample_begin, sot_idx = bench_prompts(rng, PARITY_WINDOWS, dims.n_text_ctx)
-    sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
+    rng, audio = parity_audio()
+    if int8:
+        initial, key_start, sample_begin, sot_idx = np.full((PARITY_WINDOWS, 1), SOT), None, 1, 0
+        sample_len = SAMPLE_LEN
+    else:
+        initial, key_start, sample_begin, sot_idx = bench_prompts(rng, PARITY_WINDOWS,
+                                                                  dims.n_text_ctx)
+        sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
     logits_fn, update_fn = decode_loop._step_logits, decode_loop._greedy_update
-    for route in ("layer", "ctx"):
+    for route in routes:
         step_diffs, margins = [], {}
-
-        def checking_logits(model, tokens, pos, cross_kv, cache, *args, **kw):
-            # at GREEDY_CHECK_POS, the plain step on a copy of the kernel
-            # path's state, then the kernel step: the filtered logits of both
-            if pos not in GREEDY_CHECK_POS:
-                return logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
-            *head, kernels = args
-            want = logits_fn(model, tokens, pos, cross_kv,
-                             KVCache(cache.k.clone(), cache.v.clone()), *head, False, **kw)
-            got = logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
-            if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
-                raise AssertionError(f"{route} step at position {pos}: filtered-logit masks differ")
-            fin = torch.isfinite(want)
-            step_diffs.append((pos, (got[fin] - want[fin]).abs().max().item()))
-            return got
 
         def recording_update(logits, tokens, pos, *args):
             # the plain path's top-2 margin of every row at every position
@@ -990,13 +1236,14 @@ def parity_routes(dims, label: str) -> None:
             reset_launches()
             mel = log_mel_frontend(audio, dims.n_mels, kernels=kernels)
             if kernels:
-                decode_loop._step_logits = checking_logits
+                decode_loop._step_logits = checking_step_logits(logits_fn, check_pos, step_diffs)
             else:
                 decode_loop._greedy_update = recording_update
             try:
                 out[kernels] = decode_greedy(
                     model, mel, initial, sample_begin, sot_idx, cfg, GreedyMode(), sample_len,
                     NO_SPEECH, key_start=key_start, kernels=kernels, step_kernel=route,
+                    quantize_kv=int8,
                 )
             finally:
                 decode_loop._step_logits, decode_loop._greedy_update = logits_fn, update_fn
@@ -1004,12 +1251,7 @@ def parity_routes(dims, label: str) -> None:
                 print(f"  {route}: kernel-path launches {dict(LAUNCHES)} (with "
                       f"{len(step_diffs)} plain steps of the logits check)", flush=True)
         torch.cuda.synchronize()
-        for pos, d in step_diffs:
-            print(f"  {route} step at position {pos}, on the kernel path's state: filtered logits "
-                  f"max_abs_err {d:.3e} (tolerance 1e-3)", flush=True)
-        if not step_diffs or step_diffs[0][0] != GREEDY_CHECK_POS[0] or max(
-                d for _, d in step_diffs) > 1e-3:
-            raise AssertionError(f"{route}: step logits {step_diffs} (tolerance 1e-3)")
+        report_step_diffs(route, step_diffs, tol, check_pos)
         res_k, res_p = out[True], out[False]
         dn = (res_k.no_speech_probs - res_p.no_speech_probs).abs().max().item()
         print(f"  {route}: steps {res_k.steps} (plain {res_p.steps}); no-speech probs "
@@ -1026,17 +1268,20 @@ def parity_routes(dims, label: str) -> None:
             margin = margins[pos][r]
             print(f"  {route} row {r}: diverges at position {pos}; plain top-2 margin "
                   f"{margin:.3e}", flush=True)
-            if margin >= 1e-3:
+            if margin >= tol:
                 raise AssertionError(f"{route} row {r} diverges at {pos} with margin {margin:.3e}")
     del model
     torch.cuda.empty_cache()
 
 
-def expected_launches(dims, steps: int, n_passes: int, route: str) -> dict:
+def expected_launches(dims, steps: int, n_passes: int, route: str,
+                      int8_weights: bool = False) -> dict:
     """The launch count of each kernel on one e2e batch: cross attention
     n_text_layer times a width-1 decoder pass, the step kernels of the route
     n_text_layer times an incremental step (the beam kernel in the append
-    kernel's place on the beam path), the whole-step kernel once a step."""
+    kernel's place on the beam path, row 10 on the greedy path over an int8
+    cache, route "int8"; no MLP kernel under int8 weights), the whole-step
+    kernel once a step."""
     L = dims.n_text_layer
     layered = route != "layer"
     return {
@@ -1047,9 +1292,10 @@ def expected_launches(dims, steps: int, n_passes: int, route: str) -> dict:
         "cross_attention_step": L * (n_passes if layered else n_passes - steps),
         "self_attention_append_step": L * steps if route == "append" else 0,
         "beam_self_attention_step": L * steps if route == "beam" else 0,
-        "decoder_mlp_step": L * steps if layered else 0,
+        "decoder_mlp_step": L * steps if layered and not int8_weights else 0,
         "self_attention_fused_step": L * steps if route == "ctx" else 0,
         "decoder_step_fused": steps if route == "layer" else 0,
+        "self_attention_step": L * steps if route == "int8" else 0,
     }
 
 
@@ -1061,8 +1307,9 @@ def e2e_routes(dims, name: str, batch: int) -> dict:
     print(f"[e2e] {name} bf16 batch {batch}, greedy, prompted: step_kernel layer {E2E_REPS} "
           f"timed runs, ctx and append one each", flush=True)
     t0 = time.perf_counter()
-    model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
-    print(f"  init_random {time.perf_counter() - t0:.1f} s", flush=True)
+    model = e2e_model(dims)
+    print(f"  init_random (or the model of the last e2e phase) {time.perf_counter() - t0:.1f} s",
+          flush=True)
     cfg = filter_config(dims)
     rng = np.random.default_rng(0)
     audio = rng.standard_normal((batch, 480_000)).astype(np.float32) * np.float32(0.1)
@@ -1161,14 +1408,31 @@ def e2e_routes(dims, name: str, batch: int) -> dict:
     return launches
 
 
-def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
+@functools.lru_cache(maxsize=1)
+def e2e_model(dims):
+    """The seed-0 bf16 model of ``dims`` at full width and depth, kept for the
+    next e2e phase of the same model (medium.en's three share one)."""
+    return init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+
+
+def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
+        int8_kv: bool = False) -> dict:
     """One path in bf16 at full width and depth: greedy and unprompted, or
-    (``beam`` > 0) beam search prompted as bench.py's BENCH_PROMPTED."""
+    (``beam`` > 0) beam search prompted as bench.py's BENCH_PROMPTED; with
+    int8 weights (``quantize_params``) and int8 K/V (``quantize_kv``) as
+    asked."""
     what = f"beam {beam}, prompted" if beam else "greedy, unprompted"
-    print(f"[e2e] {name} bf16 batch {batch}, {what}, {E2E_REPS} timed runs", flush=True)
+    what += "".join(f", int8 {w}" for w, on in (("weights", int8_weights), ("K/V", int8_kv)) if on)
+    reps = E2E_REPS_CUT.get(name, E2E_REPS)
+    print(f"[e2e] {name} bf16 batch {batch}, {what}, {reps} timed runs", flush=True)
     t0 = time.perf_counter()
-    model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
-    print(f"  init_random {time.perf_counter() - t0:.1f} s", flush=True)
+    if int8_weights:  # its own model: quantize_params works in place
+        model = quantize_params(init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda"))
+    else:
+        model = e2e_model(dims)
+    made = ("init_random + quantize_params" if int8_weights
+            else "init_random (or the model of the last e2e phase)")
+    print(f"  {made} {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = filter_config(dims)
     rng = np.random.default_rng(0)
     audio = rng.standard_normal((batch, 480_000)).astype(np.float32) * np.float32(0.1)
@@ -1184,13 +1448,14 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
     def run(a, budget=sample_len):
         mel = log_mel_frontend(a, dims.n_mels, dtype=torch.bfloat16)
         res = decode(model, mel, initial, sample_begin, sot_idx, cfg, mode, budget,
-                     NO_SPEECH, key_start=key_start)
+                     NO_SPEECH, key_start=key_start, quantize_kv=int8_kv)
         torch.cuda.synchronize()
         return res
 
-    run(audio + np.float32(0.001))  # warm-up: Triton compile, cuBLAS set-up
+    route = "beam" if beam else "int8" if int8_kv else "append"
+    run(audio + np.float32(0.001), budget=4)  # warm-up: Triton compile, cuBLAS set-up
     times = []
-    for _ in range(E2E_REPS):
+    for _ in range(reps):
         reset_launches()
         t0 = time.perf_counter()
         res = run(audio)
@@ -1200,7 +1465,7 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
         # cross kernel too, but not the incremental-step kernels
         steps = res.steps
         n_passes = steps + (1 if sample_begin == 1 else 0)
-        expect = expected_launches(dims, steps, n_passes, "beam" if beam else "append")
+        expect = expected_launches(dims, steps, n_passes, route, int8_weights)
         if steps < 1 or launches != expect:
             raise AssertionError(f"e2e: launches {launches}, expected {expect}")
 
@@ -1220,10 +1485,31 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
     print(f"  steps {res.steps}; runs {', '.join(f'{t:.3f}' for t in times)} s; "
           f"median {elapsed:.3f} s, {batch * 30.0 / elapsed:.2f} audio-s/s", flush=True)
     print(f"  launches of each run: {launches}", flush=True)
-    step_kernel = "beam_self_attention_step" if beam else "self_attention_append_step"
+    step_kernel = {"beam": "beam_self_attention_step", "int8": "self_attention_step",
+                   "append": "self_attention_append_step"}[route]
     print(f"  cross_attention_step: {launches['cross_attention_step'] / n_passes:g} a pass "
-          f"over {n_passes} width-1 decoder passes; {step_kernel} and the MLP kernel "
+          f"over {n_passes} width-1 decoder passes; {step_kernel} "
+          f"{launches[step_kernel] / steps:g} and the MLP kernel "
           f"{launches['decoder_mlp_step'] / steps:g} a step over {steps} steps", flush=True)
+    if int8_weights:
+        # what each step spends casting the int8 weights it reads, timed
+        # alone: every QuantLinear of the step casts its weight to the
+        # compute dtype, and the logits cast the int8 token table to f32
+        blocks = model.decoder.blocks
+        step_weights = [lin.weight for b in blocks for lin in (
+            b.attn.query, b.attn.key, b.attn.value, b.attn.out, b.cross_attn.query,
+            b.cross_attn.out, b.mlp[0], b.mlp[2])]
+        table = model.decoder.token_embedding.weight
+
+        def casts():
+            for w in step_weights:
+                w.to(torch.bfloat16)
+            table.float()
+
+        cast_bytes = 3 * sum(w.numel() for w in step_weights) + 5 * table.numel()
+        cast_ms = timed_ms(casts, 10, graph=True)
+        print(f"  int8 weight casts of one step (CUDA graph): {cast_ms:.4f} ms for "
+              f"{cast_bytes / 1e6:.1f} MB read and written", flush=True)
     if beam:
         sel, avg, lengths = rank_max_likelihood(res, sample_begin, cfg.token_id_eot, None)
         picked = [cand[a, sel[a], sample_begin : sample_begin + lengths[a, sel[a]]].tolist()
@@ -1242,7 +1528,7 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
             _encode_and_prefill(
                 model, mel, prompt, sample_begin, sot_idx, group, cfg, NO_SPEECH,
                 None if key_start is None else torch.as_tensor(key_start, device=prompt.device),
-                True,
+                True, int8_kv,
             )
         else:
             model.encoder(mel)
@@ -1256,7 +1542,8 @@ def e2e(dims, name: str, batch: int, beam: int = 0) -> dict:
           f"and the token update); prefill+steps over the width-1 passes "
           f"{(elapsed - t_enc) / n_passes * 1e3:.2f} ms a pass", flush=True)
     profile_run(lambda a: run(a, PROFILE_STEPS), audio,
-                f"one e2e run cut to {PROFILE_STEPS} tokens")
+                f"one e2e run cut to {PROFILE_STEPS} tokens",
+                passes=PROFILE_STEPS if sample_begin == 1 else PROFILE_STEPS - 1)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1274,6 +1561,8 @@ OWN_KERNELS = {
     "mlp_fc2_kernel": "decoder_mlp_step (fc2)",
     "self_fused_kernel": "self_attention_fused_step",
     "decoder_step_kernel": "decoder_step_fused",
+    "self_step_kernel": "self_attention_step",
+    "beam_self_int8_kernel": "beam_self_attention_step (int8)",
 }
 
 
@@ -1282,6 +1571,8 @@ def device_kind(name: str) -> str:
         if key in name:
             return f"port kernel: {label}"
     low = name.lower()
+    if "copy" in low and "signed char" in low:
+        return "library: int8 casts and copies (K/V quantise and write)"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "library: matmul"
     if any(s in low for s in ("sort", "radix")):
@@ -1315,10 +1606,12 @@ def device_launches(fn, warmup: int = 2) -> int:
     return sum(e.count for e in events)
 
 
-def profile_run(run, audio, what: str) -> None:
+def profile_run(run, audio, what: str, passes: int = 0) -> None:
     """One more run of the e2e batch under torch.profiler: its wall time, its
     device busy time (the sum of kernel durations; one stream, so kernels do
-    not overlap) and idle share, device time by kind, and the top kernels."""
+    not overlap) and idle share, device time by kind, the top kernels, and
+    (given its ``passes`` width-1 decoder passes) its device launches a
+    pass."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1336,6 +1629,11 @@ def profile_run(run, audio, what: str) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"[profile] {what} under torch.profiler: wall {wall_ms:.1f} ms; "
           f"device busy {busy_ms:.1f} ms; idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+    if passes:
+        n = sum(e.count for e in events)
+        print(f"  device launches (kernels and copies): {n} in all, {n / passes:.1f} a width-1 "
+              f"decoder pass over {passes} (the encoder's and prefill's included); device busy "
+              f"{busy_ms / passes:.3f} ms a pass", flush=True)
     by_kind: dict = {}
     for e in events:
         t, n = by_kind.get(device_kind(e.key), (0.0, 0))
@@ -1368,7 +1666,13 @@ KERNELS = {
                                   "whisper_rs_tpu/ops/decode_attention.py:285"),
     "decoder_step_fused": ("cuda", "whisper_rs_tpu_torch/csrc/decoder_layer.cu",
                            "whisper_rs_tpu/ops/decoder_layer_fused.py:499"),
+    "self_attention_step": ("cuda", "whisper_rs_tpu_torch/csrc/self_attention.cu",
+                            "whisper_rs_tpu/ops/decode_attention.py:166"),
 }
+
+
+def int8_label(m: str, b: int, beam: int) -> str:
+    return f"{m} b{b} " + (f"beam{beam} int8 KV" if beam else "int8")
 
 
 def main() -> int:
@@ -1410,6 +1714,16 @@ def main() -> int:
     rows[ctx_label] = {name: {} if name == "decoder_step_fused" else checked[name]
                        for name in KERNELS}
     phase_done(f"kernels {routes_label} routes", t0)
+    t0 = time.perf_counter()
+    kernel_checks_int8(rows)
+    # on the int8 paths the encoder's kernels (and the beam path's MLP
+    # kernel) run at the shapes of the bf16 path of the same model and
+    # batch, whose checks stand for both
+    for m, b, beam, int8_weights in INT8_PATHS:
+        same = ("log_mel", "ln_fused", "residual_ln", "encoder_attention_merged")
+        same += () if int8_weights else ("decoder_mlp_step",)
+        rows[int8_label(m, b, beam)].update({k: rows[label(m, b, beam)][k] for k in same})
+    phase_done("kernels int8", t0)
 
     for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
@@ -1425,6 +1739,18 @@ def main() -> int:
         else:
             parity(dims, text)
         phase_done(f"parity {m}" + (" greedy routes" if beam is None else ""), t0)
+    for m, b, beam, _ in INT8_PATHS:
+        t0 = time.perf_counter()
+        dims, text = dims_for(m), f"{m} full width"
+        if m in PARITY_DEPTH:
+            n = PARITY_DEPTH[m]
+            dims = dataclasses.replace(dims, n_audio_layer=n, n_text_layer=n)
+            text += f", depth cut to {n} + {n} layers"
+        if beam:
+            parity_beam(dims, text, beam, int8_kv=True)
+        else:
+            parity_routes(dims, text, routes=("append",), int8=True)
+        phase_done(f"parity {int8_label(m, b, beam)}", t0)
     for m, b, beam in PATHS:
         t0 = time.perf_counter()
         launches[label(m, b, beam)] = e2e(dims_for(m), m, b, beam)
@@ -1433,15 +1759,25 @@ def main() -> int:
     by_route = e2e_routes(dims_for(routes_model), routes_model, routes_batch)
     launches[layer_label], launches[ctx_label] = by_route["layer"], by_route["ctx"]
     phase_done(f"e2e {routes_label} routes", t0)
+    for m, b, beam, int8_weights in INT8_PATHS:
+        t0 = time.perf_counter()
+        launches[int8_label(m, b, beam)] = e2e(dims_for(m), m, b, beam, int8_weights=int8_weights,
+                                               int8_kv=True)
+        phase_done(f"e2e {int8_label(m, b, beam)}", t0)
 
-    # each kernel's headline numbers come from the path of this slice that
+    # each kernel's headline numbers come from the path of the slice that
     # runs it: the whole-step kernel's from the layer route, the fused
     # self-attention's from the ctx route; the append kernel's from
-    # large-v3; every other kernel's from the beam path
+    # large-v3; row 10's from the base.en int8 path; every other kernel's
+    # from the beam path.  Configs without launches were checked in the
+    # kernels phase alone (row 10 at large-v3, and over a bf16 cache).
     headline = {"decoder_step_fused": layer_label, "self_attention_fused_step": ctx_label,
-                "self_attention_append_step": label(*PATHS[1])}
-    configs = [label(*path) for path in PATHS] + [layer_label, ctx_label]
-    extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us")
+                "self_attention_append_step": label(*PATHS[1]),
+                "self_attention_step": int8_label(*INT8_PATHS[0][:3])}
+    configs = ([label(*path) for path in PATHS] + [layer_label, ctx_label]
+               + [int8_label(*path[:3]) for path in INT8_PATHS]
+               + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"])
+    extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "library_call")
     line = []
     for name, (route, source, replaces) in KERNELS.items():
         by_config = {}
@@ -1452,7 +1788,7 @@ def main() -> int:
             r = checked.get("bf16", checked.get("f32"))
             by_config[config] = {
                 "dtype": "bf16" if "bf16" in checked else "f32",
-                "launches": launches[config][name],
+                "launches": launches.get(config, {}).get(name),
                 **{k: r[k] for k in ("max_abs_err", "atol", "rtol", "tol_share", "ms",
                                      "plain_ms", "bound_ms", "bound_by", "library_ms")},
                 **{k: r[k] for k in extra_keys if k in r},

@@ -14,7 +14,9 @@ inputs:
     default physical cache reorder: candidates equal, scores within 1e-4,
     and the ranked pick equal with and without a length penalty;
   * the beam step calls the beam wrapper ``n_text_layer x steps`` times and
-    the append wrapper never."""
+    the append wrapper never;
+  * malformed arguments raise, int8 scales among them (the int8 branch is
+    held against Pallas in tests/test_torch_quantize.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -105,9 +107,13 @@ def test_beam_attention_rejects_bad_arguments():
         beam_self_attention_step(q, q, q, k, k.clone(), 0, 3, None, anc, 3, window=8)
     with pytest.raises(ValueError, match="anc_local"):
         beam_self_attention_step(q, q, q, k, k.clone(), 0, 3, None, anc[:, :8], 2, window=8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        beam_self_attention_step(q, q, q, k, k.clone(), 0, 3, None, anc, 2, window=8,
-                                 k_scale=torch.ones(1, 4, 2, 16, 1))
+    k8, scale = k.to(torch.int8), torch.ones(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="int8"):  # the JAX scale shape, with a trailing 1
+        beam_self_attention_step(q, None, None, k8, k8.clone(), 0, 3, None, anc, 2, window=8,
+                                 k_scale=scale[..., None], v_scale=scale[..., None])
+    with pytest.raises(ValueError, match="int8"):  # an int8 cache is written by the caller
+        beam_self_attention_step(q, q, q, k8, k8.clone(), 0, 3, None, anc, 2, window=8,
+                                 k_scale=scale, v_scale=scale)
 
 
 # ---------------------------------------------------------------------------

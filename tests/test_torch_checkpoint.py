@@ -2,8 +2,9 @@
 synthetic checkpoints written here: an OpenAI ``.pt``, a Hugging Face
 directory (``pytorch_model.bin`` or ``model.safetensors``) and a JAX
 ``.npz``.  Each loaded model gives the logits of ``params_from_jax`` of the
-JAX loader's tree, exactly; int8 ``.npz`` leaves raise.  Also pins
-``init_random``'s draws with a digest of a small model."""
+JAX loader's tree, exactly; an int8 ``.npz`` loads with its int8 leaves
+int8, and a leaf of the wrong dtype raises.  Also pins ``init_random``'s
+draws with a digest of a small model."""
 
 import dataclasses
 import hashlib
@@ -124,11 +125,25 @@ def test_jax_npz(tmp_path):
 
 
 def test_jax_npz_int8_leaves_raise(tmp_path):
-    params = quantize_params(init_params(jax.random.PRNGKey(3), JDIMS))
+    """The ``.npz`` that a user saves after ``--quant int8`` loads: int8
+    leaves stay int8, and the logits equal the port-quantised model's
+    exactly.  A file whose int8 weight was saved as floats raises."""
+    from whisper_rs_tpu_torch.models import quantize_params as port_quantize_params
+
+    params = init_params(jax.random.PRNGKey(3), JDIMS)
     path = tmp_path / "int8.npz"
-    save_params(str(path), params, JDIMS)
-    with pytest.raises(NotImplementedError, match="int8"):
-        load_params(path, device="cpu")
+    save_params(str(path), quantize_params(params), JDIMS)
+    model, dims = load_params(path, device="cpu")
+    assert dims == DIMS and model.decoder.blocks[0].attn.query.weight.dtype == torch.int8
+    want = port_quantize_params(params_from_jax(jax.tree.map(np.asarray, params), DIMS,
+                                                device="cpu"))
+    np.testing.assert_array_equal(_logits(model), _logits(want))
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    flat["decoder/blocks/attn/query/w"] = flat["decoder/blocks/attn/query/w"].astype(np.float32)
+    np.savez(tmp_path / "float_w.npz", **flat)
+    with pytest.raises(ValueError, match="int8"):
+        load_params(tmp_path / "float_w.npz", device="cpu")
 
 
 def test_bf16_load_casts_every_weight(state_dict, tmp_path):

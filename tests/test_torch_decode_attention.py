@@ -1,5 +1,7 @@
 """The port's decode-step cross-attention (its plain version on the CPU)
-against the JAX Pallas kernel in interpret mode, at 1e-5."""
+against the JAX Pallas kernel in interpret mode, at 1e-5, and its checks
+of int8 scales (the int8 branch itself is held against Pallas in
+tests/test_torch_quantize.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,9 +50,20 @@ def test_cross_attention_step_bf16_rounds_weights_like_pallas():
 
 
 def test_int8_scales_raise():
+    """Malformed int8 arguments raise ValueError naming int8: scales of the
+    JAX shape (a trailing 1), only one scale, scales with f32 K/V, int8 K/V
+    without scales.  Well-formed ones run."""
     q = torch.zeros(1, 1, 2, 64)
-    kv = torch.zeros(1, 1, 2, 2, 64, 8)
-    scale = torch.ones(1, 1, 2, 8, 1)
+    kv8 = torch.zeros(1, 1, 2, 2, 64, 8, dtype=torch.int8)
+    scale = torch.ones(1, 1, 2, 8)
+    bad = [
+        (kv8, dict(k_scale=scale[..., None], v_scale=scale[..., None])),
+        (kv8, dict(k_scale=scale)),
+        (kv8.float(), dict(k_scale=scale, v_scale=scale)),
+        (kv8, {}),
+    ]
     for fn in (cross_attention_step, cross_attention_step_plain):
-        with pytest.raises(NotImplementedError):
-            fn(q, kv, 0, k_scale=scale, v_scale=scale)
+        for kv, scales in bad:
+            with pytest.raises(ValueError, match="int8"):
+                fn(q, kv, 0, **scales)
+        assert fn(q, kv8, 0, k_scale=scale, v_scale=scale).shape == q.shape

@@ -1,8 +1,9 @@
 """The port's model (whisper_rs_tpu_torch.models) against the JAX package:
 primitives (GELU in f32 and bf16, the conv stem, sinusoids), the cross K/V
 precompute, and decoder prefill and step logits at 1e-4 (the tolerances of
-tests/test_model_parity.py), with and without per-row ``key_start``; and
-the port's incremental decode against its own full prefill."""
+tests/test_model_parity.py), with and without per-row ``key_start``; the
+port's incremental decode against its own full prefill; and the dtype
+check of int8 weights on load."""
 
 import jax
 import jax.numpy as jnp
@@ -154,10 +155,19 @@ def test_incremental_decode_equals_full_prefill(models):
 
 
 def test_int8_params_raise(models):
-    """int8 weights are out of this slice: converting them raises instead of
-    loading int8 values without their scales."""
+    """A quantised JAX tree loads with its weights int8 and their scales
+    beside them; an int8 weight handed as floats (or floats as int8) raises
+    instead of loading values without their int8 meaning."""
     from whisper_rs_tpu.models.quantize import quantize_params
 
     params, _, _ = models
-    with pytest.raises(NotImplementedError, match="int8"):
-        params_from_jax(jax.tree.map(np.asarray, quantize_params(params)), DIMS, device="cpu")
+    tree = jax.tree.map(np.asarray, quantize_params(params))
+    model = params_from_jax(tree, DIMS, device="cpu")
+    assert model.decoder.blocks[1].cross_attn.value.weight.dtype == torch.int8
+    assert model.decoder.token_embedding.scale.dtype == torch.float32
+    for leaf in ("w", "s"):
+        bad = jax.tree.map(np.copy, tree)
+        mlp = bad["decoder"]["blocks"]["mlp"]["fc1"]
+        mlp[leaf] = mlp[leaf].astype(np.float32 if leaf == "w" else np.int8)
+        with pytest.raises(ValueError, match="int8"):
+            params_from_jax(bad, DIMS, device="cpu")

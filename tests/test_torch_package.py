@@ -97,6 +97,7 @@ def _meta_calls():
         cross_attention_step,
         self_attention_append_step,
         self_attention_fused_step,
+        self_attention_step,
     )
     from whisper_rs_tpu_torch.ops.decoder_layer_fused import DecoderStepWeights, decoder_step_fused
     from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step
@@ -129,6 +130,9 @@ def _meta_calls():
             m(2, 128), DecoderStepWeights((), m(1, 21)), m(1, 2, 2, 2, 64, 8),
             m(1, 2, 2, 16, 64), m(1, 2, 2, 16, 64), 3, None, n_head=2, group=1, window=8,
         ),
+        "self_attention_step": lambda: self_attention_step(
+            m(1, 2, 64), m(1, 1, 2, 16, 64), m(1, 1, 2, 16, 64), 0, 3, window=8,
+        ),
     }
 
 
@@ -138,6 +142,7 @@ def _meta_calls():
         "raw_log10_mel", "ln_fused", "residual_ln", "encoder_attention_merged",
         "cross_attention_step", "self_attention_append_step", "beam_self_attention_step",
         "decoder_mlp_step", "self_attention_fused_step", "decoder_step_fused",
+        "self_attention_step",
     ],
 )
 def test_wrappers_raise_off_the_cpu_without_a_kernel(name):
@@ -374,3 +379,56 @@ def test_chip_smoke_bf16_tolerance_takes_sums_in_another_order(chip_smoke):
     name = "decoder_step_fused"
     _, share = chip_smoke.compare(name, reordered, right, chip_smoke.tolerance(name, torch.bfloat16))
     assert 0 < share < 0.7
+
+
+def _faulty_int8_attention(fault):
+    """Row 10 or the beam kernel's int8 read in bf16 at chip_smoke's
+    unit-scale inputs and its W 448, pos 400 check (caches quantised per
+    position from unit-scale values, key_start in 1..231, for the beam A = 2
+    audios of G = 5 with random ancestors): the right output and one with a
+    fault: a kernel that ignores k_scale or v_scale, or a beam kernel that
+    takes slot j's scales from row b instead of the ancestor's row."""
+    from whisper_rs_tpu_torch.models import quantize_kv
+    from whisper_rs_tpu_torch.ops.decode_attention import (
+        beam_self_attention_step_plain,
+        self_attention_step_plain,
+    )
+
+    gen = torch.Generator().manual_seed(4)
+    A, G, H, n_ctx, dh, pos = 2, 5, 8, 448, 64, 400
+    B = A * G if fault.startswith("beam") else 2
+    q = (torch.randn(B, H, dh, generator=gen) * dh**-0.5).bfloat16()
+    (k, ks), (v, vs) = (quantize_kv(torch.randn(1, B, H, n_ctx, dh, generator=gen))
+                        for _ in range(2))
+    key_start = torch.arange(B) * 37 % 231 + 1
+    if not fault.startswith("beam"):
+        def run(k_scale=ks, v_scale=vs):
+            return self_attention_step_plain(q, k, v, 0, pos, key_start, window=n_ctx,
+                                             k_scale=k_scale, v_scale=v_scale)
+
+        ones = torch.ones_like(ks)
+        return "self_attention_step", run(), run(**{fault.removeprefix("row10_ignores_"): ones})
+    anc = torch.randint(0, G, (B, n_ctx), generator=gen, dtype=torch.int32)
+    anc[:, pos] = torch.arange(B, dtype=torch.int32) % G
+    right = beam_self_attention_step_plain(q, None, None, k, v, 0, pos, key_start, anc, G,
+                                           window=n_ctx, k_scale=ks, v_scale=vs)
+    # the ancestors' K/V rows with the scales of each row b itself
+    first = torch.arange(B) // G * G
+    src = first[:, None] + anc.long()
+    ids = torch.arange(n_ctx)
+    k_anc, v_anc = (c[0][src, :, ids].transpose(1, 2)[None].contiguous() for c in (k, v))
+    wrong = self_attention_step_plain(q, k_anc, v_anc, 0, pos, key_start[first], window=n_ctx,
+                                      k_scale=ks, v_scale=vs)
+    return "beam_self_attention_step", right, wrong
+
+
+@pytest.mark.parametrize(
+    "fault", ["row10_ignores_k_scale", "row10_ignores_v_scale", "beam_reads_row_b_scales"]
+)
+def test_chip_smoke_bf16_tolerance_rejects_faulty_int8_attention(chip_smoke, fault):
+    """The bf16 tolerance of the int8 step checks fails a row 10 kernel
+    that ignores either scale, and a beam kernel that reads each slot's
+    scales from the row itself instead of from its ancestor's row."""
+    name, right, wrong = _faulty_int8_attention(fault)
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.compare(name, (wrong,), (right,), chip_smoke.tolerance(name, torch.bfloat16))

@@ -11,7 +11,7 @@ extern "C" const char* kernel_error_string(int err) {
 }
 
 // Four consecutive elements as f32 (one 16-byte load for f32, 8 bytes for
-// bf16); the pointer must be aligned to the vector.
+// bf16, 4 for int8); the pointer must be aligned to the vector.
 __device__ __forceinline__ float4 load4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
 }
@@ -21,6 +21,11 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
     float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
     float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
     return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    return make_float4(c.x, c.y, c.z, c.w);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }

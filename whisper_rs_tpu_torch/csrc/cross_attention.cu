@@ -1,25 +1,32 @@
 // One decode step's cross-attention for layer l: G query rows per audio
 // share one encoder K/V; out = softmax(q K^T) V, no mask, f32 softmax.
+// With int8 K/V and f32 per-position scales ks, vs [L, A, H, Tk]: the
+// scores times ks, and the weights times vs, kept in f32.
 //
 // Replaces: whisper_rs_tpu/ops/decode_attention.py::cross_attention_step
-// (kernel body _cross_attn_kernel), non-quantised branch.  It reads the
-// same fused layout kv [L, A, H, 2, dh, Tk] (K^T and V^T planes), and the
+// (kernel body _cross_attn_kernel), both branches.  It reads the same
+// fused layout kv [L, A, H, 2, dh, Tk] (K^T and V^T planes), and the
 // layer index is a pointer offset, so the cross K/V is never sliced or
-// copied per layer.
+// copied per layer.  The TPU's int8 branch took whole-H scale blocks and
+// picked each head's row by a masked reduce, for Mosaic; here a block
+// reads its own head's scales, one 16-byte load per 4 keys.
 //
 // Bound on the H100: bytes.  Each step reads the layer's whole K/V,
 // A * H * 2 * dh * Tk elements (393 MB at base.en b128 bf16, about 117 us
-// at the H100 SXM data-sheet 3.35 TB/s, 700 W power limit), for only 4 * G
-// FLOP per element read.
+// at the H100 SXM data-sheet 3.35 TB/s, 700 W power limit; in int8 197 MB
+// plus 12 MB of scales, about 62 us), for only 4 * G FLOP per element read.
 //
 // Design: one block per (head, audio), 1024 blocks at base.en b128.
 // Threads run along Tk, so every read of a [dh, Tk] plane row is coalesced
-// and vectorised (4 elements a thread: 8 bytes in bf16, 16 in f32).  The
-// G rows' scores (Tk x G f32) stay in shared memory; block reductions give
-// the max and the sum; the weights are normalised and, as on the TPU,
-// rounded to the K/V dtype; then each warp takes a share of the dh rows of
-// V^T and reduces P V^T across its lanes.  Simple first: no cp.async
-// prefetch of V^T under the softmax yet.
+// and vectorised (4 elements a thread: 4 bytes in int8, 8 in bf16, 16 in
+// f32).  The G rows' scores (Tk x G f32) stay in shared memory; block
+// reductions give the max and the sum; the weights are normalised and, as
+// on the TPU, rounded to the K/V dtype (int8: multiplied by the V scales
+// and kept in f32); then each warp takes a share of the dh rows of V^T and
+// reduces P V^T across its lanes.  Simple first: no cp.async prefetch of
+// V^T under the softmax yet.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -30,10 +37,14 @@ constexpr int DH = 64;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
-template <typename T, int GM>
+// T: the query and output dtype; C: the K/V's (T, or int8 with the scales
+// ksc, vsc).
+template <typename T, typename C, int GM>
 __global__ void __launch_bounds__(THREADS)
-cross_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv, T* __restrict__ out,
-                  int A, int G, int H, int Tk, int layer) {
+cross_attn_kernel(const T* __restrict__ q, const C* __restrict__ kv,
+                  const float* __restrict__ ksc, const float* __restrict__ vsc,
+                  T* __restrict__ out, int A, int G, int H, int Tk, int layer) {
+    constexpr bool INT8 = std::is_same<C, int8_t>::value;
     extern __shared__ __align__(16) float sc[];  // [G][Tk] scores, then weights
     __shared__ float qs[GM][DH];
     __shared__ float red[GM][WARPS];
@@ -41,8 +52,9 @@ cross_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv, T* __restri
 
     const int h = blockIdx.x, a = blockIdx.y;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const T* kt = kv + ((((size_t)layer * A + a) * H + h) * 2) * DH * Tk;  // K^T [dh, Tk]
-    const T* vt = kt + (size_t)DH * Tk;                                      // V^T [dh, Tk]
+    const C* kt = kv + ((((size_t)layer * A + a) * H + h) * 2) * DH * Tk;  // K^T [dh, Tk]
+    const C* vt = kt + (size_t)DH * Tk;                                      // V^T [dh, Tk]
+    const size_t srow = (((size_t)layer * A + a) * H + h) * Tk;  // this head's scales
 
     for (int i = threadIdx.x; i < G * DH; i += THREADS) {
         const int g = i / DH, d = i % DH;
@@ -71,6 +83,16 @@ cross_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv, T* __restri
                     acc[g][2] = fmaf(qv, k4.z, acc[g][2]);
                     acc[g][3] = fmaf(qv, k4.w, acc[g][3]);
                 }
+            }
+        }
+        if (INT8) {
+            const float4 s4 = *reinterpret_cast<const float4*>(ksc + srow + 4 * j4);
+#pragma unroll
+            for (int g = 0; g < GM; ++g) {
+                acc[g][0] *= s4.x;
+                acc[g][1] *= s4.y;
+                acc[g][2] *= s4.z;
+                acc[g][3] *= s4.w;
             }
         }
 #pragma unroll
@@ -128,8 +150,10 @@ cross_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv, T* __restri
     for (int g = 0; g < GM; ++g) {
         if (g < G) {
             const float inv = stat[g];
-            for (int j = threadIdx.x; j < Tk; j += THREADS)
-                sc[(size_t)g * Tk + j] = round_to<T>(sc[(size_t)g * Tk + j] * inv);
+            for (int j = threadIdx.x; j < Tk; j += THREADS) {
+                const float w = sc[(size_t)g * Tk + j] * inv;
+                sc[(size_t)g * Tk + j] = INT8 ? w * vsc[srow + j] : round_to<T>(w);
+            }
         }
     }
     __syncthreads();
@@ -161,30 +185,30 @@ cross_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv, T* __restri
     }
 }
 
-template <typename T, int GM>
-int launch(const void* q, const void* kv, void* out, int A, int G, int H, int Tk,
-           int layer, cudaStream_t stream) {
+template <typename T, typename C, int GM>
+int launch(const void* q, const void* kv, const void* ksc, const void* vsc, void* out, int A,
+           int G, int H, int Tk, int layer, cudaStream_t stream) {
     const size_t smem = (size_t)G * Tk * sizeof(float);
-    auto kernel = cross_attn_kernel<T, GM>;
+    auto kernel = cross_attn_kernel<T, C, GM>;
     if (smem > 32 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     kernel<<<dim3(H, A), THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
-        A, G, H, Tk, layer);
+        static_cast<const T*>(q), static_cast<const C*>(kv), static_cast<const float*>(ksc),
+        static_cast<const float*>(vsc), static_cast<T*>(out), A, G, H, Tk, layer);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* kv, void* out, int A, int G, int H, int Tk,
-             int layer, void* stream) {
+template <typename T, typename C>
+int dispatch(const void* q, const void* kv, const void* ksc, const void* vsc, void* out, int A,
+             int G, int H, int Tk, int layer, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (G == 1) return launch<T, 1>(q, kv, out, A, G, H, Tk, layer, s);
-    if (G <= 2) return launch<T, 2>(q, kv, out, A, G, H, Tk, layer, s);
-    if (G <= 4) return launch<T, 4>(q, kv, out, A, G, H, Tk, layer, s);
-    if (G <= 8) return launch<T, 8>(q, kv, out, A, G, H, Tk, layer, s);
+    if (G == 1) return launch<T, C, 1>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    if (G <= 2) return launch<T, C, 2>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    if (G <= 4) return launch<T, C, 4>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    if (G <= 8) return launch<T, C, 8>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -194,10 +218,24 @@ int dispatch(const void* q, const void* kv, void* out, int A, int G, int H, int 
 // out: [A, G, H, 64]; all contiguous, 16-byte aligned; 1 <= G <= 8.
 extern "C" int cross_attention_bf16(const void* q, const void* kv, void* out, int A, int G,
                                     int H, int Tk, int layer, void* stream) {
-    return dispatch<bf16>(q, kv, out, A, G, H, Tk, layer, stream);
+    return dispatch<bf16, bf16>(q, kv, nullptr, nullptr, out, A, G, H, Tk, layer, stream);
 }
 
 extern "C" int cross_attention_f32(const void* q, const void* kv, void* out, int A, int G,
                                    int H, int Tk, int layer, void* stream) {
-    return dispatch<float>(q, kv, out, A, G, H, Tk, layer, stream);
+    return dispatch<float, float>(q, kv, nullptr, nullptr, out, A, G, H, Tk, layer, stream);
+}
+
+// As above with kv int8 and its f32 scales ksc, vsc [L, A, H, Tk]
+// (contiguous, 16-byte aligned).
+extern "C" int cross_attention_int8_bf16(const void* q, const void* kv, const void* ksc,
+                                         const void* vsc, void* out, int A, int G, int H, int Tk,
+                                         int layer, void* stream) {
+    return dispatch<bf16, int8_t>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, stream);
+}
+
+extern "C" int cross_attention_int8_f32(const void* q, const void* kv, const void* ksc,
+                                        const void* vsc, void* out, int A, int G, int H, int Tk,
+                                        int layer, void* stream) {
+    return dispatch<float, int8_t>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, stream);
 }

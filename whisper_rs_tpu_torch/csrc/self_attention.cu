@@ -1,4 +1,4 @@
-// One decode step's self-attention for layer l, in three entry points over
+// One decode step's self-attention for layer l, in five entry points over
 // one body:
 //
 //   append (greedy):  K[l, b, h, pos] = k_new[b, h];  V[l, b, h, pos] = v_new[b, h];
@@ -10,47 +10,62 @@
 //                     the visible slots are key_start[a G] <= j <= pos (the
 //                     audio's first row);
 //   fused (greedy):   the append step with the write compiled out: the caller
-//                     has written slot pos already, and the kernel only reads.
+//                     has written slot pos already, and the kernel only reads;
+//   step (greedy):    read only, like fused, over a cache in the query dtype
+//                     or over an int8 cache with f32 per-position scales
+//                     ks, vs [L, B, H, n_ctx]:  s_j = (q . K_j) * ks_j,
+//                     w_j = e_j / sum(e) * vs_j (kept in f32), out = sum_j w_j V_j;
+//   beam int8:        the beam read over an int8 cache, read only; the
+//                     scales of slot j come from the same row r(b, j) as its
+//                     K/V row, the ancestor's.
 //
 // Masked slots are left out, with f32 scores, f32 weights w = e / sum(e)
 // (never rounded to the cache dtype) and an f32 sum, cast to the query dtype.
 //
 // Replaces: whisper_rs_tpu/ops/decode_attention.py::
 // self_attention_append_step (kernel body _self_append_kernel),
-// beam_self_attention_step (kernel body _beam_self_kernel) and
+// beam_self_attention_step (kernel body _beam_self_kernel, both branches),
 // self_attention_fused_step (kernel body _self_fused_kernel, the TPU's
-// read-only kernel over ctx-major planes, which are this port's layout).  The TPU append
+// read-only kernel over ctx-major planes, which are this port's layout) and
+// self_attention_step (kernel body _self_attn_kernel, both branches; the TPU
+// kernel read a transposed K and whole-H scale blocks).  The TPU append
 // kernel kept both planes transposed and lane-padded to 512, spliced the
 // column into a VMEM copy and wrote back the aligned 128-wide block, with
 // DMAs double-buffered across programs.  The TPU beam kernel, which cannot
 // gather rows, read all G source beams' blocks and built a G-fold
 // all-pairs q.k, then picked each (beam, position)'s ancestor with a
-// select.  All of that served Mosaic.  Here the cache stays ctx-major
-// [L, B, H, n_ctx, 64]: a key row is 64 contiguous elements (128 bytes in
-// bf16), so a row of any source beam is one coalesced read, and the beam
-// kernel reads exactly one K row and one V row per (row, head, slot): a
-// gather at read time, with no G-fold compute and no copy of the cache.
-// The layer index is a pointer offset, so nothing is sliced per layer.
+// select; its int8 form picked the scale rows of each source beam by a
+// masked reduce.  All of that served Mosaic.  Here the cache stays
+// ctx-major [L, B, H, n_ctx, 64]: a key row is 64 contiguous elements (128
+// bytes in bf16, 64 in int8), so a row of any source beam is one coalesced
+// read, and the beam kernels read exactly one K row and one V row (and,
+// int8, one scale of each) per (row, head, slot): a gather at read time,
+// with no G-fold compute and no copy of the cache.  The layer index is a
+// pointer offset, so nothing is sliced per layer.
 //
 // Bound on the H100: bytes.  Each step must read the visible K and V rows,
 // 2 * B * H * (pos - key_start + 1) * 64 elements (15.7 MB at large-v3 b12,
 // W = 256, pos = 255, bf16: 4.7 us at the H100 SXM data-sheet 3.35 TB/s,
-// 700 W power limit), for 4 FLOP per element pair; the beam kernel adds
-// the ancestor table's 4 bytes per visible slot.
+// 700 W power limit), for 4 FLOP per element pair; an int8 cache halves
+// that and adds 8 bytes of scales a slot (35.7 MB at base.en b128, W 256,
+// pos 255: 10.6 us); the beam kernels add the ancestor table's 4 bytes per
+// visible slot.
 //
 // Design: one block of 8 warps per (head, row).  The append and beam blocks
 // first write their own (b, h) column, which no other block reads: at slot
 // pos every row's ancestor is itself (the decode loop sets that column of
 // the table to the identity before the step), so the block uses the fresh
 // k and v from the inputs for slot pos rather than re-reading it; the
-// fused block reads slot pos from the cache.  Only slots lo..pos are
+// read-only blocks read slot pos from the cache.  Only slots lo..pos are
 // read: masked slots have weight exactly 0 in f32 (exp of NEG - max
-// underflows), so skipping them changes nothing.  A group of 8 lanes (16 in
-// f32) reads one key row with 16-byte loads; the scores go to shared
-// memory, the block takes max and sum, and the same lane groups then walk
-// V with the weights, reduced across groups and warps in a fixed order
-// (deterministic, no atomics).  Simple first: two passes over the rows, no
-// cp.async prefetch of V under the softmax.
+// underflows), so skipping them changes nothing.  A group of lanes reads
+// one key row with 16-byte loads (4 lanes in int8, 8 in bf16, 16 in f32);
+// the scores go to shared memory, the block takes max and sum, and the
+// same lane groups then walk V with the weights, reduced across groups and
+// warps in a fixed order (deterministic, no atomics).  Simple first: two
+// passes over the rows, no cp.async prefetch of V under the softmax.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -66,6 +81,7 @@ constexpr int MAX_WINDOW = 12 * 1024;  // W floats of scores in 48 KB
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { static constexpr int N = 4; };
 template <> struct Vec16<bf16> { static constexpr int N = 8; };
+template <> struct Vec16<int8_t> { static constexpr int N = 16; };
 
 __device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -83,20 +99,46 @@ __device__ __forceinline__ void load16(const bf16* p, float (&x)[8]) {
     }
 }
 
-// The body of the three kernels for block (h, b).  anc: null for the append
-// and fused kernels (every slot from row b, key_start of row b); else the
-// [B, n_ctx] beam-local ancestor table of groups of G rows.  WRITE: this
-// step's column comes in knew/vnew and is written here; without it, knew
-// and vnew are unused and slot pos is read from the cache like any other.
-template <typename T, bool WRITE>
+__device__ __forceinline__ void load16(const int8_t* p, float (&x)[16]) {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) x[i] = static_cast<float>(v[i]);
+}
+
+// N elements of T as floats, in 16-byte loads.
+template <int N, typename T>
+__device__ __forceinline__ void load_n(const T* p, float (&x)[N]) {
+    constexpr int V = Vec16<T>::N;
+    static_assert(N % V == 0, "whole 16-byte loads");
+#pragma unroll
+    for (int i = 0; i < N / V; ++i) {
+        float y[V];
+        load16(p + i * V, y);
+#pragma unroll
+        for (int e = 0; e < V; ++e) x[i * V + e] = y[e];
+    }
+}
+
+// The body of the five kernels for block (h, b).  T: the query, output and
+// fresh-column dtype; C: the cache's (T, or int8 with the f32 scales ksc,
+// vsc [L, B, H, n_ctx]).  anc: null for the greedy kernels (every slot from
+// row b, key_start of row b); else the [B, n_ctx] beam-local ancestor table
+// of groups of G rows.  WRITE (C == T): this step's column comes in knew
+// and vnew and is written here; without it, knew and vnew are unused and
+// slot pos is read from the cache like any other.
+template <typename T, typename C, bool WRITE>
 __device__ __forceinline__ void attend_step(
     const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
-    T* __restrict__ kc, T* __restrict__ vc, const long long* __restrict__ key_start,
+    C* __restrict__ kc, C* __restrict__ vc, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const long long* __restrict__ key_start,
     const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H, int n_ctx,
     int layer, int pos, int W, float* ws) {
-    constexpr int VEC = Vec16<T>::N;  // elements per 16-byte load
-    constexpr int LPR = DH / VEC;     // lanes per key row: 8 (bf16) or 16 (f32)
-    constexpr int KPW = 32 / LPR;     // key rows per warp pass: 4 or 2
+    constexpr bool INT8 = std::is_same<C, int8_t>::value;
+    static_assert(!WRITE || std::is_same<C, T>::value, "the column is written in the cache dtype");
+    constexpr int VEC = Vec16<C>::N;  // cache elements per 16-byte load
+    constexpr int LPR = DH / VEC;     // lanes per key row: 4 (int8), 8 (bf16) or 16 (f32)
+    constexpr int KPW = 32 / LPR;     // key rows per warp pass: 8, 4 or 2
     constexpr int STRIDE = WARPS * KPW;
     __shared__ float red[WARPS][DH];
     __shared__ float stat[WARPS];
@@ -107,14 +149,19 @@ __device__ __forceinline__ void attend_step(
     const size_t row = (size_t)b * H + h;
     const size_t row_stride = (size_t)H * n_ctx * DH;  // between batch rows
     const size_t head = (size_t)layer * B * row_stride + (size_t)h * n_ctx * DH;
+    const size_t scale_head = ((size_t)layer * B * H + h) * n_ctx;  // the same, over scales
     const int first = anc ? (b / G) * G : b;  // the audio's first row (beam)
-    const T* kn = WRITE ? knew + row * DH : nullptr;
-    const T* vn = WRITE ? vnew + row * DH : nullptr;
+    // with WRITE, C is T: the fresh column as cache elements
+    const C* kn = WRITE ? reinterpret_cast<const C*>(knew) + row * DH : nullptr;
+    const C* vn = WRITE ? reinterpret_cast<const C*>(vnew) + row * DH : nullptr;
 
-    // the cache row that holds slot j of this block's row
-    auto slot = [&](T* c, int j) -> const T* {
-        const int r = anc ? first + anc[(size_t)b * n_ctx + j] : b;
-        return c + head + (size_t)r * row_stride + (size_t)j * DH;
+    // the cache row that holds slot j of this block's row, its K/V and scales
+    auto src = [&](int j) -> size_t { return anc ? first + anc[(size_t)b * n_ctx + j] : b; };
+    auto slot = [&](const C* c, int j) -> const C* {
+        return c + head + src(j) * row_stride + (size_t)j * DH;
+    };
+    auto scale = [&](const float* s, int j) -> float {
+        return s[scale_head + src(j) * H * n_ctx + j];
     };
 
     // this block's own column, read by no other block
@@ -136,7 +183,7 @@ __device__ __forceinline__ void attend_step(
     const int n = hi - lo + 1;
 
     float qx[VEC];
-    load16(q + row * DH + seg * VEC, qx);
+    load_n(q + row * DH + seg * VEC, qx);
 
     // scores of slots lo..hi; lane group grp takes row j, lane seg its
     // VEC elements
@@ -153,6 +200,7 @@ __device__ __forceinline__ void attend_step(
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
         if (j <= hi) {
+            if (INT8 && !empty) part *= scale(ksc, j);
             if (seg == 0) ws[j - lo] = part;
             lmax = fmaxf(lmax, part);
         }
@@ -180,14 +228,16 @@ __device__ __forceinline__ void attend_step(
     for (int i = tid; i < n; i += THREADS) ws[i] = ws[i] / total;
     __syncthreads();
 
-    // out = sum_j w_j V_j in f32, same row walk as the scores
+    // out = sum_j w_j V_j in f32 (int8: w_j times the slot's V scale, kept
+    // in f32), same row walk as the scores
     float acc[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
     for (int j0 = lo + warp * KPW; j0 <= hi; j0 += STRIDE) {
         const int j = j0 + grp;
         if (j <= hi) {
-            const float wj = ws[j - lo];
+            float wj = ws[j - lo];
+            if (INT8) wj *= scale(vsc, j);
             float vx[VEC];
             load16((WRITE && j == pos ? vn : slot(vc, j)) + seg * VEC, vx);
 #pragma unroll
@@ -213,15 +263,16 @@ __device__ __forceinline__ void attend_step(
     }
 }
 
+// ws: [n] scores, then weights, of slots lo..hi, in dynamic shared memory
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                    const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
                    const long long* __restrict__ key_start, T* __restrict__ out,
                    int B, int H, int n_ctx, int layer, int pos, int W) {
-    extern __shared__ float ws[];  // [n] scores, then weights, of slots lo..hi
-    attend_step<T, true>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
-                         pos, W, ws);
+    extern __shared__ float ws[];
+    attend_step<T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, nullptr, 1, out,
+                            B, H, n_ctx, layer, pos, W, ws);
 }
 
 template <typename T>
@@ -231,8 +282,8 @@ beam_self_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                  const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
                  T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T, true>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer,
-                         pos, W, ws);
+    attend_step<T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, anc, G, out, B,
+                            H, n_ctx, layer, pos, W, ws);
 }
 
 template <typename T>
@@ -241,39 +292,98 @@ self_fused_kernel(const T* __restrict__ q, T* __restrict__ kc, T* __restrict__ v
                   const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
                   int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T, false>(q, nullptr, nullptr, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx,
-                          layer, pos, W, ws);
+    attend_step<T, T, false>(q, nullptr, nullptr, kc, vc, nullptr, nullptr, key_start, nullptr,
+                             1, out, B, H, n_ctx, layer, pos, W, ws);
+}
+
+template <typename T, typename C>
+__global__ void __launch_bounds__(THREADS)
+self_step_kernel(const T* __restrict__ q, C* __restrict__ kc, C* __restrict__ vc,
+                 const float* __restrict__ ksc, const float* __restrict__ vsc,
+                 const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
+                 int n_ctx, int layer, int pos, int W) {
+    extern __shared__ float ws[];
+    attend_step<T, C, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, nullptr, 1, out,
+                             B, H, n_ctx, layer, pos, W, ws);
 }
 
 template <typename T>
-int launch(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
-           const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
-           int layer, int pos, int window, void* stream) {
-    if (window < 1 || window > MAX_WINDOW || window > n_ctx || pos < 0 || pos >= window)
+__global__ void __launch_bounds__(THREADS)
+beam_self_int8_kernel(const T* __restrict__ q, int8_t* __restrict__ kc,
+                      int8_t* __restrict__ vc, const float* __restrict__ ksc,
+                      const float* __restrict__ vsc, const long long* __restrict__ key_start,
+                      const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H,
+                      int n_ctx, int layer, int pos, int W) {
+    extern __shared__ float ws[];
+    attend_step<T, int8_t, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, anc, G, out,
+                                  B, H, n_ctx, layer, pos, W, ws);
+}
+
+// Launch ``kernel`` on the grid (H, B) with W floats of dynamic shared
+// memory, after checking 0 <= pos < W <= min(n_ctx, MAX_WINDOW) (and, for a
+// beam kernel, that B is whole groups of G).
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), int B, int H, int n_ctx, int pos, int window, int G,
+           void* stream, Args... args) {
+    if (window < 1 || window > MAX_WINDOW || window > n_ctx || pos < 0 || pos >= window ||
+        G < 1 || B % G)
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(H, B);
-    const size_t smem = (size_t)window * sizeof(float);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const T* q_ = static_cast<const T*>(q);
-    const T* kn = static_cast<const T*>(knew);
-    const T* vn = static_cast<const T*>(vnew);
-    T* kc_ = static_cast<T*>(kc);
-    T* vc_ = static_cast<T*>(vc);
-    const long long* ks = static_cast<const long long*>(key_start);
-    T* o = static_cast<T*>(out);
-    if (knew == nullptr) {
-        self_fused_kernel<T><<<grid, THREADS, smem, s>>>(q_, kc_, vc_, ks, o, B, H, n_ctx, layer,
-                                                         pos, window);
-    } else if (anc == nullptr) {
-        self_append_kernel<T><<<grid, THREADS, smem, s>>>(q_, kn, vn, kc_, vc_, ks, o, B, H,
-                                                          n_ctx, layer, pos, window);
-    } else {
-        if (G < 1 || B % G) return static_cast<int>(cudaErrorInvalidValue);
-        beam_self_kernel<T><<<grid, THREADS, smem, s>>>(q_, kn, vn, kc_, vc_, ks,
-                                                        static_cast<const int*>(anc), G, o, B,
-                                                        H, n_ctx, layer, pos, window);
-    }
+    kernel<<<dim3(H, B), THREADS, (size_t)window * sizeof(float),
+             static_cast<cudaStream_t>(stream)>>>(args...);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int append(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
+           const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
+           int window, void* stream) {
+    return launch(self_append_kernel<T>, B, H, n_ctx, pos, window, 1, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(knew),
+                  static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
+                  static_cast<const long long*>(key_start), static_cast<T*>(out), B, H, n_ctx,
+                  layer, pos, window);
+}
+
+template <typename T>
+int beam(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
+         const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
+         int layer, int pos, int window, void* stream) {
+    return launch(beam_self_kernel<T>, B, H, n_ctx, pos, window, G, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(knew),
+                  static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
+                  static_cast<const long long*>(key_start), static_cast<const int*>(anc), G,
+                  static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
+}
+
+template <typename T>
+int fused(const void* q, void* kc, void* vc, const void* key_start, void* out, int B, int H,
+          int n_ctx, int layer, int pos, int window, void* stream) {
+    return launch(self_fused_kernel<T>, B, H, n_ctx, pos, window, 1, stream,
+                  static_cast<const T*>(q), static_cast<T*>(kc), static_cast<T*>(vc),
+                  static_cast<const long long*>(key_start), static_cast<T*>(out), B, H, n_ctx,
+                  layer, pos, window);
+}
+
+template <typename T, typename C>
+int step(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
+         const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
+         int window, void* stream) {
+    return launch(self_step_kernel<T, C>, B, H, n_ctx, pos, window, 1, stream,
+                  static_cast<const T*>(q), static_cast<C*>(kc), static_cast<C*>(vc),
+                  static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+                  static_cast<const long long*>(key_start), static_cast<T*>(out), B, H, n_ctx,
+                  layer, pos, window);
+}
+
+template <typename T>
+int beam_int8(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
+              const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
+              int layer, int pos, int window, void* stream) {
+    return launch(beam_self_int8_kernel<T>, B, H, n_ctx, pos, window, G, stream,
+                  static_cast<const T*>(q), static_cast<int8_t*>(kc), static_cast<int8_t*>(vc),
+                  static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+                  static_cast<const long long*>(key_start), static_cast<const int*>(anc), G,
+                  static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
 }
 
 }  // namespace
@@ -285,16 +395,16 @@ extern "C" int self_attention_append_bf16(const void* q, const void* knew, const
                                           void* kc, void* vc, const void* key_start, void* out,
                                           int B, int H, int n_ctx, int layer, int pos,
                                           int window, void* stream) {
-    return launch<bf16>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
-                        pos, window, stream);
+    return append<bf16>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
+                        stream);
 }
 
 extern "C" int self_attention_append_f32(const void* q, const void* knew, const void* vnew,
                                          void* kc, void* vc, const void* key_start, void* out,
                                          int B, int H, int n_ctx, int layer, int pos,
                                          int window, void* stream) {
-    return launch<float>(q, knew, vnew, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx, layer,
-                         pos, window, stream);
+    return append<float>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
+                         stream);
 }
 
 // As the append entry points, plus anc: [B, n_ctx] int32, beam-local
@@ -304,8 +414,8 @@ extern "C" int beam_self_attention_bf16(const void* q, const void* knew, const v
                                         const void* anc, int G, void* out, int B, int H,
                                         int n_ctx, int layer, int pos, int window,
                                         void* stream) {
-    return launch<bf16>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                        window, stream);
+    return beam<bf16>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
+                      window, stream);
 }
 
 extern "C" int beam_self_attention_f32(const void* q, const void* knew, const void* vnew,
@@ -313,8 +423,8 @@ extern "C" int beam_self_attention_f32(const void* q, const void* knew, const vo
                                        const void* anc, int G, void* out, int B, int H,
                                        int n_ctx, int layer, int pos, int window,
                                        void* stream) {
-    return launch<float>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer,
-                         pos, window, stream);
+    return beam<float>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
+                       window, stream);
 }
 
 // The append entry points without k_new/v_new: slot pos of both caches was
@@ -324,13 +434,53 @@ extern "C" int self_attention_fused_bf16(const void* q, void* kc, void* vc,
                                          const void* key_start, void* out, int B, int H,
                                          int n_ctx, int layer, int pos, int window,
                                          void* stream) {
-    return launch<bf16>(q, nullptr, nullptr, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx,
-                        layer, pos, window, stream);
+    return fused<bf16>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, stream);
 }
 
 extern "C" int self_attention_fused_f32(const void* q, void* kc, void* vc, const void* key_start,
                                         void* out, int B, int H, int n_ctx, int layer, int pos,
                                         int window, void* stream) {
-    return launch<float>(q, nullptr, nullptr, kc, vc, key_start, nullptr, 1, out, B, H, n_ctx,
-                         layer, pos, window, stream);
+    return fused<float>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, stream);
+}
+
+// As the fused entry points, over a cache in q's dtype (ksc, vsc null) or
+// an int8 cache with f32 scales ksc, vsc [L, B, H, n_ctx] (contiguous).
+extern "C" int self_attention_step_bf16(const void* q, void* kc, void* vc, const void* ksc,
+                                        const void* vsc, const void* key_start, void* out,
+                                        int B, int H, int n_ctx, int layer, int pos, int window,
+                                        void* stream) {
+    return ksc ? step<bf16, int8_t>(q, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer,
+                                    pos, window, stream)
+               : step<bf16, bf16>(q, kc, vc, nullptr, nullptr, key_start, out, B, H, n_ctx,
+                                  layer, pos, window, stream);
+}
+
+extern "C" int self_attention_step_f32(const void* q, void* kc, void* vc, const void* ksc,
+                                       const void* vsc, const void* key_start, void* out, int B,
+                                       int H, int n_ctx, int layer, int pos, int window,
+                                       void* stream) {
+    return ksc ? step<float, int8_t>(q, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer,
+                                     pos, window, stream)
+               : step<float, float>(q, kc, vc, nullptr, nullptr, key_start, out, B, H, n_ctx,
+                                    layer, pos, window, stream);
+}
+
+// The beam entry points over an int8 cache with f32 scales ksc, vsc
+// [L, B, H, n_ctx], read only: the caller wrote slot pos and its scales.
+extern "C" int beam_self_attention_int8_bf16(const void* q, void* kc, void* vc, const void* ksc,
+                                             const void* vsc, const void* key_start,
+                                             const void* anc, int G, void* out, int B, int H,
+                                             int n_ctx, int layer, int pos, int window,
+                                             void* stream) {
+    return beam_int8<bf16>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
+                           window, stream);
+}
+
+extern "C" int beam_self_attention_int8_f32(const void* q, void* kc, void* vc, const void* ksc,
+                                            const void* vsc, const void* key_start,
+                                            const void* anc, int G, void* out, int B, int H,
+                                            int n_ctx, int layer, int pos, int window,
+                                            void* stream) {
+    return beam_int8<float>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
+                            window, stream);
 }

@@ -47,10 +47,11 @@ class DecodeResult:
 
 def _encode_and_prefill(
     model: Whisper, mel, initial_tokens, sample_begin: int, sot_idx: int, group: int,
-    cfg: FilterConfig, no_speech_id: int, key_start, kernels: bool,
+    cfg: FilterConfig, no_speech_id: int, key_start, kernels: bool, quantize_kv: bool = False,
 ):
-    """Encoder forward, group repeat, prefill pass.  Returns (tokens
-    [B, n_ctx], first-step filtered logits [B, V], cache, cross_kv,
+    """Encoder forward, group repeat, prefill pass; with ``quantize_kv`` the
+    cross K/V and the cache are int8 with per-position scales.  Returns
+    (tokens [B, n_ctx], first-step filtered logits [B, V], cache, cross_kv,
     no_speech_probs [n_audio], audio features, key_start)."""
     dims = model.dims
     xa = model.encoder(mel.to(model.dtype), kernels=kernels)
@@ -60,8 +61,8 @@ def _encode_and_prefill(
             key_start = key_start.repeat_interleave(group, dim=0)
     B = initial_tokens.shape[0]
 
-    cross_kv = precompute_cross_kv(model, xa)
-    cache = KVCache.init(dims, B, xa.dtype, xa.device)
+    cross_kv = precompute_cross_kv(model, xa, quantize=quantize_kv)
+    cache = KVCache.init(dims, B, xa.dtype, xa.device, quantize=quantize_kv)
 
     # only the SOT row (no-speech probability) and the last prompt row (the
     # first sampled position) need logits
@@ -137,18 +138,22 @@ def decode_greedy(
     key_start=None,  # [n_audio] first valid prompt slot per row
     kernels: bool = True,
     step_kernel: str = "append",
+    quantize_kv: bool = False,
 ) -> DecodeResult:
     """Greedy decode of one batch of 30 s windows.  ``kernels=False`` runs
     every kernel's plain version instead (the reference path on the card).
     ``step_kernel`` is the incremental steps' route (``TextDecoder.
     forward``): ``"append"`` (the default), ``"ctx"`` or ``"layer"``, the
     whole-step kernel, whose weight table is built here once, before the
-    step loop."""
+    step loop.  ``quantize_kv`` keeps the cross K/V and the self-attention
+    cache int8 (the JAX ``quantize_kv``); it takes the append route, where
+    the steps read the cache through ``self_attention_step``."""
     if mode.temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported: the reference's noise comes from "
             "JAX threefry (fold_in by row and step), which torch cannot reproduce"
         )
+    model.decoder.check_route(step_kernel, int8_kv=quantize_kv)
     dev = model.device
     dims = model.dims
     eot = cfg.token_id_eot
@@ -160,7 +165,7 @@ def decode_greedy(
 
     tokens, logits, cache, cross_kv, no_speech, feats, key_start = _encode_and_prefill(
         model, mel.to(dev), initial_tokens, sample_begin, sot_idx, group, cfg,
-        no_speech_id, key_start, kernels,
+        no_speech_id, key_start, kernels, quantize_kv,
     )
     B = tokens.shape[0]
     n_audio = B // group
@@ -291,12 +296,14 @@ def decode_beam(
     no_speech_id: int,
     key_start=None,  # [n_audio] first valid prompt slot per row
     kernels: bool = True,
+    quantize_kv: bool = False,
 ) -> DecodeResult:
     """Beam-search decode of one batch of 30 s windows: ``beam_size`` rows
     per audio share one cross K/V, and every step reads the self-attention
     cache through the ancestor table.  Candidates [n_audio, cap, n_ctx] with
     ``cap = max(beam, round(patience * beam))``, EOT-terminated.
-    ``kernels=False`` runs every kernel's plain version instead."""
+    ``kernels=False`` runs every kernel's plain version instead;
+    ``quantize_kv`` keeps the cross K/V and the cache int8."""
     beam = mode.beam_size
     cap = max(beam, int(round(mode.patience * beam)))
     dev = model.device
@@ -308,7 +315,7 @@ def decode_beam(
 
     tokens, logits, cache, cross_kv, no_speech, feats, key_start = _encode_and_prefill(
         model, mel.to(dev), initial_tokens, sample_begin, sot_idx, beam, cfg,
-        no_speech_id, key_start, kernels,
+        no_speech_id, key_start, kernels, quantize_kv,
     )
     B = tokens.shape[0]
     n_audio = B // beam

@@ -11,21 +11,27 @@ from .params import (
     params_from_jax,
     params_from_state_dict,
 )
+from .quantize import quantize_params
 from .whisper import (
     AudioEncoder,
     CrossKV,
     KVCache,
+    QuantEmbedding,
+    QuantLinear,
     TextDecoder,
     Whisper,
     decoder_forward,
     encoder_forward,
     precompute_cross_kv,
+    quantize_kv,
 )
 
 __all__ = [
     "AudioEncoder",
     "CrossKV",
     "KVCache",
+    "QuantEmbedding",
+    "QuantLinear",
     "TextDecoder",
     "Whisper",
     "decoder_forward",
@@ -40,4 +46,6 @@ __all__ = [
     "params_from_jax",
     "params_from_state_dict",
     "precompute_cross_kv",
+    "quantize_kv",
+    "quantize_params",
 ]

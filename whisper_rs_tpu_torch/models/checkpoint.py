@@ -32,15 +32,11 @@ def _unflatten(flat: dict) -> dict:
 
 def load_params(path, *, dtype=torch.float32, device=None):
     """A ``.npz`` written by the JAX ``save_params`` -> (``Whisper``,
-    ``ModelDims``).  Integer (int8-quantised) leaves raise
-    ``NotImplementedError``: the port has no int8 weights yet."""
+    ``ModelDims``).  Floating leaves take ``dtype``; int8 leaves (the
+    weights of ``quantize_params``) stay int8, as in the JAX
+    ``load_params``."""
     dev = resolve_device(device)
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     dims = _dims_from(json.loads(bytes(flat.pop("__dims__")).decode()))
-    ints = sorted(k for k, v in flat.items() if np.issubdtype(v.dtype, np.integer))
-    if ints:
-        raise NotImplementedError(
-            f"int8-quantized params ({ints[0]}, ...) wait for the quantisation slice"
-        )
     return params_from_jax(_unflatten(flat), dims, dtype=dtype, device=dev), dims

@@ -10,6 +10,14 @@ which is also the ``Whisper`` module's own naming.  The JAX pytree stacks
 every block along a leading L axis and stores linear weights ``[in, out]``.
 Each loader returns ``(Whisper, ModelDims)`` on ``cuda`` unless the caller
 names a device, and copies the weights to it one tensor at a time.
+
+int8 weights (``models.quantize``) come as int8 ``<linear>.weight`` with a
+``<linear>.scale`` beside it (the JAX ``w`` and ``s`` leaves), and an int8
+``decoder.token_embedding.weight`` with ``decoder.token_embedding.scale``
+(``token_emb_scale``): a module with a ``.scale`` is built as
+``QuantLinear``/``QuantEmbedding``, its weight stays int8, and its scale,
+like every floating weight, takes the model's dtype, as the JAX
+``load_params`` casts it.
 """
 
 from __future__ import annotations
@@ -22,22 +30,16 @@ import torch
 
 from ..config import ModelDims
 from ..device import resolve_device
-from .whisper import Whisper, sinusoids
+from .whisper import QuantEmbedding, QuantLinear, Whisper, sinusoids
 
 _LINEARS = ("query", "key", "value", "out")
 
 
-def _no_int8(p: dict, what: str) -> None:
-    if "s" in p or "token_emb_scale" in p:
-        raise NotImplementedError(
-            f"int8-quantized JAX params ({what}) wait for the quantisation slice"
-        )
-
-
 def _jax_block(sd: dict, prefix: str, blocks: dict, i: int, cross: bool) -> None:
     def lin(name: str, p: dict):
-        _no_int8(p, name)
         sd[f"{name}.weight"] = np.asarray(p["w"][i]).T
+        if "s" in p:  # int8 (quantize_params): per-output-channel scales
+            sd[f"{name}.scale"] = np.asarray(p["s"][i])
         if "b" in p:
             sd[f"{name}.bias"] = np.asarray(p["b"][i])
 
@@ -56,10 +58,10 @@ def _jax_block(sd: dict, prefix: str, blocks: dict, i: int, cross: bool) -> None
 
 
 def state_dict_from_jax(tree: dict, dims: ModelDims) -> dict:
-    """The JAX params pytree (numpy or jax arrays) -> OpenAI-format dict of
-    numpy arrays.  Raises on int8-quantized params."""
+    """The JAX params pytree (numpy or jax arrays; int8 weights with their
+    scales as ``quantize_params`` leaves them) -> OpenAI-format dict of
+    numpy arrays."""
     enc, dec = tree["encoder"], tree["decoder"]
-    _no_int8(dec, "decoder.token_emb")
     sd = {}
     for conv in ("conv1", "conv2"):
         sd[f"encoder.{conv}.weight"] = np.asarray(enc[conv]["w"])
@@ -69,6 +71,8 @@ def state_dict_from_jax(tree: dict, dims: ModelDims) -> dict:
     sd["encoder.ln_post.weight"] = np.asarray(enc["ln_post"]["scale"])
     sd["encoder.ln_post.bias"] = np.asarray(enc["ln_post"]["bias"])
     sd["decoder.token_embedding.weight"] = np.asarray(dec["token_emb"])
+    if "token_emb_scale" in dec:
+        sd["decoder.token_embedding.scale"] = np.asarray(dec["token_emb_scale"])
     sd["decoder.positional_embedding"] = np.asarray(dec["pos_emb"])
     for i in range(dims.n_text_layer):
         _jax_block(sd, f"decoder.blocks.{i}", dec["blocks"], i, cross=True)
@@ -77,11 +81,20 @@ def state_dict_from_jax(tree: dict, dims: ModelDims) -> dict:
     return sd
 
 
-def _empty_model(dims: ModelDims, dtype, device) -> Whisper:
-    """A ``Whisper`` with uninitialised parameters on ``device`` in ``dtype``,
-    built without a host copy; the encoder's sinusoid table is filled."""
+def _empty_model(dims: ModelDims, dtype, device, int8=()) -> Whisper:
+    """A ``Whisper`` with uninitialised parameters on ``device`` in ``dtype``
+    (the int8 weights of the modules named in ``int8`` int8), built without
+    a host copy; the encoder's sinusoid table is filled."""
     with torch.device("meta"):
         model = Whisper(dims)
+        for name in int8:
+            parent, _, child = name.rpartition(".")
+            old = model.get_submodule(name)
+            if isinstance(old, torch.nn.Embedding):
+                new = QuantEmbedding(old.num_embeddings, old.embedding_dim)
+            else:
+                new = QuantLinear(old.in_features, old.out_features, bias=old.bias is not None)
+            setattr(model.get_submodule(parent), child, new)
     model = model.to(dtype=dtype).to_empty(device=device)
     model.encoder.positional_embedding.copy_(
         torch.from_numpy(sinusoids(dims.n_audio_ctx, dims.n_audio_state))
@@ -92,7 +105,8 @@ def _empty_model(dims: ModelDims, dtype, device) -> Whisper:
 def _load(model: Whisper, items) -> Whisper:
     """Copy each (name, array or tensor) into the model's parameter of that
     name, one at a time (cast to its dtype, moved to its device); every
-    parameter must be given exactly once, with its shape."""
+    parameter must be given exactly once, with its shape; an int8 weight
+    only from int8 values, and a floating one only from floating values."""
     params = dict(model.named_parameters())
     seen = set()
     with torch.no_grad():
@@ -104,7 +118,10 @@ def _load(model: Whisper, items) -> Whisper:
                 raise ValueError(
                     f"{name}: shape {tuple(src.shape)}, expected {tuple(params[name].shape)}"
                 )
-            params[name].copy_(src.float())
+            int8 = params[name].dtype == torch.int8
+            if int8 != (src.dtype == torch.int8) or not (int8 or src.is_floating_point()):
+                raise ValueError(f"{name}: {src.dtype} values for a {params[name].dtype} weight")
+            params[name].copy_(src)
             seen.add(name)
     missing = sorted(set(params) - seen)
     if missing:
@@ -116,12 +133,14 @@ def params_from_state_dict(
     sd: dict, dims: ModelDims, *, dtype=torch.float32, device=None
 ) -> Whisper:
     """An OpenAI-format state dict (numpy arrays or tensors) -> ``Whisper``
-    on ``device`` (``cuda`` unless named) in ``dtype``.  The encoder's
-    sinusoid table is recomputed, never loaded."""
+    on ``device`` (``cuda`` unless named) in ``dtype``; a module with a
+    ``.scale`` entry is int8.  The encoder's sinusoid table is recomputed,
+    never loaded."""
     dev = resolve_device(device)
     sd = {k.removeprefix("model."): v for k, v in sd.items()}
     sd.pop("encoder.positional_embedding", None)
-    return _load(_empty_model(dims, dtype, dev), sd.items())
+    int8 = [k.removesuffix(".scale") for k in sd if k.endswith(".scale")]
+    return _load(_empty_model(dims, dtype, dev, int8), sd.items())
 
 
 def params_from_jax(tree: dict, dims: ModelDims, *, dtype=torch.float32, device=None) -> Whisper:

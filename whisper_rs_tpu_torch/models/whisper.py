@@ -37,6 +37,19 @@ package.  Projections, the logits, the prefill's self-attention,
 cross-attention and MLP stay ``torch.matmul``, as the JAX package left
 them to XLA.
 
+int8, as in the JAX package: ``models.quantize.quantize_params`` puts
+``QuantLinear`` in every attention and MLP linear and ``QuantEmbedding``
+for the token table (the MLP of a step then stays the two int8 linears
+and GELU: the JAX package never sends int8 weights to its MLP kernel);
+``KVCache.init(..., quantize=True)`` and ``precompute_cross_kv(...,
+quantize=True)`` keep int8 K/V with f32 per-position scales
+(``quantize_kv``).  Every pass writes its quantised K/V and scales with
+``KVCache.write``; a step then reads the int8 cache through the read-only
+``self_attention_step`` (row 10) in the append kernel's place, or the beam
+kernel's int8 read, and the cross kernel's int8 branch.  The ctx and layer
+routes take no int8 cache, and the layer route no int8 weights: the JAX
+package switches them off there.
+
 The KV cache is updated in place.  Its planes are ctx-major
 ``[L, B, H, n_ctx, dh]``; the cross K/V keeps the JAX fused layout
 ``[L, B, H, 2, dh, Tk]`` that the cross kernel reads.
@@ -62,6 +75,8 @@ from ..ops.decode_attention import (
     self_attention_append_step_plain,
     self_attention_fused_step,
     self_attention_fused_step_plain,
+    self_attention_step,
+    self_attention_step_plain,
 )
 from ..ops.decoder_layer_fused import (
     decoder_step_fused,
@@ -125,22 +140,49 @@ def conv1d_mm(x: torch.Tensor, conv: nn.Conv1d, stride: int) -> torch.Tensor:
     return y + conv.bias.to(x.dtype)
 
 
-def attend(q, k, v, mask) -> torch.Tensor:
+def attend(q, k, v, mask, k_scale=None, v_scale=None) -> torch.Tensor:
     """q [B, H, Tq, dh] (scaled), k/v [B, H, Tk, dh], additive f32 mask
-    broadcastable to [B, H, Tq, Tk]; f32 softmax, weights cast to q.dtype."""
-    w = torch.softmax((q @ k.transpose(-1, -2)).float() + mask, dim=-1)
-    return w.to(q.dtype) @ v
+    broadcastable to [B, H, Tq, Tk]; f32 softmax, weights cast to q.dtype.
+    int8 k/v take f32 per-position scales [B, H, Tk] (the JAX ``_attend``):
+    the K scale on the scores before the mask, the V scale on the f32
+    weights before their cast."""
+    s = (q @ k.to(q.dtype).transpose(-1, -2)).float()
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
+    w = torch.softmax(s + mask, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale[:, :, None, :]
+    return w.to(q.dtype) @ v.to(q.dtype)
 
 
-def attend_grouped(q, k_t, v_t, group: int) -> torch.Tensor:
+def attend_grouped(q, k_t, v_t, group: int, k_scale=None, v_scale=None) -> torch.Tensor:
     """Cross-attention where ``group`` rows per audio share one K/V:
-    q [A*G, H, Tq, dh] (scaled), k_t/v_t [A, H, dh, Tk] (both transposed)."""
+    q [A*G, H, Tq, dh] (scaled), k_t/v_t [A, H, dh, Tk] (both transposed);
+    int8 k_t/v_t take f32 per-position scales [A, H, Tk], applied as in
+    ``attend``."""
     AG, H, Tq, dh = q.shape
     A = k_t.shape[0]
     qg = q.reshape(A, AG // A, H, Tq, dh)
-    qk = torch.einsum("aghqd,ahdk->aghqk", qg, k_t).float()
-    w = torch.softmax(qk, dim=-1).to(q.dtype)
-    return torch.einsum("aghqk,ahdk->aghqd", w, v_t).reshape(AG, H, Tq, dh)
+    qk = torch.einsum("aghqd,ahdk->aghqk", qg, k_t.to(q.dtype)).float()
+    if k_scale is not None:
+        qk = qk * k_scale[:, None, :, None, :]
+    w = torch.softmax(qk, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale[:, None, :, None, :]
+    w = w.to(q.dtype)
+    return torch.einsum("aghqk,ahdk->aghqd", w, v_t.to(q.dtype)).reshape(AG, H, Tq, dh)
+
+
+def quantize_kv(x: torch.Tensor):
+    """[..., dh] -> (int8 values [..., dh], f32 scale [...]), one symmetric
+    scale a position, in f32 whatever x's dtype (the JAX ``_quantize_kv``,
+    whose scale keeps a trailing 1): ``s = max(amax |x|, 1e-8) / 127`` and
+    ``clip(round(x / s), -127, 127)``, rounded half to even as
+    ``jnp.round``.  Row by row it is also the weights' per-output-channel
+    quantisation (``models.quantize``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
 
 
 # ---------------------------------------------------------------------------
@@ -151,31 +193,94 @@ def attend_grouped(q, k_t, v_t, group: int) -> torch.Tensor:
 @dataclasses.dataclass
 class KVCache:
     """Static-shape self-attention cache, updated in place: k, v
-    [L, B, H, n_ctx, dh]."""
+    [L, B, H, n_ctx, dh], in the compute dtype, or int8 with f32
+    per-position scales k_scale, v_scale [L, B, H, n_ctx]."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @staticmethod
-    def init(dims: ModelDims, batch: int, dtype, device) -> "KVCache":
+    def init(dims: ModelDims, batch: int, dtype, device, quantize: bool = False) -> "KVCache":
+        """Zeros in ``dtype``, or (``quantize``) int8 zeros with scales of
+        one, as in the JAX package."""
         shape = (dims.n_text_layer, batch, dims.n_text_head, dims.n_text_ctx, dims.head_dim)
-        return KVCache(
-            torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device),
-        )
+        if not quantize:
+            return KVCache(
+                torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device),
+            )
+        planes = (torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(2))
+        scales = (torch.ones(shape[:-1], device=device) for _ in range(2))
+        return KVCache(*planes, *scales)
+
+    def write(self, layer: int, start: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write k, v [B, H, T, dh] at slots ``start .. start + T`` of
+        ``layer``; an int8 cache takes them quantised (``quantize_kv``),
+        with their scales."""
+        slots = slice(start, start + k.shape[2])
+        if self.quantized:
+            k, self.k_scale[layer, :, :, slots] = quantize_kv(k)
+            v, self.v_scale[layer, :, :, slots] = quantize_kv(v)
+        self.k[layer, :, :, slots] = k
+        self.v[layer, :, :, slots] = v
 
 
 @dataclasses.dataclass
 class CrossKV:
     """Per-window cross-attention K/V, computed once from the encoder
-    output: ``kv [L, B, H, 2, dh, n_audio_ctx]``, plane 0 K^T, plane 1 V^T."""
+    output: ``kv [L, B, H, 2, dh, n_audio_ctx]``, plane 0 K^T, plane 1 V^T;
+    int8 with f32 per-position scales k_scale, v_scale [L, B, H,
+    n_audio_ctx], or in the compute dtype without them."""
 
     kv: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class QuantLinear(nn.Module):
+    """An int8 weight-only linear, in ``nn.Linear``'s place where
+    ``models.quantize.quantize_params`` puts it (the JAX ``linear`` with an
+    ``"s"`` leaf): ``weight`` int8 [out, in], ``scale`` [out], one per
+    output channel, and ``bias`` in the compute dtype, all parameters
+    without gradient (``.to(dtype)`` leaves the weight int8).  In the JAX
+    order: ``x @ w.to(x.dtype).T``, then ``* s.to(x.dtype)``, then
+    ``+ b.to(x.dtype)``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.weight = _frozen(torch.empty(out_features, in_features, dtype=torch.int8))
+        self.scale = _frozen(torch.empty(out_features))
+        self.bias = _frozen(torch.empty(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x @ self.weight.to(x.dtype).T) * self.scale.to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class QuantEmbedding(nn.Module):
+    """The int8 token table in ``nn.Embedding``'s place (the JAX
+    ``token_emb`` with ``token_emb_scale``): ``weight`` int8 [V, D] and
+    ``scale`` [V], one per row; ``TextDecoder`` reads both."""
+
+    def __init__(self, n_vocab: int, n_state: int):
+        super().__init__()
+        self.weight = _frozen(torch.empty(n_vocab, n_state, dtype=torch.int8))
+        self.scale = _frozen(torch.empty(n_vocab))
 
 
 class MultiHeadAttention(nn.Module):
@@ -228,13 +333,16 @@ class ResidualAttentionBlock(nn.Module):
         """One decoder block.  ``mask`` None marks an incremental step: the
         append kernel (the beam kernel with ``anc_local``, [B, n_ctx] int32
         beam-local ancestors) writes the K/V column and masks by
-        ``pos_offset`` and ``key_start``, or (``step_kernel="ctx"``) torch
-        writes the column and the fused kernel only reads; the MLP takes
-        the fused kernel."""
+        ``pos_offset`` and ``key_start``, or (``step_kernel="ctx"``, or an
+        int8 cache) torch writes the column and a read-only kernel attends
+        (the fused kernel; over an int8 cache ``self_attention_step``, or
+        the beam kernel's int8 read); the MLP takes the fused kernel unless
+        its weights are int8."""
         B, T, D = x.shape
         H = self.attn.n_head
         dh = D // H
         scale = dh**-0.5
+        scales = {"k_scale": cache.k_scale, "v_scale": cache.v_scale} if cache.quantized else {}
 
         # self-attention over the cache (this step's K/V written first)
         h = layer_norm(x, self.attn_ln)
@@ -242,45 +350,53 @@ class ResidualAttentionBlock(nn.Module):
             hs = h[:, 0]
             q = (self.attn.query(hs) * scale).view(B, H, dh)
             k_new, v_new = self.attn.key(hs).view(B, H, dh), self.attn.value(hs).view(B, H, dh)
-            if step_kernel == "ctx":
-                cache.k[layer, :, :, pos_offset] = k_new
-                cache.v[layer, :, :, pos_offset] = v_new
+            read = (q, cache.k, cache.v, layer, pos_offset, key_start)
+            if cache.quantized or step_kernel == "ctx":
+                cache.write(layer, pos_offset, k_new[:, :, None], v_new[:, :, None])
+            if anc_local is not None:
+                fn = beam_self_attention_step if kernels else beam_self_attention_step_plain
+                new = (None, None) if cache.quantized else (k_new, v_new)
+                attn = fn(q, *new, *read[1:], anc_local, cross_group, window=window, **scales)
+            elif cache.quantized:
+                fn = self_attention_step if kernels else self_attention_step_plain
+                attn = fn(*read, window=window, **scales)
+            elif step_kernel == "ctx":
                 fn = self_attention_fused_step if kernels else self_attention_fused_step_plain
-                attn = fn(q, cache.k, cache.v, layer, pos_offset, key_start, window=window)
+                attn = fn(*read, window=window)
             else:
-                args = (q, k_new, v_new, cache.k, cache.v, layer, pos_offset, key_start)
-                if anc_local is None:
-                    fn = self_attention_append_step if kernels else self_attention_append_step_plain
-                    attn = fn(*args, window=window)
-                else:
-                    fn = beam_self_attention_step if kernels else beam_self_attention_step_plain
-                    attn = fn(*args, anc_local, cross_group, window=window)
+                fn = self_attention_append_step if kernels else self_attention_append_step_plain
+                attn = fn(q, k_new, v_new, *read[1:], window=window)
             attn = attn.reshape(B, 1, D)
         else:
             q = split_heads(self.attn.query(h), H) * scale
-            cache.k[layer, :, :, pos_offset : pos_offset + T] = split_heads(self.attn.key(h), H)
-            cache.v[layer, :, :, pos_offset : pos_offset + T] = split_heads(self.attn.value(h), H)
-            attn = merge_heads(
-                attend(q, cache.k[layer, :, :, :window], cache.v[layer, :, :, :window], mask)
-            )
+            cache.write(layer, pos_offset, split_heads(self.attn.key(h), H),
+                        split_heads(self.attn.value(h), H))
+            attn = merge_heads(attend(
+                q, cache.k[layer, :, :, :window], cache.v[layer, :, :, :window], mask,
+                **{k: s[layer, :, :, :window] for k, s in scales.items()},
+            ))
         x = x + self.attn.out(attn)
 
         # cross-attention against the precomputed encoder K/V
         h = layer_norm(x, self.cross_attn_ln)
         qx = split_heads(self.cross_attn.query(h), H) * scale
+        cross_scales = {}
+        if cross_kv.k_scale is not None:
+            cross_scales = {"k_scale": cross_kv.k_scale, "v_scale": cross_kv.v_scale}
         if T == 1:
             fn = cross_attention_step if kernels else cross_attention_step_plain
             attn = fn(
                 qx[:, :, 0, :].reshape(B // cross_group, cross_group, H, dh).contiguous(),
-                cross_kv.kv, layer,
+                cross_kv.kv, layer, **cross_scales,
             ).reshape(B, H, 1, dh)
         else:
             kv = cross_kv.kv[layer]
-            attn = attend_grouped(qx, kv[:, :, 0], kv[:, :, 1], cross_group)
+            attn = attend_grouped(qx, kv[:, :, 0], kv[:, :, 1], cross_group,
+                                  **{k: s[layer] for k, s in cross_scales.items()})
         x = x + self.cross_attn.out(merge_heads(attn))
 
         h = layer_norm(x, self.mlp_ln)
-        if mask is not None:
+        if mask is not None or isinstance(self.mlp[0], QuantLinear):
             return x + self._mlp(h)
         fn = decoder_mlp_step if kernels else decoder_mlp_step_plain
         out = fn(h[:, 0], self.mlp[0].weight, self.mlp[0].bias, self.mlp[2].weight)
@@ -340,6 +456,29 @@ class TextDecoder(nn.Module):
             ~visible, float("-inf")
         )
 
+    def check_route(self, step_kernel: str, *, incremental: bool = True, beam: bool = False,
+                    int8_kv: bool = False) -> None:
+        """Raise ``ValueError`` where a pass cannot take ``step_kernel``: an
+        unknown route; ctx or layer outside an incremental greedy step, or
+        over int8 K/V; layer over int8 weights.  The JAX package switches
+        both routes off under int8 K/V and the layer route under int8
+        weights (``decode/loop.py``, ``models/whisper.py``)."""
+        if step_kernel not in STEP_KERNELS:
+            raise ValueError(f"step_kernel must be one of {STEP_KERNELS}, not {step_kernel!r}")
+        if step_kernel == "append":
+            return
+        if not incremental:
+            raise ValueError(f"step_kernel {step_kernel!r} is an incremental step's route")
+        if beam:
+            raise ValueError(f"step_kernel {step_kernel!r} is greedy only: a beam step "
+                             "(ancestors) takes the append route")
+        if int8_kv:
+            raise ValueError(f"step_kernel {step_kernel!r} takes no int8 K/V: an int8 cache "
+                             "takes the append route")
+        if step_kernel == "layer" and any(
+                isinstance(m, QuantLinear) for m in self.blocks.modules()):
+            raise ValueError("step_kernel 'layer' takes no int8 weights (quantize_params)")
+
     def forward(
         self,
         tokens: torch.Tensor,  # [B, T] (prefill width T, or 1 for a step)
@@ -378,7 +517,14 @@ class TextDecoder(nn.Module):
         ``step_kernel`` picks an incremental greedy step's route (see the
         module docstring): ``"append"``, ``"ctx"`` or ``"layer"``; the last
         reads ``step_weights`` (``ops.decoder_layer_fused.
-        decoder_step_weights`` of ``self.blocks``), built here when None."""
+        decoder_step_weights`` of ``self.blocks``), built here when None.
+        Over an int8 cache the append route takes ``self_attention_step``
+        in the append kernel's place; ctx and layer refuse it
+        (``check_route``).
+
+        An int8 token table (``QuantEmbedding``) is dequantised row by row
+        for the embedding, and the logits ``x @ W^T`` of its int8 values
+        are scaled per token after the product, in f32."""
         B, T = tokens.shape
         dev = tokens.device
         n_ctx = self.positional_embedding.shape[0]
@@ -397,16 +543,15 @@ class TextDecoder(nn.Module):
             mask = self._mask(q_pos, W, key_start)
         if ancestors is not None and not incremental:
             raise ValueError("ancestors are read by an incremental step only")
-        if step_kernel not in STEP_KERNELS:
-            raise ValueError(f"step_kernel must be one of {STEP_KERNELS}, not {step_kernel!r}")
-        if step_kernel != "append" and not incremental:
-            raise ValueError(f"step_kernel {step_kernel!r} is an incremental step's route")
-        if step_kernel != "append" and ancestors is not None:
-            raise ValueError(f"step_kernel {step_kernel!r} is greedy only: a beam step "
-                             "(ancestors) takes the append route")
+        self.check_route(step_kernel, incremental=incremental, beam=ancestors is not None,
+                         int8_kv=cache.quantized or cross_kv.k_scale is not None)
 
         dtype = self.positional_embedding.dtype
-        x = self.token_embedding.weight[tokens].to(dtype) + pos.to(dtype)
+        emb = self.token_embedding.weight[tokens].to(dtype)
+        emb_scale = getattr(self.token_embedding, "scale", None)  # int8 table
+        if emb_scale is not None:
+            emb = emb * emb_scale[tokens][..., None].to(dtype)
+        x = emb + pos.to(dtype)
         if step_kernel == "layer":
             if step_weights is None:
                 step_weights = decoder_step_weights(self.blocks)
@@ -424,7 +569,8 @@ class TextDecoder(nn.Module):
         if logit_positions is not None:
             x = x[:, logit_positions]
         x = layer_norm(x, self.ln)
-        return x.float() @ self.token_embedding.weight.float().T
+        logits = x.float() @ self.token_embedding.weight.float().T
+        return logits if emb_scale is None else logits * emb_scale.float()
 
 
 class Whisper(nn.Module):
@@ -459,16 +605,23 @@ def encoder_forward(model: Whisper, mel: torch.Tensor, *, kernels: bool = True) 
     return model.encoder(mel, kernels=kernels)
 
 
-def precompute_cross_kv(model: Whisper, xa: torch.Tensor) -> CrossKV:
-    """xa [B, Tk, D] -> the stacked cross K/V of every decoder layer."""
+def precompute_cross_kv(model: Whisper, xa: torch.Tensor, *, quantize: bool = False) -> CrossKV:
+    """xa [B, Tk, D] -> the stacked cross K/V of every decoder layer; with
+    ``quantize``, int8 with f32 per-position scales, each K and V
+    quantised per position before the transpose (``quantize_kv``)."""
     B, Tk, D = xa.shape
     blocks = model.decoder.blocks
     H = blocks[0].cross_attn.n_head
-    kv = torch.empty((len(blocks), B, H, 2, D // H, Tk), dtype=xa.dtype, device=xa.device)
+    kv = torch.empty((len(blocks), B, H, 2, D // H, Tk),
+                     dtype=torch.int8 if quantize else xa.dtype, device=xa.device)
+    scales = torch.empty((2, len(blocks), B, H, Tk), device=xa.device) if quantize else None
     for layer, block in enumerate(blocks):
-        kv[layer, :, :, 0] = split_heads(block.cross_attn.key(xa), H).transpose(-1, -2)
-        kv[layer, :, :, 1] = split_heads(block.cross_attn.value(xa), H).transpose(-1, -2)
-    return CrossKV(kv)
+        for plane, proj in enumerate((block.cross_attn.key, block.cross_attn.value)):
+            t = split_heads(proj(xa), H)  # [B, H, Tk, dh]
+            if quantize:
+                t, scales[plane, layer] = quantize_kv(t)
+            kv[layer, :, :, plane] = t.transpose(-1, -2)
+    return CrossKV(kv) if scales is None else CrossKV(kv, scales[0], scales[1])
 
 
 def decoder_forward(

@@ -20,6 +20,7 @@ LAUNCHES = {
     "decoder_mlp_step": 0,
     "self_attention_fused_step": 0,
     "decoder_step_fused": 0,
+    "self_attention_step": 0,
 }
 
 

@@ -15,6 +15,16 @@ beams of A audios in groups of G (``b = a G + g``); slot j of row b is read
 from row ``a G + anc_local[b, j]``, and the visible slots are
 ``key_start[a G] <= j <= pos``, the key_start of the audio's first row, as
 in the Pallas kernel.  The column write and the math are the append step's.
+Over an int8 cache it only reads: the caller has written the quantised
+column and its scales (``models.whisper.KVCache.write``), and the scales of
+slot j come from the same row as its K/V, the ancestor's.
+
+``self_attention_step`` (the same source, the same body): the greedy step
+over a cache whose slot ``pos`` the caller has written, read only.  The
+cache is int8 with f32 per-position scales ``[L, B, H, n_ctx]``, or in the
+query dtype without them.  Int8 math, as in the Pallas kernel: the f32 dot
+of q with the int8 K row times ``k_scale`` before the mask, ``w = e /
+sum(e)`` in f32, ``w * v_scale`` kept in f32, the f32 sum of ``w V``.
 
 ``self_attention_fused_step`` (the same source, the same body): the
 append step with the write left out.  The caller has written this step's
@@ -27,7 +37,9 @@ audio share one encoder K/V, read from the fused layout
 ``kv [L, A, H, 2, dh, Tk]`` (K^T and V^T planes, see ``models.whisper.
 CrossKV``) at layer ``layer``.  Math, as in the Pallas kernel: f32 scores,
 no mask, ``w = e / sum(e)`` in f32, ``w`` cast to the K/V dtype, then
-``w V`` accumulated in f32 and cast to the query dtype.
+``w V`` accumulated in f32 and cast to the query dtype.  With int8 K/V and
+f32 scales ``[L, A, H, Tk]``: the scores times ``k_scale``, and ``w *
+v_scale`` kept in f32 in place of the cast.
 """
 
 from __future__ import annotations
@@ -52,26 +64,87 @@ def _check_append_args(name, q, k_all, layer: int, pos: int, window: int):
         raise ValueError(f"{name}: needs 0 <= pos ({pos}) < window ({window}) <= n_ctx ({n_ctx})")
 
 
+def _check_scales(name, q, planes, k_scale, v_scale, shape) -> bool:
+    """Whether ``planes`` are int8 with their f32 per-position scales of
+    ``shape``: both scales or neither, contiguous and on q's device;
+    int8 planes need them, and planes in another dtype take none."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: int8 K/V needs both k_scale and v_scale, or neither")
+    int8 = [t.dtype == torch.int8 for t in planes]
+    if k_scale is None:
+        if any(int8):
+            raise ValueError(f"{name}: int8 K/V needs its k_scale and v_scale")
+        return False
+    if not all(int8):
+        raise ValueError(f"{name}: k_scale/v_scale go with int8 K/V, not {planes[0].dtype}")
+    for s in (k_scale, v_scale):
+        if s.dtype != torch.float32 or tuple(s.shape) != tuple(shape):
+            raise ValueError(f"{name}: int8 scales must be f32 {tuple(shape)}, not "
+                             f"{s.dtype} {tuple(s.shape)}")
+        if s.device != q.device or not s.is_contiguous():
+            raise ValueError(f"{name}: int8 scales must be contiguous, on q's device")
+    return True
+
+
 def _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *extra):
     """What the CUDA step kernels take: head dim 64; q, k_new, v_new (None
-    for the fused step) and the caches f32 or bf16 alike; key_start int64
-    [B]; every tensor contiguous, 16-byte aligned and on q's device."""
+    for the read-only steps) f32 or bf16 alike; the caches in q's dtype or
+    int8; key_start int64 [B]; every tensor contiguous, 16-byte aligned and
+    on q's device."""
     new = tuple(t for t in (k_new, v_new) if t is not None)
     if k_all.shape[-1] != HEAD_DIM or any(t.shape != q.shape for t in new):
         raise ValueError(f"{name}: q, k_new, v_new must be [B, H, {HEAD_DIM}] alike")
     if v_all.shape != k_all.shape:
         raise ValueError(f"{name}: k_all {tuple(k_all.shape)} vs v_all {tuple(v_all.shape)}")
-    tensors = (q, *new, k_all, v_all)
-    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors):
-        raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}")
+    cache_dtype = torch.int8 if k_all.dtype == torch.int8 else q.dtype
+    if (q.dtype not in (torch.float32, torch.bfloat16)
+            or any(t.dtype != q.dtype for t in new)
+            or any(t.dtype != cache_dtype for t in (k_all, v_all))):
+        raise ValueError(f"{name}: dtypes {[t.dtype for t in (q, *new, k_all, v_all)]}")
     B = k_all.shape[1]
     if key_start is not None and (key_start.dtype != torch.int64 or key_start.shape != (B,)):
         raise ValueError(f"{name}: key_start must be int64 [{B}]")
-    for t in tensors + extra + (() if key_start is None else (key_start,)):
+    for t in (q, *new, k_all, v_all) + extra + (() if key_start is None else (key_start,)):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned")
+
+
+def _attend_window(q, k, v, pos: int, key_start, k_scale=None, v_scale=None) -> torch.Tensor:
+    """q [B, H, dh] pre-scaled against the window's rows k, v [B, H, W, dh]
+    (int8 with per-position scales [B, H, W], or not): f32 scores (times
+    k_scale), slots ``key_start[b] <= j <= pos`` visible, ``w = e / sum(e)``
+    in f32 (times v_scale), the f32 sum of ``w V`` cast to q's dtype."""
+    s = torch.einsum("bhd,bhwd->bhw", q.float(), k.float())
+    if k_scale is not None:
+        s = s * k_scale
+    ids = torch.arange(k.shape[2], device=q.device)
+    visible = ids[None, :] <= pos
+    if key_start is not None:
+        visible = visible & (ids[None, :] >= key_start[:, None])
+    s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        w = w * v_scale
+    return torch.einsum("bhw,bhwd->bhd", w, v.float()).to(q.dtype)
+
+
+def self_attention_step_plain(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    key_start=None, *, window: int, k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """Plain version: the attention output [B, H, dh] of the pre-scaled q
+    over slots ``key_start[b] <= j <= pos`` of ``k_all``/``v_all``
+    [L, B, H, n_ctx, dh] at ``layer`` (int8 with ``k_scale``/``v_scale``
+    [L, B, H, n_ctx] f32, or in q's dtype); the caches are only read."""
+    name = "self_attention_step"
+    _check_append_args(name, q, k_all, layer, pos, window)
+    scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
+    ks, vs = ((s[layer, :, :, :window] for s in (k_scale, v_scale)) if scaled else (None, None))
+    return _attend_window(q, k_all[layer, :, :, :window], v_all[layer, :, :, :window], pos,
+                          key_start, ks, vs)
 
 
 def self_attention_fused_step_plain(
@@ -82,17 +155,8 @@ def self_attention_fused_step_plain(
     over slots ``key_start[b] <= j <= pos`` of ``k_all``/``v_all``
     [L, B, H, n_ctx, dh] at ``layer``; the caches are only read."""
     _check_append_args("self_attention_fused_step", q, k_all, layer, pos, window)
-    k = k_all[layer, :, :, :window].float()  # [B, H, W, dh]
-    v = v_all[layer, :, :, :window].float()
-    s = torch.einsum("bhd,bhwd->bhw", q.float(), k)
-    ids = torch.arange(window, device=q.device)
-    visible = ids[None, :] <= pos
-    if key_start is not None:
-        visible = visible & (ids[None, :] >= key_start[:, None])
-    s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG))
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    w = e / e.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhw,bhwd->bhd", w, v).to(q.dtype)
+    return _attend_window(q, k_all[layer, :, :, :window], v_all[layer, :, :, :window], pos,
+                          key_start)
 
 
 def self_attention_append_step_plain(
@@ -124,6 +188,8 @@ def self_attention_append_step(
     if not q.is_cuda:
         raise ValueError(f"{name}: unsupported device {q.device}")
     _check_append_args(name, q, k_all, layer, pos, window)
+    if k_all.dtype == torch.int8:
+        raise ValueError(f"{name}: an int8 cache takes self_attention_step")
     _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
     out = torch.empty_like(q)
@@ -155,6 +221,8 @@ def self_attention_fused_step(
     if not q.is_cuda:
         raise ValueError(f"{name}: unsupported device {q.device}")
     _check_append_args(name, q, k_all, layer, pos, window)
+    if k_all.dtype == torch.int8:
+        raise ValueError(f"{name}: an int8 cache takes self_attention_step")
     _check_kernel_tensors(name, q, None, None, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
     out = torch.empty_like(q)
@@ -171,7 +239,45 @@ def self_attention_fused_step(
     return out
 
 
-def _check_beam_args(name, q, k_all, layer, pos, window, key_start, anc_local, group):
+def self_attention_step(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    key_start=None, *, window: int, k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """One greedy step's self-attention at ``layer`` over a cache whose slot
+    ``pos`` the caller has written, read only: the kernel on the card, the
+    plain version on the CPU.  q [B, H, dh] pre-scaled; caches [L, B, H,
+    n_ctx, dh], int8 with ``k_scale``/``v_scale`` [L, B, H, n_ctx] f32, or
+    in q's dtype without them; ``key_start`` [B] int64 or None (zeros)."""
+    if q.device.type == "cpu":
+        return self_attention_step_plain(q, k_all, v_all, layer, pos, key_start, window=window,
+                                         k_scale=k_scale, v_scale=v_scale)
+    name = "self_attention_step"
+    if not q.is_cuda:
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _check_append_args(name, q, k_all, layer, pos, window)
+    scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
+    scales = (k_scale, v_scale) if scaled else ()
+    _check_kernel_tensors(name, q, None, None, k_all, v_all, key_start, *scales)
+    L, B, H, n_ctx, dh = k_all.shape
+    out = torch.empty_like(q)
+    symbol = "self_attention_step_bf16" if q.dtype == torch.bfloat16 else "self_attention_step_f32"
+    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, P))
+    err = fn(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+        *((s.data_ptr() for s in scales) if scaled else (None, None)),
+        None if key_start is None else key_start.data_ptr(), out.data_ptr(),
+        B, H, n_ctx, int(layer), int(pos), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check("self_attention", symbol, err)
+    LAUNCHES["self_attention_step"] += 1
+    return out
+
+
+def _check_beam_args(name, q, k_new, v_new, k_all, v_all, layer, pos, window, key_start,
+                     anc_local, group, k_scale, v_scale) -> bool:
+    """The beam step's arguments; returns whether the caches are int8 (then
+    the step only reads, and k_new/v_new must be None)."""
     _check_append_args(name, q, k_all, layer, pos, window)
     L, B, H, n_ctx, dh = k_all.shape
     if group < 1 or B % group:
@@ -180,50 +286,56 @@ def _check_beam_args(name, q, k_all, layer, pos, window, key_start, anc_local, g
         raise ValueError(f"{name}: anc_local {tuple(anc_local.shape)}, want ({B}, {n_ctx})")
     if key_start is not None and key_start.shape != (B,):
         raise ValueError(f"{name}: key_start {tuple(key_start.shape)}, want ({B},)")
+    scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
+    if scaled != (k_new is None and v_new is None):
+        raise ValueError(f"{name}: an int8 cache is written by the caller (k_new and v_new "
+                         "None); any other takes k_new and v_new")
+    return scaled
 
 
 def beam_self_attention_step_plain(
-    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
-    v_all: torch.Tensor, layer: int, pos: int, key_start, anc_local: torch.Tensor,
-    group: int, *, window: int, k_scale=None, v_scale=None,
+    q: torch.Tensor, k_new, v_new, k_all: torch.Tensor, v_all: torch.Tensor, layer: int,
+    pos: int, key_start, anc_local: torch.Tensor, group: int, *, window: int, k_scale=None,
+    v_scale=None,
 ) -> torch.Tensor:
     """Plain version: writes ``k_new``/``v_new`` [B, H, dh] into slot ``pos``
-    of ``k_all``/``v_all`` [L, B, H, n_ctx, dh] at ``layer`` in place, then
-    attends with slot j of row ``b = a G + g`` taken from row
-    ``a G + anc_local[b, j]``; returns [B, H, dh]."""
-    _no_int8(k_scale, v_scale, "beam self-attention caches")
-    _check_beam_args(
-        "beam_self_attention_step", q, k_all, layer, pos, window, key_start, anc_local, group
-    )
+    of ``k_all``/``v_all`` [L, B, H, n_ctx, dh] at ``layer`` in place (an
+    int8 cache, with ``k_scale``/``v_scale`` [L, B, H, n_ctx], is only read:
+    k_new and v_new None), then attends with slot j of row ``b = a G + g``
+    and its scales taken from row ``a G + anc_local[b, j]``; returns
+    [B, H, dh]."""
+    scaled = _check_beam_args("beam_self_attention_step", q, k_new, v_new, k_all, v_all, layer,
+                              pos, window, key_start, anc_local, group, k_scale, v_scale)
     B = q.shape[0]
-    k_all[layer, :, :, pos] = k_new
-    v_all[layer, :, :, pos] = v_new
+    if not scaled:
+        k_all[layer, :, :, pos] = k_new
+        v_all[layer, :, :, pos] = v_new
     first = torch.arange(B, device=q.device) // group * group  # each audio's first row
     ids = torch.arange(window, device=q.device)
     src = first[:, None] + anc_local[:, :window].long()  # [B, W] physical rows
-    k = k_all[layer][src, :, ids].transpose(1, 2).float()  # [B, H, W, dh]
-    v = v_all[layer][src, :, ids].transpose(1, 2).float()
-    s = torch.einsum("bhd,bhwd->bhw", q.float(), k)
-    visible = (ids[None, :] <= pos).expand(B, window)
-    if key_start is not None:
-        visible = visible & (ids[None, :] >= key_start[first][:, None])
-    s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG))
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    w = e / e.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhw,bhwd->bhd", w, v).to(q.dtype)
+
+    def gather(t):  # [L, B, H, n_ctx, ...] at layer -> [B, H, W, ...] via the ancestors
+        return t[layer][src, :, ids].transpose(1, 2)
+
+    ks, vs = (gather(k_scale), gather(v_scale)) if scaled else (None, None)
+    return _attend_window(q, gather(k_all), gather(v_all), pos,
+                          None if key_start is None else key_start[first], ks, vs)
 
 
 def beam_self_attention_step(
-    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
-    v_all: torch.Tensor, layer: int, pos: int, key_start, anc_local: torch.Tensor,
-    group: int, *, window: int, k_scale=None, v_scale=None,
+    q: torch.Tensor, k_new, v_new, k_all: torch.Tensor, v_all: torch.Tensor, layer: int,
+    pos: int, key_start, anc_local: torch.Tensor, group: int, *, window: int, k_scale=None,
+    v_scale=None,
 ) -> torch.Tensor:
     """One beam step's self-attention at ``layer``, with this step's K/V
     column written into the cache in place: the kernel on the card, the
     plain version on the CPU.  q, k_new, v_new [B, H, dh] (q pre-scaled);
     caches [L, B, H, n_ctx, dh]; ``key_start`` [B] int64 or None (zeros);
     ``anc_local`` [B, n_ctx] int32 beam-local ancestors in [0, group), with
-    ``anc_local[b, pos] == b % group`` (the row's own fresh column)."""
+    ``anc_local[b, pos] == b % group`` (the row's own fresh column).  An
+    int8 cache with ``k_scale``/``v_scale`` [L, B, H, n_ctx] f32 is read
+    only: the caller has written slot ``pos`` and its scales, and passes
+    k_new and v_new as None."""
     if q.device.type == "cpu":
         return beam_self_attention_step_plain(
             q, k_new, v_new, k_all, v_all, layer, pos, key_start, anc_local, group,
@@ -232,43 +344,61 @@ def beam_self_attention_step(
     name = "beam_self_attention_step"
     if not q.is_cuda:
         raise ValueError(f"{name}: unsupported device {q.device}")
-    _no_int8(k_scale, v_scale, "beam self-attention caches")
-    _check_beam_args(name, q, k_all, layer, pos, window, key_start, anc_local, group)
-    _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, anc_local)
+    scaled = _check_beam_args(name, q, k_new, v_new, k_all, v_all, layer, pos, window, key_start,
+                              anc_local, group, k_scale, v_scale)
+    scales = (k_scale, v_scale) if scaled else ()
+    _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, anc_local, *scales)
     if anc_local.dtype != torch.int32:
         raise ValueError(f"{name}: anc_local must be int32")
     L, B, H, n_ctx, dh = k_all.shape
     out = torch.empty_like(q)
-    symbol = "beam_self_attention_bf16" if q.dtype == torch.bfloat16 else "beam_self_attention_f32"
-    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, P))
-    err = fn(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-        None if key_start is None else key_start.data_ptr(), anc_local.data_ptr(), int(group),
-        out.data_ptr(), B, H, n_ctx, int(layer), int(pos), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ks_ptr = None if key_start is None else key_start.data_ptr()
+    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    if scaled:
+        symbol = f"beam_self_attention_int8_{tag}"
+        fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I,
+                                                        I, P))
+        err = fn(
+            q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), ks_ptr, anc_local.data_ptr(), int(group), out.data_ptr(), B, H,
+            n_ctx, int(layer), int(pos), int(window), stream,
+        )
+    else:
+        symbol = f"beam_self_attention_{tag}"
+        fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I,
+                                                        I, P))
+        err = fn(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+            ks_ptr, anc_local.data_ptr(), int(group), out.data_ptr(), B, H, n_ctx, int(layer),
+            int(pos), int(window), stream,
+        )
     check("self_attention", symbol, err)
     LAUNCHES["beam_self_attention_step"] += 1
     return out
 
 
-def _no_int8(k_scale, v_scale, what: str = "cross K/V"):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            f"int8 {what} (k_scale/v_scale) waits for the quantisation slice"
-        )
+def _cross_scales(name, q, kv_all, k_scale, v_scale) -> bool:
+    L, A, H, _, _, Tk = kv_all.shape
+    return _check_scales(name, q, (kv_all,), k_scale, v_scale, (L, A, H, Tk))
 
 
 def cross_attention_step_plain(
     q: torch.Tensor, kv_all: torch.Tensor, layer: int, *, k_scale=None, v_scale=None
 ) -> torch.Tensor:
-    """Plain version: q [A, G, H, dh] (pre-scaled) -> [A, G, H, dh]."""
-    _no_int8(k_scale, v_scale)
+    """Plain version: q [A, G, H, dh] (pre-scaled) -> [A, G, H, dh]; int8
+    ``kv_all`` takes f32 ``k_scale``/``v_scale`` [L, A, H, Tk]."""
+    scaled = _cross_scales("cross_attention_step", q, kv_all, k_scale, v_scale)
     k_t = kv_all[layer, :, :, 0].float()  # [A, H, dh, Tk]
     v_t = kv_all[layer, :, :, 1].float()
     qk = torch.einsum("aghd,ahdk->aghk", q.float(), k_t)
+    if scaled:
+        qk = qk * k_scale[layer][:, None]
     e = torch.exp(qk - qk.amax(dim=-1, keepdim=True))
-    w = (e / e.sum(dim=-1, keepdim=True)).to(kv_all.dtype).float()
+    w = e / e.sum(dim=-1, keepdim=True)
+    # int8: the V scale joins the f32 weights; else the weights are rounded
+    # to the K/V dtype, as in the Pallas kernel
+    w = w * v_scale[layer][:, None] if scaled else w.to(kv_all.dtype).float()
     return torch.einsum("aghk,ahdk->aghd", w, v_t).to(q.dtype)
 
 
@@ -276,37 +406,45 @@ def cross_attention_step(
     q: torch.Tensor, kv_all: torch.Tensor, layer: int, *, k_scale=None, v_scale=None
 ) -> torch.Tensor:
     """Cross-attention for one decode step at ``layer``: the kernel on the
-    card, the plain version on the CPU.  q [A, G, H, dh] pre-scaled."""
-    _no_int8(k_scale, v_scale)
+    card, the plain version on the CPU.  q [A, G, H, dh] pre-scaled;
+    ``kv_all`` [L, A, H, 2, dh, Tk] in q's dtype, or int8 with f32
+    ``k_scale``/``v_scale`` [L, A, H, Tk]."""
     if q.device.type == "cpu":
-        return cross_attention_step_plain(q, kv_all, layer)
+        return cross_attention_step_plain(q, kv_all, layer, k_scale=k_scale, v_scale=v_scale)
+    name = "cross_attention_step"
     if not q.is_cuda:
-        raise ValueError(f"cross_attention_step: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     A, G, H, dh = q.shape
     L, A2, H2, two, dh2, Tk = kv_all.shape
     if (A2, H2, two, dh2) != (A, H, 2, dh) or dh != HEAD_DIM:
         raise ValueError(
-            f"cross_attention_step: q {tuple(q.shape)} vs kv {tuple(kv_all.shape)} "
-            f"(head dim must be {HEAD_DIM})"
+            f"{name}: q {tuple(q.shape)} vs kv {tuple(kv_all.shape)} (head dim must be {HEAD_DIM})"
         )
     if not 0 <= layer < L:
-        raise ValueError(f"cross_attention_step: layer {layer} outside [0, {L})")
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     if not 1 <= G <= MAX_GROUP or Tk % 4:
-        raise ValueError(f"cross_attention_step: needs 1 <= G <= {MAX_GROUP}, Tk % 4 == 0")
-    if q.dtype != kv_all.dtype or q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cross_attention_step: dtypes {q.dtype}, {kv_all.dtype}")
+        raise ValueError(f"{name}: needs 1 <= G <= {MAX_GROUP}, Tk % 4 == 0")
+    scaled = _cross_scales(name, q, kv_all, k_scale, v_scale)
+    if q.dtype not in (torch.float32, torch.bfloat16) or (
+            kv_all.dtype != (torch.int8 if scaled else q.dtype)):
+        raise ValueError(f"{name}: dtypes {q.dtype}, {kv_all.dtype}")
     if kv_all.device != q.device:
-        raise ValueError("cross_attention_step: q and kv on different devices")
-    for t in (q, kv_all):
+        raise ValueError(f"{name}: q and kv on different devices")
+    for t in (q, kv_all, *((k_scale, v_scale) if scaled else ())):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("cross_attention_step: q and kv must be contiguous, 16-byte aligned")
+            raise ValueError(f"{name}: q, kv and scales must be contiguous, 16-byte aligned")
     out = torch.empty_like(q)
-    symbol = "cross_attention_bf16" if q.dtype == torch.bfloat16 else "cross_attention_f32"
-    fn = kernel_function("cross_attention", symbol, (P, P, P, I, I, I, I, I, P))
-    err = fn(
-        q.data_ptr(), kv_all.data_ptr(), out.data_ptr(), A, G, H, Tk, int(layer),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    if scaled:
+        symbol = f"cross_attention_int8_{tag}"
+        fn = kernel_function("cross_attention", symbol, (P, P, P, P, P, I, I, I, I, I, P))
+        err = fn(q.data_ptr(), kv_all.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                 out.data_ptr(), A, G, H, Tk, int(layer), stream)
+    else:
+        symbol = f"cross_attention_{tag}"
+        fn = kernel_function("cross_attention", symbol, (P, P, P, I, I, I, I, I, P))
+        err = fn(q.data_ptr(), kv_all.data_ptr(), out.data_ptr(), A, G, H, Tk, int(layer), stream)
     check("cross_attention", symbol, err)
     LAUNCHES["cross_attention_step"] += 1
     return out
