@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Six paths, seeded random weights: greedy decode of base.en at batch 128
+Eight paths, seeded random weights: greedy decode of base.en at batch 128
 and of large-v3 at batch 12 (full width and depth: 128 mel bins, D 1280, 20
 heads, 32 + 32 layers, vocab 51866), unprompted, 224-token budget; beam
 search (beam 5, patience 1.0) of medium.en at batch 8 (full width and
@@ -19,8 +19,15 @@ weights (``quantize_params``) and int8 K/V (``quantize_kv=True``), whose
 steps read the cache through row 10 (``self_attention_step``) and the
 cross kernel's int8 branch; and medium.en b8 beam 5, prompted, with int8
 K/V and bf16 weights (the beam kernel's and the cross kernel's int8
-branches, the MLP kernel).  Phases, in order; any mismatch raises and the
-script exits nonzero:
+branches, the MLP kernel); and two transcription paths, files through
+``TranscribeTask`` and ``DecodeTask`` with the vendored GPT-2 tokenizer:
+the golden test's dims (``GOLDEN_DIMS``: D 64, 4 heads, head dim 16, whose
+encoder splits heads for row 6, ``encoder_attention_split``, and whose
+steps run the step, cross and MLP kernels' head-dim-16 and D-64
+instances), and the slice's main path, base.en
+at full width and depth with ``TranscribeOptions()`` defaults (beam 5,
+timestamps, conditioned on the previous text) over a seeded 95 s file.
+Phases, in order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
@@ -51,7 +58,18 @@ script exits nonzero:
               paths' shapes (G = 1 and 5), the beam kernel's int8 read at
               the beam shapes; their library call is the dequantising
               multiply and SDPA as one CUDA graph (the beam's after a
-              gather of the ancestors' rows and scales);
+              gather of the ancestors' rows and scales).  The transcription
+              paths: row 6 at SPLIT_SHAPES (base.en b128, large-v3 b12's
+              Ulysses per-card shape, the golden dims) in f32 and bf16,
+              with n_valid < T checked, its library call SDPA on the same
+              split tensors and on the heads of merged [B, T, D] tensors
+              (views); on the golden-dims path the mel kernel on a 35 s
+              file's two overlapping chunks, the LayerNorm pair at D 64, and
+              every step kernel's head-dim-16 instance (the cross kernel at 1
+              and 3 rows an audio, the append and beam kernels, the MLP at D
+              64; off the path, the fused and read-only steps and the int8
+              branches); on the main path every kernel at base.en batch 1,
+              beam 5;
   4. parity   f32, 4 seeded 30 s windows, through the kernels and through
               the plain versions: base.en at full width, and large-v3 at
               full width with the depth cut to 4 + 4 layers, log_mel_frontend
@@ -73,7 +91,15 @@ script exits nonzero:
               full width (greedy, INT8_GREEDY_CHECK_POS) and medium.en beam
               cut to 4 + 4 layers, the same checks at INT8_LOGIT_TOL, with
               the int8 values of each checked step's column that the two
-              paths rounded apart counted;
+              paths rounded apart counted; the golden-dims transcription,
+              f32, through the kernels and through the plain versions:
+              TranscribeTask greedy (sample_len 16) over a 35 s file and
+              DecodeTask beam 3, unprompted and prompted, each window's
+              tokens equal and avg_logprobs within 1e-3 (unless the plain
+              path's margin fell below 1e-3, where comparing stops), then
+              the segments; row 6 launched n_audio_layer times an encoder
+              call, row 4 never, the cross, MLP and append (greedy) or beam
+              kernels n_text_layer times a step;
   5. e2e      each path in bf16, timed 3 times (large-v3, the ctx and the
               append routes once each, E2E_REPS_CUT), after a 4-token
               warm-up run, with every launch count set to 0 just before each
@@ -91,7 +117,15 @@ script exits nonzero:
               candidate; on the routes' path, one incremental step of each
               route under torch.profiler gives its device launches a
               step; on the int8-weight path, the device time of one step's
-              int8 weight casts alone;
+              int8 weight casts alone.  Then the main transcription path:
+              the whole-file mel through row 1 against its plain version;
+              f32 through the kernels against the plain versions, window by
+              window as above, with the kernel run's launch counts checked;
+              bf16 through the kernels, E2E_REPS timed runs, each with its
+              launch counts checked (every kernel of the path, and no
+              other), audio-s/s of the median, windows,
+              ms a step; one window under torch.profiler (launches, idle
+              share);
   6. profile  one more e2e run of each under torch.profiler (the first three
               paths cut to PROFILE_STEPS tokens, which keeps the trace's
               processing short; the layer route in full): its idle share
@@ -104,6 +138,7 @@ CUDA is absent.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -116,9 +151,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from whisper_rs_tpu_torch import DecodeTask, Tokenizer, TranscribeTask, log_mel_file
 from whisper_rs_tpu_torch.audio.constants import HOP_LENGTH, N_FFT, N_SAMPLES
-from whisper_rs_tpu_torch.audio.mel import hann_window, mel_filterbank, reflect_pad
-from whisper_rs_tpu_torch.config import BeamSearchMode, GreedyMode, dims_for
+from whisper_rs_tpu_torch.audio.mel import hann_window, mel_filterbank, pad_or_trim, reflect_pad
+from whisper_rs_tpu_torch.config import (
+    BeamSearchMode,
+    DecodeOptions,
+    GreedyMode,
+    ModelDims,
+    TranscribeOptions,
+    dims_for,
+)
 from whisper_rs_tpu_torch.decode import (
     FilterConfig,
     apply_filters,
@@ -128,6 +171,7 @@ from whisper_rs_tpu_torch.decode import (
     rank_max_likelihood,
 )
 from whisper_rs_tpu_torch.decode import loop as decode_loop
+from whisper_rs_tpu_torch.decode import task as decode_task_module
 from whisper_rs_tpu_torch.decode.filters import log_softmax
 from whisper_rs_tpu_torch.decode.loop import _encode_and_prefill
 from whisper_rs_tpu_torch.models import (
@@ -162,6 +206,8 @@ from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step, decoder
 from whisper_rs_tpu_torch.ops.encoder_attention import (
     encoder_attention_merged,
     encoder_attention_merged_plain,
+    encoder_attention_split,
+    encoder_attention_split_plain,
 )
 from whisper_rs_tpu_torch.ops.encoder_fused import (
     ln_fused,
@@ -248,6 +294,7 @@ TOL_BF16 = {
     "self_attention_fused_step": (2e-3, 1e-2),
     "decoder_step_fused": TOL_LAYER_BF16,
     "self_attention_step": (2e-3, 1e-2),
+    "encoder_attention_split": (2e-3, 1e-2),
 }
 
 
@@ -1284,7 +1331,8 @@ def expected_launches(dims, steps: int, n_passes: int, route: str,
     kernel once a step."""
     L = dims.n_text_layer
     layered = route != "layer"
-    return {
+    expect = dict.fromkeys(LAUNCHES, 0)  # no other kernel, and no fallback route
+    expect.update({
         "log_mel": 1,
         "ln_fused": dims.n_audio_layer,
         "residual_ln": dims.n_audio_layer,
@@ -1296,7 +1344,8 @@ def expected_launches(dims, steps: int, n_passes: int, route: str,
         "self_attention_fused_step": L * steps if route == "ctx" else 0,
         "decoder_step_fused": steps if route == "layer" else 0,
         "self_attention_step": L * steps if route == "int8" else 0,
-    }
+    })
+    return expect
 
 
 def e2e_routes(dims, name: str, batch: int) -> dict:
@@ -1423,7 +1472,8 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
     asked."""
     what = f"beam {beam}, prompted" if beam else "greedy, unprompted"
     what += "".join(f", int8 {w}" for w, on in (("weights", int8_weights), ("K/V", int8_kv)) if on)
-    reps = E2E_REPS_CUT.get(name, E2E_REPS)
+    reps = E2E_REPS_CUT.get(name + (" int8" if int8_weights else " int8 KV" if int8_kv else ""),
+                            E2E_REPS)
     print(f"[e2e] {name} bf16 batch {batch}, {what}, {reps} timed runs", flush=True)
     t0 = time.perf_counter()
     if int8_weights:  # its own model: quantize_params works in place
@@ -1549,11 +1599,429 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
     return launches
 
 
+# -- the transcription slice ---------------------------------------------------
+
+# The golden test's dims (tests/test_golden_e2e.py): head dim 16 and D 64,
+# which the encoder splits for row 6 and the step kernels take at their
+# head-dim-16 instances
+GOLDEN_DIMS = ModelDims(80, 51864, 1500, 64, 4, 2, 448, 64, 4, 2)
+GOLDEN_SAMPLE_LEN = 16
+TRANSCRIBE_MODEL = "base.en"  # the slice's main path: TranscribeOptions() defaults
+TRANSCRIBE_SECONDS = 95  # four windows at least, the last one partial
+TRANSCRIBE_LABEL = f"{TRANSCRIBE_MODEL} b1 beam5 transcribe"
+GOLDEN_LABEL = "golden dims transcribe"
+GOLDEN_BEAM_LABEL = "golden dims beam3"
+# the golden dims' kernel instances that neither golden path runs
+GOLDEN_OFF_LABELS = ("golden dims read-only steps", "golden dims int8 KV",
+                     "golden dims beam3 int8 KV")
+# row 6 at three shapes: base.en b128 (row 4's work, split), large-v3 b12
+# with 20 heads over a model axis of 4 (the Ulysses encoder's per-card
+# shape, an odd head count) and the golden dims' head dim 16
+SPLIT_SHAPES = {
+    "base.en b128 split heads": (128, 8, 1500, 64),
+    "large-v3 b12 Ulysses per-card": (12, 5, 1500, 64),
+    GOLDEN_LABEL: (1, 4, 1500, 16),
+}
+
+
+def check_split_attention(shape, dtype, randn) -> dict:
+    """Row 6 at [B, H, T, dh] against its plain version, unit-scale q, k, v
+    (scores of std 1 after the dh^-0.5 scale), without and with n_valid
+    < T (T - 37 keys), on contiguous split tensors and on the heads of
+    merged [B, T, D] tensors (views, as the encoder passes them); timed
+    contiguous, without n_valid; the library call is SDPA on the same
+    split tensors."""
+    B, H, T, dh = shape
+    isz = torch.tensor([], dtype=dtype).element_size()
+    q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
+    scale = dh**-0.5
+    name = "encoder_attention_split"
+    tol = tolerance(name, dtype)
+    worst = (0.0, 0.0)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    for nv, (a, b, c), layout in ((None, (q, k, v), "split"), (T - 37, (q, k, v), "split"),
+                                  (T - 37, views, "merged-head views")):
+        err = compare(f"{name} {str(dtype).split('.')[-1]} {list(shape)} {layout} "
+                      f"n_valid {nv or T}", (encoder_attention_split(a, b, c, scale, nv),),
+                      (encoder_attention_split_plain(a, b, c, scale, nv),), tol)
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+    del views
+    small = B * H <= 64
+    row = check_kernel(
+        name, dtype, lambda: encoder_attention_split(q, k, v, scale),
+        lambda: encoder_attention_split_plain(q, k, v, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        nbytes=4 * q.numel() * isz, flops=4 * B * H * T * T * dh,
+        reps=20 if small else (3 if dtype == torch.float32 else 10), graph=small, checked=worst,
+    )
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_checks_transcribe(rows: dict) -> None:
+    """The kernels of the transcription paths, into ``rows``: row 6 at the
+    three SPLIT_SHAPES in f32 and bf16; on the golden-dims path the mel
+    kernel on a 35 s file's two chunks (overlapping rows of one padded
+    buffer, a strided view), the LayerNorm pair at D 64 and the step
+    kernels at head dim 16 (``kernel_checks_golden_steps``); on the main
+    path every kernel at base.en batch 1, beam 5 (``kernel_checks``)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for label, shape in SPLIT_SHAPES.items():
+        rows.setdefault(label, {name: {} for name in KERNELS})
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            print(f"[kernels] encoder_attention_split ({tag}, {list(shape)}, {label})", flush=True)
+            rows[label]["encoder_attention_split"][tag] = check_split_attention(shape, dtype, randn)
+
+    g = rows[GOLDEN_LABEL]
+    print("[kernels] log_mel (f32, a 35 s file's two chunks, row pitch 480000)", flush=True)
+    n = 35 * 16_000
+    buf = torch.zeros(2 * N_SAMPLES, device=dev)
+    buf[:n] = randn(n, scale=0.1)
+    padded = reflect_pad(buf[None])[0]
+    chunks = padded.as_strided((2, N_SAMPLES + N_FFT), (N_SAMPLES, 1))
+    n_frames = N_SAMPLES // HOP_LENGTH
+    window = torch.from_numpy(hann_window()).to(dev)
+    fb = torch.from_numpy(mel_filterbank(80)).to(dev)
+
+    def stft_mel():  # the chunks are padded already: no centring
+        spec = torch.stft(chunks, N_FFT, HOP_LENGTH, window=window, center=False,
+                          return_complex=True)
+        return torch.log10(torch.clamp(fb @ spec[..., :-1].abs().square(), min=1e-10))
+
+    g["log_mel"]["f32"] = check_kernel(
+        "log_mel", torch.float32, lambda: raw_log10_mel(chunks, 80),
+        lambda: raw_log10_mel_plain(chunks, 80), stft_mel,
+        nbytes=padded.numel() * 4 + 2 * 80 * n_frames * 4 + (2 * N_FFT + 80) * 201 * 4,
+        flops=2 * n_frames * (2 * 2 * N_FFT * 201 + 2 * 201 * 80), reps=10, graph=False,
+    )
+    D = GOLDEN_DIMS.n_audio_state
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        isz = torch.tensor([], dtype=dtype).element_size()
+        print(f"[kernels] LayerNorm pair ({tag}, D {D}, 1500 rows)", flush=True)
+        x, d = randn(1, 1500, D, dtype=dtype), randn(1, 1500, D, dtype=dtype)
+        s, b = randn(D, dtype=dtype), randn(D, dtype=dtype)
+        g["ln_fused"][tag] = check_kernel(
+            "ln_fused", dtype, lambda: ln_fused(x, s, b), lambda: ln_fused_plain(x, s, b),
+            lambda: F.layer_norm(x, (D,), s, b, 1e-5),
+            nbytes=2 * x.numel() * isz + 2 * D * isz, flops=8 * x.numel(), reps=20)
+        g["residual_ln"][tag] = check_kernel(
+            "residual_ln", dtype, lambda: residual_ln(x, d, s, b),
+            lambda: residual_ln_plain(x, d, s, b), lambda: F.layer_norm(x + d, (D,), s, b, 1e-5),
+            nbytes=4 * x.numel() * isz + 2 * D * isz, flops=9 * x.numel(), reps=20)
+    del buf, padded, chunks
+    kernel_checks_golden_steps(rows, randn, gen)
+    rows[TRANSCRIBE_LABEL] = kernel_checks(dims_for(TRANSCRIBE_MODEL), 1,
+                                           (torch.float32, torch.bfloat16), group=5)
+
+
+def kernel_checks_golden_steps(rows: dict, randn, gen) -> None:
+    """Every step kernel's head-dim-16 instance (and the MLP at D 64) at the
+    golden dims, in f32 and bf16, into ``rows``: on the greedy
+    transcription (one row) the cross, append and MLP kernels; on the beam
+    decode (2 audios of 3 rows) the cross, beam and MLP kernels; and the
+    instances neither golden path runs, so that none goes unchecked: the
+    fused and read-only steps over a compute-dtype cache, and the int8
+    branches of the read-only step, the cross kernel and the beam
+    kernel."""
+    gd = GOLDEN_DIMS
+    for label in (GOLDEN_BEAM_LABEL,) + GOLDEN_OFF_LABELS:
+        rows.setdefault(label, {name: {} for name in KERNELS})
+    greedy, beam = rows[GOLDEN_LABEL], rows[GOLDEN_BEAM_LABEL]
+    read, int8, beam_int8 = (rows[label] for label in GOLDEN_OFF_LABELS)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] golden dims step kernels at head dim 16 ({tag})", flush=True)
+        greedy["cross_attention_step"][tag] = check_cross(gd, 1, 1, dtype, randn)
+        greedy["self_attention_append_step"][tag] = check_step_attention(gd, 1, 1, dtype, randn,
+                                                                         gen)
+        greedy["decoder_mlp_step"][tag] = check_mlp(gd, 1, dtype, randn)
+        beam["cross_attention_step"][tag] = check_cross(gd, 2, 3, dtype, randn)
+        beam["beam_self_attention_step"][tag] = check_step_attention(gd, 2, 3, dtype, randn, gen)
+        beam["decoder_mlp_step"][tag] = check_mlp(gd, 6, dtype, randn)
+        read["self_attention_fused_step"][tag] = check_step_attention(gd, 1, 1, dtype, randn, gen,
+                                                                      fused=True)
+        read["self_attention_step"][tag] = check_read_step(gd, 1, 1, dtype, randn, gen,
+                                                           int8=False)
+        int8["cross_attention_step"][tag] = check_cross(gd, 1, 1, dtype, randn, int8=True)
+        int8["self_attention_step"][tag] = check_read_step(gd, 1, 1, dtype, randn, gen)
+        beam_int8["cross_attention_step"][tag] = check_cross(gd, 2, 3, dtype, randn, int8=True)
+        beam_int8["beam_self_attention_step"][tag] = check_read_step(gd, 2, 3, dtype, randn, gen)
+
+
+@contextlib.contextmanager
+def recorded_windows(task, margins=None):
+    """Records each window a ``DecodeTask`` decodes: its DecodeOutputs and
+    its decode loop's incremental steps (``windows``, a list of (outputs,
+    steps)).  With ``margins`` (a list), each decode call appends the plain
+    path's margins, read from every step's inputs: greedy, row 0's top-2
+    margin at each sampled token; beam, each audio's smallest selection
+    margin over the call."""
+    windows = []
+    greedy_fn, beam_fn = decode_task_module.decode_greedy, decode_task_module.decode_beam
+    update_fn, step_fn = decode_loop._greedy_update, decode_loop._beam_step
+    run_batch = task.run_batch
+    steps = []
+
+    def counting(fn):
+        def run(*args, **kw):
+            if margins is not None:
+                margins.append([])
+            res = fn(*args, **kw)
+            steps.append(res.steps)
+            return res
+        return run
+
+    def recording_update(logits, *args):
+        top = logits.topk(2, dim=-1).values
+        margins[-1].append((top[0, 0] - top[0, 1]).item())
+        return update_fn(logits, *args)
+
+    def recording_step(logits, s, pos, beam, cap, eot):
+        m = selection_margins(logits, s, beam, eot)
+        margins[-1] = m if not len(margins[-1]) else torch.minimum(margins[-1], m)
+        return step_fn(logits, s, pos, beam, cap, eot)
+
+    def recording_run_batch(*args, **kw):
+        out = run_batch(*args, **kw)
+        windows.append((out, steps[-1]))
+        return out
+
+    decode_task_module.decode_greedy = counting(greedy_fn)
+    decode_task_module.decode_beam = counting(beam_fn)
+    if margins is not None:
+        decode_loop._greedy_update, decode_loop._beam_step = recording_update, recording_step
+    task.run_batch = recording_run_batch
+    try:
+        yield windows
+    finally:
+        decode_task_module.decode_greedy, decode_task_module.decode_beam = greedy_fn, beam_fn
+        decode_loop._greedy_update, decode_loop._beam_step = update_fn, step_fn
+        del task.run_batch
+
+
+def compare_windows(what: str, got: list, want: list, margins: list, beam: bool) -> bool:
+    """Window by window, each audio: tokens equal and avg_logprobs within
+    1e-3, unless the plain path's margin (greedy: row 0's top-2 margin at
+    the first divergent token; beam: the audio's smallest selection margin
+    in that window) is below 1e-3, where comparing stops.  Returns whether
+    every window was compared."""
+    if len(got) != len(want):
+        print(f"  {what}: {len(got)} windows against the plain path's {len(want)}", flush=True)
+    for w, ((outs_k, _), (outs_p, _)) in enumerate(zip(got, want)):
+        for a, (ok, op) in enumerate(zip(outs_k, outs_p, strict=True)):
+            tk, tp = ok.tokens.tolist(), op.tokens.tolist()
+            if tk == tp:
+                d = abs(ok.avg_logprob - op.avg_logprob)
+                if d > 1e-3:
+                    raise AssertionError(f"{what} window {w} audio {a}: avg_logprob off by {d:.3e}")
+                continue
+            i = next((j for j, (x, y) in enumerate(zip(tk, tp)) if x != y), min(len(tk), len(tp)))
+            margin = float(margins[w][a] if beam else margins[w][min(i, len(margins[w]) - 1)])
+            print(f"  {what} window {w} audio {a}: tokens diverge at sampled token {i}; plain "
+                  f"{'selection' if beam else 'top-2'} margin {margin:.3e}", flush=True)
+            if margin >= 1e-3:
+                raise AssertionError(f"{what} window {w}: diverges with margin {margin:.3e}")
+            print(f"  {what}: the margin is below 1e-3, so comparing stops at window {w}",
+                  flush=True)
+            return False
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: window counts differ with every window equal")
+    return True
+
+
+def transcribe_both(model, tok, options, audio, what: str):
+    """``TranscribeTask.run`` through the kernels, then through the plain
+    versions (f32), each window recorded; the kernel run's launch counts.
+    Holds windows and, where every window agreed, segments and avg_logprobs
+    (compare_windows).  Returns (kernel output, its windows, launches)."""
+    out = {}
+    for kernels in (True, False):
+        task = TranscribeTask(model, tok, options, kernels=kernels)
+        margins = None if kernels else []
+        with recorded_windows(task.decode_task, margins) as windows:
+            reset_launches()
+            res = task.run(audio)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        out[kernels] = (res, windows, margins, launches)
+    (res_k, win_k, _, launches), (res_p, win_p, margins, _) = out[True], out[False]
+    beam = isinstance(options.decode.mode, BeamSearchMode)
+    print(f"  {what}: kernel path {len(win_k)} windows, {sum(s for _, s in win_k)} steps; "
+          f"plain path {len(win_p)} windows", flush=True)
+    if compare_windows(what, win_k, win_p, margins, beam):
+        seg = lambda s: (s.seek, s.start_time, s.end_time, s.text)  # noqa: E731
+        if [seg(s) for s in res_k.segments] != [seg(s) for s in res_p.segments]:
+            raise AssertionError(f"{what}: segments differ")
+        d = max(abs(x - y) for x, y in zip(res_k.avg_logprobs, res_p.avg_logprobs, strict=True))
+        print(f"  {what}: {len(res_k.segments)} segments equal (seek, start, end, text); tokens "
+              f"equal; avg_logprobs max_abs_err {d:.3e} (tolerance 1e-3)", flush=True)
+    return res_k, win_k, launches
+
+
+def check_route_counts(what: str, launches: dict, kernels: dict) -> None:
+    """The kernels of a path each launched as ``kernels`` says (a count, or
+    True for at least once); every other count, the layer route's fallback
+    among them, zero."""
+    for name, want in kernels.items():
+        n = launches[name]
+        if (want is True and n < 1) or (want is not True and n != want):
+            raise AssertionError(f"{what}: {name} launched {n} times, expected {want}")
+    for name in LAUNCHES:
+        if name not in kernels and launches[name]:
+            raise AssertionError(f"{what}: {name} counted {launches[name]} times, expected 0")
+
+
+def transcribe_golden_dims() -> dict:
+    """The path that runs row 6: the golden test's dims (head dim 16) with
+    seeded weights (seed 7), the vendored GPT-2 tokenizer and a 35 s file,
+    f32, through the kernels and through the plain versions: TranscribeTask
+    greedy (sample_len 16; two windows, the second prompted), then
+    DecodeTask beam 3 on the first 30 s, unprompted and prompted.  The
+    encoder takes row 6 in every layer of every encoder call and never row
+    4; every step launches the cross and MLP kernels and the append
+    (greedy) or beam kernel once a layer.  Returns the launches of the
+    kernel path's transcription and of its beam decode."""
+    print(f"[transcribe] golden dims {GOLDEN_DIMS}, f32, seed 7, 35 s", flush=True)
+    model = init_random(GOLDEN_DIMS, seed=7, dtype=torch.float32, device="cuda")
+    tok = Tokenizer()
+    audio = (np.random.default_rng(11).standard_normal(16000 * 35) * 0.1).astype(np.float32)
+    options = TranscribeOptions(decode=DecodeOptions(mode=GreedyMode(),
+                                                     sample_len=GOLDEN_SAMPLE_LEN))
+    _, windows, launches = transcribe_both(model, tok, options, audio, "greedy transcription")
+    L, steps = GOLDEN_DIMS.n_audio_layer, sum(s for _, s in windows)
+    Lt = GOLDEN_DIMS.n_text_layer
+    check_route_counts("golden dims transcription", launches, {
+        "log_mel": 1, "ln_fused": L * len(windows), "residual_ln": L * len(windows),
+        "encoder_attention_split": L * len(windows), "self_attention_append_step": Lt * steps,
+        "cross_attention_step": Lt * steps, "decoder_mlp_step": Lt * steps})
+    print(f"  launches (kernel path): {launches}", flush=True)
+
+    beam = DecodeTask(model, tok, DecodeOptions(mode=BeamSearchMode(beam_size=3),
+                                                sample_len=GOLDEN_SAMPLE_LEN))
+    prompt = tok.encode(" previous window text")
+    got = {}
+    for kernels in (True, False):
+        beam.kernels = kernels
+        margins = None if kernels else []
+        with recorded_windows(beam, margins) as windows:
+            reset_launches()
+            mel = pad_or_trim(log_mel_file(audio[:N_SAMPLES], kernels=kernels), 3000)
+            beam.run_batch(mel[None].repeat(2, 1, 1), [None, prompt])
+            torch.cuda.synchronize()
+            got[kernels] = (windows, margins, dict(LAUNCHES))
+    compare_windows("beam 3, unprompted and prompted", got[True][0], got[False][0],
+                    got[False][1], beam=True)
+    outs = got[True][0][0][0]
+    print(f"  beam 3: tokens {[o.tokens.tolist() for o in outs]}, avg_logprob "
+          f"{[round(o.avg_logprob, 4) for o in outs]}", flush=True)
+    beam_steps = sum(s for _, s in got[True][0])
+    check_route_counts("golden dims beam", got[True][2], {
+        "log_mel": 1, "ln_fused": L, "residual_ln": L, "encoder_attention_split": L,
+        "beam_self_attention_step": Lt * beam_steps, "cross_attention_step": Lt * beam_steps,
+        "decoder_mlp_step": Lt * beam_steps})
+    print(f"  launches (kernel path, beam): {got[True][2]}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, got[True][2]
+
+
+def path_launches(dims, windows) -> dict:
+    """The main path's launch counts over the recorded ``windows``: the mel
+    kernel once a file, the encoder kernels once a layer a window, the
+    cross, beam and MLP kernels once a layer a step."""
+    L, n_win = dims.n_audio_layer, len(windows)
+    steps = sum(s for _, s in windows)
+    return {"log_mel": 1, "ln_fused": L * n_win, "residual_ln": L * n_win,
+            "encoder_attention_merged": L * n_win,
+            "cross_attention_step": dims.n_text_layer * steps,
+            "beam_self_attention_step": dims.n_text_layer * steps,
+            "decoder_mlp_step": dims.n_text_layer * steps}
+
+
+def transcribe_main_path() -> dict:
+    """The slice's main path: base.en at full width and depth,
+    ``TranscribeOptions()`` defaults (beam 5, patience 1, timestamps, blank
+    and non-speech suppression, max_initial_timestamp 1, conditioned on the
+    previous text), a seeded 95 s file.  (a) f32 through the kernels and
+    through the plain versions, window by window (compare_windows), and the
+    whole-file mel through row 1 against its plain version; (b) bf16
+    through the kernels, E2E_REPS timed runs with the launch counts of each,
+    then one window under torch.profiler.  Returns the last timed run's
+    launches."""
+    dims = dims_for(TRANSCRIBE_MODEL)
+    tok = Tokenizer.for_dims(dims)
+    audio = (np.random.default_rng(21).standard_normal(16000 * TRANSCRIBE_SECONDS) * 0.1
+             ).astype(np.float32)
+    options = TranscribeOptions()
+    print(f"[transcribe] {TRANSCRIBE_MODEL} full width and depth, TranscribeOptions() defaults "
+          f"(beam {options.decode.mode.beam_size}), a {TRANSCRIBE_SECONDS} s file", flush=True)
+    mel_k = log_mel_file(audio)
+    mel_p = log_mel_file(audio, kernels=False)
+    compare("log_mel_file (whole-file floor, 4 chunks) f32", (mel_k,), (mel_p,), TOL_F32)
+    if mel_k.shape != (dims.n_mels, 16000 * TRANSCRIBE_SECONDS // HOP_LENGTH):
+        raise AssertionError(f"log_mel_file: shape {tuple(mel_k.shape)}")
+    del mel_k, mel_p
+
+    model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    _, windows, launches = transcribe_both(model, tok, options, audio, "f32 beam-5 transcription")
+    check_route_counts("f32 transcription", launches, path_launches(dims, windows))
+    del model
+    torch.cuda.empty_cache()
+
+    model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+    task = TranscribeTask(model, tok, options)
+    task.run(audio[: 16000 * 5])  # warm-up: Triton compile, cuBLAS set-up
+    times = []
+    reps = E2E_REPS_CUT.get(TRANSCRIBE_LABEL, E2E_REPS)
+    for _ in range(reps):
+        with recorded_windows(task.decode_task) as windows:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = task.run(audio)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches = dict(LAUNCHES)
+        n_win, steps = len(windows), sum(s for _, s in windows)
+        check_route_counts("bf16 transcription", launches, path_launches(dims, windows))
+    elapsed = float(np.median(times))
+    if not res.segments or not all(np.isfinite(res.avg_logprobs)) or res.tokens.size == 0:
+        raise AssertionError("bf16 transcription: no segments, or a non-finite avg_logprob")
+    if res.segments[-1].seek >= 16000 * TRANSCRIBE_SECONDS // HOP_LENGTH or n_win < 4:
+        raise AssertionError(f"bf16 transcription: {n_win} windows, last seek "
+                             f"{res.segments[-1].seek}")
+    print(f"  bf16: {n_win} windows, {steps} incremental steps, {len(res.segments)} segments; "
+          f"runs {', '.join(f'{t:.3f}' for t in times)} s (median of {reps}); "
+          f"{TRANSCRIBE_SECONDS / elapsed:.2f} audio-s/s; wall over the steps "
+          f"{elapsed / steps * 1e3:.2f} ms a step (mel, encoder and prefill included)", flush=True)
+    print(f"  launches of the last run: {launches}; the port's kernels "
+          f"{sum(v for k, v in launches.items() if ':' not in k) / n_win:.1f} a window", flush=True)
+    print(f"  windows' seeks (frames): {sorted({s.seek for s in res.segments})}", flush=True)
+    window = pad_or_trim(log_mel_file(audio)[:, :3000], 3000)
+    task.decode_task.set_prompt(None)
+    with recorded_windows(task.decode_task) as one:
+        task.decode_task.run(window)
+    profile_run(lambda _: task.decode_task.run(window), None,
+                f"one window (the file's first, unprompted; {one[0][1]} steps)",
+                passes=one[0][1])
+    del model, task
+    torch.cuda.empty_cache()
+    return launches
+
+
 # substrings of the device kernel names of the port's own kernels
 OWN_KERNELS = {
     "log_mel_kernel": "log_mel",
     "layer_norm_rows": "ln_fused/residual_ln",
-    "attn_bf16_kernel": "encoder_attention_merged",
+    "attn_bf16_kernel": "encoder_attention_merged / encoder_attention_split",
     "cross_attn_kernel": "cross_attention_step",
     "self_append_kernel": "self_attention_append_step",
     "beam_self_kernel": "beam_self_attention_step",
@@ -1668,6 +2136,8 @@ KERNELS = {
                            "whisper_rs_tpu/ops/decoder_layer_fused.py:499"),
     "self_attention_step": ("cuda", "whisper_rs_tpu_torch/csrc/self_attention.cu",
                             "whisper_rs_tpu/ops/decode_attention.py:166"),
+    "encoder_attention_split": ("cuda", "whisper_rs_tpu_torch/csrc/encoder_attention.cu",
+                                "whisper_rs_tpu/ops/encoder_attention_pallas.py:196"),
 }
 
 
@@ -1724,6 +2194,9 @@ def main() -> int:
         same += () if int8_weights else ("decoder_mlp_step",)
         rows[int8_label(m, b, beam)].update({k: rows[label(m, b, beam)][k] for k in same})
     phase_done("kernels int8", t0)
+    t0 = time.perf_counter()
+    kernel_checks_transcribe(rows)
+    phase_done("kernels transcription", t0)
 
     for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
@@ -1751,6 +2224,9 @@ def main() -> int:
         else:
             parity_routes(dims, text, routes=("append",), int8=True)
         phase_done(f"parity {int8_label(m, b, beam)}", t0)
+    t0 = time.perf_counter()
+    launches[GOLDEN_LABEL], launches[GOLDEN_BEAM_LABEL] = transcribe_golden_dims()
+    phase_done("transcribe golden dims", t0)
     for m, b, beam in PATHS:
         t0 = time.perf_counter()
         launches[label(m, b, beam)] = e2e(dims_for(m), m, b, beam)
@@ -1764,19 +2240,26 @@ def main() -> int:
         launches[int8_label(m, b, beam)] = e2e(dims_for(m), m, b, beam, int8_weights=int8_weights,
                                                int8_kv=True)
         phase_done(f"e2e {int8_label(m, b, beam)}", t0)
+    t0 = time.perf_counter()
+    launches[TRANSCRIBE_LABEL] = transcribe_main_path()
+    phase_done(f"transcribe {TRANSCRIBE_LABEL}", t0)
 
     # each kernel's headline numbers come from the path of the slice that
     # runs it: the whole-step kernel's from the layer route, the fused
     # self-attention's from the ctx route; the append kernel's from
-    # large-v3; row 10's from the base.en int8 path; every other kernel's
-    # from the beam path.  Configs without launches were checked in the
-    # kernels phase alone (row 10 at large-v3, and over a bf16 cache).
+    # large-v3; row 10's from the base.en int8 path; row 6's from the
+    # golden-dims transcription; every other kernel's from the beam path.
+    # Configs without launches were checked in the kernels phase alone (row
+    # 10 at large-v3, and over a bf16 cache; row 6 at two more shapes; the
+    # head-dim-16 instances that neither golden-dims path runs).
     headline = {"decoder_step_fused": layer_label, "self_attention_fused_step": ctx_label,
                 "self_attention_append_step": label(*PATHS[1]),
-                "self_attention_step": int8_label(*INT8_PATHS[0][:3])}
+                "self_attention_step": int8_label(*INT8_PATHS[0][:3]),
+                "encoder_attention_split": GOLDEN_LABEL}
     configs = ([label(*path) for path in PATHS] + [layer_label, ctx_label]
                + [int8_label(*path[:3]) for path in INT8_PATHS]
-               + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"])
+               + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"]
+               + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL])
     extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "library_call")
     line = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -101,12 +101,18 @@ def _meta_calls():
     )
     from whisper_rs_tpu_torch.ops.decoder_layer_fused import DecoderStepWeights, decoder_step_fused
     from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step
-    from whisper_rs_tpu_torch.ops.encoder_attention import encoder_attention_merged
+    from whisper_rs_tpu_torch.ops.encoder_attention import (
+        encoder_attention_merged,
+        encoder_attention_split,
+    )
     from whisper_rs_tpu_torch.ops.encoder_fused import ln_fused, residual_ln
     from whisper_rs_tpu_torch.ops.mel import raw_log10_mel
 
     m = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
     return {
+        "encoder_attention_split": lambda: encoder_attention_split(
+            m(1, 3, 8, 16), m(1, 3, 8, 16), m(1, 3, 8, 16), 0.25
+        ),
         "raw_log10_mel": lambda: raw_log10_mel(m(1, 480_400), 80),
         "ln_fused": lambda: ln_fused(m(2, 64), m(64), m(64)),
         "residual_ln": lambda: residual_ln(m(2, 64), m(2, 64), m(64), m(64)),
@@ -114,6 +120,9 @@ def _meta_calls():
             m(1, 8, 128), m(1, 8, 128), m(1, 8, 128), 2, 0.125
         ),
         "cross_attention_step": lambda: cross_attention_step(m(1, 1, 2, 64), m(1, 1, 2, 2, 64, 8), 0),
+        "cross_attention_step_g10": lambda: cross_attention_step(
+            m(1, 10, 2, 64), m(1, 1, 2, 2, 64, 8), 0
+        ),
         "self_attention_append_step": lambda: self_attention_append_step(
             m(1, 2, 64), m(1, 2, 64), m(1, 2, 64), m(1, 1, 2, 16, 64), m(1, 1, 2, 16, 64), 0, 3,
             window=8,
@@ -142,7 +151,7 @@ def _meta_calls():
         "raw_log10_mel", "ln_fused", "residual_ln", "encoder_attention_merged",
         "cross_attention_step", "self_attention_append_step", "beam_self_attention_step",
         "decoder_mlp_step", "self_attention_fused_step", "decoder_step_fused",
-        "self_attention_step",
+        "self_attention_step", "encoder_attention_split", "cross_attention_step_g10",
     ],
 )
 def test_wrappers_raise_off_the_cpu_without_a_kernel(name):
@@ -154,6 +163,154 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel(name):
     with pytest.raises(ValueError, match="unsupported device"):
         _meta_calls()[name]()
     assert LAUNCHES == before
+
+
+def _refused_calls():
+    """Each wrapper on meta tensors of a shape its predicate refuses: head
+    dim 24 (the step, cross and split kernels are built for 16 and 64), D
+    60 for the MLP (not a multiple of 8)."""
+    from whisper_rs_tpu_torch.ops.decode_attention import (
+        beam_self_attention_step,
+        cross_attention_step,
+        self_attention_append_step,
+        self_attention_fused_step,
+        self_attention_step,
+    )
+    from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step
+    from whisper_rs_tpu_torch.ops.encoder_attention import encoder_attention_split
+
+    m = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
+    return {
+        "encoder_attention_split": lambda: encoder_attention_split(
+            m(1, 3, 8, 24), m(1, 3, 8, 24), m(1, 3, 8, 24), 0.2
+        ),
+        "cross_attention_step": lambda: cross_attention_step(
+            m(1, 5, 4, 24), m(1, 1, 4, 2, 24, 8), 0
+        ),
+        "self_attention_append_step": lambda: self_attention_append_step(
+            m(1, 4, 24), m(1, 4, 24), m(1, 4, 24), m(1, 1, 4, 16, 24), m(1, 1, 4, 16, 24), 0, 3,
+            window=8,
+        ),
+        "beam_self_attention_step": lambda: beam_self_attention_step(
+            m(2, 4, 24), m(2, 4, 24), m(2, 4, 24), m(1, 2, 4, 16, 24), m(1, 2, 4, 16, 24), 0, 3,
+            None, torch.empty(2, 16, dtype=torch.int32, device="meta"), 2, window=8,
+        ),
+        "decoder_mlp_step": lambda: decoder_mlp_step(m(2, 60), m(240, 60), m(240), m(60, 240)),
+        "self_attention_fused_step": lambda: self_attention_fused_step(
+            m(1, 4, 24), m(1, 1, 4, 16, 24), m(1, 1, 4, 16, 24), 0, 3, window=8,
+        ),
+        "self_attention_step": lambda: self_attention_step(
+            m(1, 4, 24), m(1, 1, 4, 16, 24), m(1, 1, 4, 16, 24), 0, 3, window=8,
+        ),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "beam_self_attention_step", "cross_attention_step", "decoder_mlp_step",
+    "encoder_attention_split", "self_attention_append_step", "self_attention_fused_step",
+    "self_attention_step",
+])
+def test_refused_shapes_raise_off_the_cpu(name):
+    """Off the CPU, a shape the wrapper's predicate refuses raises before any
+    launch, naming the shape as the cause (on the meta device here, which
+    would raise for the device otherwise); it never takes the plain
+    version, and no count moves."""
+    from whisper_rs_tpu_torch.ops import LAUNCHES
+
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="does not take this shape"):
+        _refused_calls()[name]()
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("step dh 64", True), ("step dh 16", True), ("step dh 24", False),
+    ("cross dh 64 Tk 1500", True), ("cross dh 16 Tk 1500", True),
+    ("cross dh 24 Tk 1500", False), ("cross dh 64 Tk 1502", False),
+    ("mlp D 512", True), ("mlp D 1280", True), ("mlp D 576", True), ("mlp D 64", True),
+    ("mlp D 60", False),
+    ("split dh 16", True), ("split dh 64", True), ("split dh 128", False),
+    ("split dh 24", False),
+    ("merged H 8 dh 64", True), ("merged H 5 dh 64", False), ("merged H 4 dh 16", False),
+    ("layer 16 rows", True), ("layer 17 rows", False), ("layer G 8", True),
+    ("layer G 5", False), ("layer dh 16", False), ("layer Tk 1502", False),
+    ("layer shared memory", False),
+])
+def test_route_predicates(case, takes):
+    """Each wrapper's predicate at the limits of its kernel: head dim 16 or
+    64 for the step kernels and the cross kernel (which takes any G, so G is
+    no argument), D % 8 for the MLP, the split kernel's two head dims, the
+    JAX encoder's merged route, and the whole-step kernel's rows, groups,
+    head dim, Tk and shared memory (f32 at D 1024: 16 rows stage 256 KiB)."""
+    from whisper_rs_tpu_torch.ops.decode_attention import cross_kernel_takes, step_kernel_takes
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import layer_kernel_takes
+    from whisper_rs_tpu_torch.ops.decoder_mlp_fused import mlp_kernel_takes
+    from whisper_rs_tpu_torch.ops.encoder_attention import merged_kernel_takes, split_kernel_takes
+
+    layer = dict(rows=8, group=1, head_dim=64, Tk=1500, n_ctx=448, d_model=1024, itemsize=2)
+    calls = {
+        "step dh 64": lambda: step_kernel_takes(64),
+        "step dh 16": lambda: step_kernel_takes(16),
+        "step dh 24": lambda: step_kernel_takes(24),
+        "cross dh 64 Tk 1500": lambda: cross_kernel_takes(64, 1500),
+        "cross dh 16 Tk 1500": lambda: cross_kernel_takes(16, 1500),
+        "cross dh 24 Tk 1500": lambda: cross_kernel_takes(24, 1500),
+        "cross dh 64 Tk 1502": lambda: cross_kernel_takes(64, 1502),
+        "mlp D 512": lambda: mlp_kernel_takes(512),
+        "mlp D 1280": lambda: mlp_kernel_takes(1280),
+        "mlp D 576": lambda: mlp_kernel_takes(576),
+        "mlp D 64": lambda: mlp_kernel_takes(64),
+        "mlp D 60": lambda: mlp_kernel_takes(60),
+        "split dh 16": lambda: split_kernel_takes(16),
+        "split dh 64": lambda: split_kernel_takes(64),
+        "split dh 128": lambda: split_kernel_takes(128),
+        "split dh 24": lambda: split_kernel_takes(24),
+        "merged H 8 dh 64": lambda: merged_kernel_takes(8, 64),
+        "merged H 5 dh 64": lambda: merged_kernel_takes(5, 64),
+        "merged H 4 dh 16": lambda: merged_kernel_takes(4, 16),
+        "layer 16 rows": lambda: layer_kernel_takes(**dict(layer, rows=16)),
+        "layer 17 rows": lambda: layer_kernel_takes(**dict(layer, rows=17)),
+        "layer G 8": lambda: layer_kernel_takes(**dict(layer, rows=16, group=8)),
+        "layer G 5": lambda: layer_kernel_takes(**dict(layer, rows=10, group=5)),
+        "layer dh 16": lambda: layer_kernel_takes(**dict(layer, head_dim=16)),
+        "layer Tk 1502": lambda: layer_kernel_takes(**dict(layer, Tk=1502)),
+        "layer shared memory": lambda: layer_kernel_takes(**dict(layer, rows=16, itemsize=4)),
+    }
+    assert calls[case]() is takes
+
+
+def test_layer_route_takes_the_append_route_where_the_kernel_refuses(monkeypatch):
+    """A layer-route step at the golden dims (head dim 16, D 64) off the
+    CPU: counted once under "decoder_step_fused:append", then every layer
+    calls the append route's kernel wrappers (the append self-attention,
+    the cross attention and the MLP, each once a layer) and the whole-step
+    kernel's never.  On the meta device, which computes shapes only, with
+    each wrapper replaced by a recorder that runs its plain version."""
+    import whisper_rs_tpu_torch.models.whisper as whisper
+    from whisper_rs_tpu_torch.config import ModelDims
+    from whisper_rs_tpu_torch.models import CrossKV, KVCache, TextDecoder
+    from whisper_rs_tpu_torch.ops import LAUNCHES
+
+    calls = {}
+    for name in ("self_attention_append_step", "cross_attention_step", "decoder_mlp_step",
+                 "decoder_step_fused"):
+        def recorder(*args, _name=name, _plain=getattr(whisper, f"{name}_plain"), **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _plain(*args, **kw)
+        monkeypatch.setattr(whisper, name, recorder)
+    dims = ModelDims(**dict(DIMS_KW, n_text_layer=2))
+    with torch.device("meta"):
+        dec = TextDecoder(dims.n_vocab, dims.n_text_ctx, dims.n_text_state, dims.n_text_head, 2)
+    cache = KVCache.init(dims, 3, torch.float32, "meta")
+    cross = CrossKV(torch.empty(2, 3, 4, 2, 16, 1500, device="meta"))
+    before = dict(LAUNCHES)
+    logits = dec(torch.zeros(3, 1, dtype=torch.long, device="meta"), 5, cross, cache,
+                 incremental=True, step_kernel="layer")
+    assert logits.shape == (3, 1, dims.n_vocab)
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {"decoder_step_fused:append": 1}
+    assert calls == {"self_attention_append_step": 2, "cross_attention_step": 2,
+                     "decoder_mlp_step": 2}
 
 
 @pytest.fixture
@@ -432,3 +589,73 @@ def test_chip_smoke_bf16_tolerance_rejects_faulty_int8_attention(chip_smoke, fau
     name, right, wrong = _faulty_int8_attention(fault)
     with pytest.raises(AssertionError, match="disagrees"):
         chip_smoke.compare(name, (wrong,), (right,), chip_smoke.tolerance(name, torch.bfloat16))
+
+
+@pytest.mark.parametrize("fault", ["drops_last_28_keys", "qk_scale_1pct_off", "ignores_n_valid"])
+def test_chip_smoke_bf16_tolerance_rejects_faulty_split_attention(chip_smoke, fault):
+    """Row 6's bf16 tolerance at chip_smoke's golden-dims shape (head dim
+    16, unit-scale q, k, v) fails a split attention that drops the last 28
+    keys, scales Q.K 1% wrong, or ignores n_valid."""
+    from whisper_rs_tpu_torch.ops.encoder_attention import encoder_attention_split_plain as attn
+
+    gen = torch.Generator().manual_seed(1)
+    shape = chip_smoke.SPLIT_SHAPES[chip_smoke.GOLDEN_LABEL]
+    T, dh = shape[2], shape[3]
+    q, k, v = (torch.randn(*shape, generator=gen).bfloat16() for _ in range(3))
+    nv = T - 37 if fault == "ignores_n_valid" else None
+    right = attn(q, k, v, dh**-0.5, nv)
+    wrong = {"drops_last_28_keys": lambda: attn(q, k, v, dh**-0.5, T - 28),
+             "qk_scale_1pct_off": lambda: attn(q, k, v, 1.01 * dh**-0.5),
+             "ignores_n_valid": lambda: attn(q, k, v, dh**-0.5)}[fault]()
+    name = "encoder_attention_split"
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.compare(name, (wrong,), (right,), chip_smoke.tolerance(name, torch.bfloat16))
+
+
+def _window(tokens, avg=-1.0):
+    from whisper_rs_tpu_torch import DecodeOutput
+
+    return DecodeOutput(tokens=np.asarray(tokens), text="", avg_logprob=avg, no_speech_prob=0.1)
+
+
+@pytest.mark.parametrize("beam", [False, True])
+def test_chip_smoke_compare_windows_stops_only_below_the_plain_margin(chip_smoke, beam):
+    """The transcription parity: equal windows pass; a divergent window
+    passes (and stops the comparison) only where the plain path's margin
+    there is below 1e-3 (greedy: at the first divergent token; beam: the
+    audio's smallest selection margin in that window); an avg_logprob off
+    by more than 1e-3 fails."""
+    plain = [([_window([1, 2, 3])], 3), ([_window([4, 5, 6])], 3)]
+    kernel = [([_window([1, 2, 3])], 3), ([_window([4, 9, 6])], 3)]
+    close = [[1.0, 1.0, 1.0], [1.0, 5e-4, 1.0]] if not beam else [torch.tensor([1.0]),
+                                                                    torch.tensor([5e-4])]
+    wide = [[1.0] * 3, [1.0, 2e-3, 1.0]] if not beam else [torch.tensor([1.0]),
+                                                          torch.tensor([2e-3])]
+    assert chip_smoke.compare_windows("x", plain, plain, wide, beam)
+    assert not chip_smoke.compare_windows("x", kernel, plain, close, beam)
+    with pytest.raises(AssertionError, match="margin"):
+        chip_smoke.compare_windows("x", kernel, plain, wide, beam)
+    off = [([_window([1, 2, 3], avg=-1.01)], 3), plain[1]]
+    with pytest.raises(AssertionError, match="avg_logprob"):
+        chip_smoke.compare_windows("x", off, plain, wide, beam)
+
+
+def test_chip_smoke_route_counts(chip_smoke):
+    """check_route_counts fails a kernel of the path that never launched or
+    launched another number of times than expected, a kernel off the path
+    that did launch, and the layer route's fallback where none was
+    expected."""
+    from whisper_rs_tpu_torch.ops import LAUNCHES
+
+    base = dict.fromkeys(LAUNCHES, 0)
+    ok = dict(base, log_mel=1, encoder_attention_split=2, cross_attention_step=4)
+    want = {"log_mel": 1, "encoder_attention_split": True, "cross_attention_step": 4}
+    chip_smoke.check_route_counts("x", ok, want)
+    for bad in (
+        dict(ok, encoder_attention_split=0),
+        dict(ok, cross_attention_step=3),
+        dict(ok, encoder_attention_merged=2),
+        dict(ok, **{"decoder_step_fused:append": 1}),
+    ):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_route_counts("x", bad, want)

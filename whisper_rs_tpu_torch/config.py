@@ -1,13 +1,15 @@
 """Model configuration registry (counterpart of ``whisper_rs_tpu/config.py``).
 
-The port keeps its own copy so that it imports nothing of the JAX package.
-Only what the window decode needs is here: ``ModelDims``, the registry of
-released Whisper sizes, ``GreedyMode`` and ``BeamSearchMode``.
+The port keeps its own copy so that it imports nothing of the JAX package:
+``ModelDims``, the registry of released Whisper sizes, ``GreedyMode``,
+``BeamSearchMode``, and the decode and transcription options
+``DecodeOptions`` and ``TranscribeOptions`` (same fields and defaults).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +100,43 @@ class BeamSearchMode:
 
     beam_size: int = 5
     patience: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeOptions:
+    """Single-window decode options; the defaults are the reference
+    example's (beam 5, timestamps, blank and non-speech suppression)."""
+
+    sample_len: Optional[int] = None
+    mode: object = BeamSearchMode(beam_size=5, patience=1.0)
+    length_penalty: Optional[float] = None
+    max_initial_timestamp: Optional[float] = 1.0
+    timestamps: bool = True
+    suppress_blank: bool = True
+    suppress_non_speech: bool = True
+    suppress_tokens: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TranscribeOptions:
+    """Long-audio transcription options.  ``initial_prompt_tokens`` or
+    ``initial_prompt_text`` prompt the first window and switch prompt
+    conditioning on; else ``condition_on_prev_text`` decides.  A window
+    with ``no_speech_prob > no_speech_threshold`` and ``avg_logprob <
+    logprob_threshold`` is skipped as silence (None: never).
+    ``temperatures`` (the fallback ladder, with
+    ``compression_ratio_threshold``) and ``word_timestamps`` (with
+    ``alignment_heads``) are the JAX package's fields; the port's
+    ``TranscribeTask`` refuses both, as sampling and alignment are not
+    ported."""
+
+    decode: DecodeOptions = DecodeOptions()
+    initial_prompt_tokens: Optional[Tuple[int, ...]] = None
+    initial_prompt_text: Optional[str] = None
+    condition_on_prev_text: bool = True
+    no_speech_threshold: Optional[float] = None
+    logprob_threshold: float = -1.0
+    temperatures: Optional[Tuple[float, ...]] = None
+    compression_ratio_threshold: float = 2.4
+    word_timestamps: bool = False
+    alignment_heads: Optional[Tuple[Tuple[int, int], ...]] = None

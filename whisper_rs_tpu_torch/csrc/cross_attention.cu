@@ -16,7 +16,9 @@
 // at the H100 SXM data-sheet 3.35 TB/s, 700 W power limit; in int8 197 MB
 // plus 12 MB of scales, about 62 us), for only 4 * G FLOP per element read.
 //
-// Design: one block per (head, audio), 1024 blocks at base.en b128.
+// Design: one block per (head, audio, chunk of up to 8 of the audio's rows),
+// 1024 blocks at base.en b128; an audio of more than 8 rows (beam 10) takes
+// ceil(G / 8) chunks, which read its K/V each, so any G runs in one launch.
 // Threads run along Tk, so every read of a [dh, Tk] plane row is coalesced
 // and vectorised (4 elements a thread: 4 bytes in int8, 8 in bf16, 16 in
 // f32).  The G rows' scores (Tk x G f32) stay in shared memory; block
@@ -24,7 +26,9 @@
 // on the TPU, rounded to the K/V dtype (int8: multiplied by the V scales
 // and kept in f32); then each warp takes a share of the dh rows of V^T and
 // reduces P V^T across its lanes.  Simple first: no cp.async prefetch of
-// V^T under the softmax yet.
+// V^T under the softmax yet.  The head dim is a template parameter,
+// instantiated at 64 (every registry model) and 16 (the golden test dims);
+// the entry points take dh and refuse any other.
 #include <type_traits>
 
 #include "common.cuh"
@@ -33,17 +37,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 64;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
 // T: the query and output dtype; C: the K/V's (T, or int8 with the scales
 // ksc, vsc).
-template <typename T, typename C, int GM>
+template <int DH, typename T, typename C, int GM>
 __global__ void __launch_bounds__(THREADS)
 cross_attn_kernel(const T* __restrict__ q, const C* __restrict__ kv,
                   const float* __restrict__ ksc, const float* __restrict__ vsc,
-                  T* __restrict__ out, int A, int G, int H, int Tk, int layer) {
+                  T* __restrict__ out, int A, int G_all, int H, int Tk, int layer) {
     constexpr bool INT8 = std::is_same<C, int8_t>::value;
     extern __shared__ __align__(16) float sc[];  // [G][Tk] scores, then weights
     __shared__ float qs[GM][DH];
@@ -51,6 +54,9 @@ cross_attn_kernel(const T* __restrict__ q, const C* __restrict__ kv,
     __shared__ float stat[GM];
 
     const int h = blockIdx.x, a = blockIdx.y;
+    // this block's rows of the audio: g0 .. g0 + G - 1 of its G_all
+    const int g0 = blockIdx.z * GM, G = min(GM, G_all - g0);
+    const size_t row0 = (size_t)a * G_all + g0;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const C* kt = kv + ((((size_t)layer * A + a) * H + h) * 2) * DH * Tk;  // K^T [dh, Tk]
     const C* vt = kt + (size_t)DH * Tk;                                      // V^T [dh, Tk]
@@ -58,7 +64,7 @@ cross_attn_kernel(const T* __restrict__ q, const C* __restrict__ kv,
 
     for (int i = threadIdx.x; i < G * DH; i += THREADS) {
         const int g = i / DH, d = i % DH;
-        qs[g][d] = to_float(q[(((size_t)a * G + g) * H + h) * DH + d]);
+        qs[g][d] = to_float(q[((row0 + g) * H + h) * DH + d]);
     }
     __syncthreads();
 
@@ -180,62 +186,70 @@ cross_attn_kernel(const T* __restrict__ q, const C* __restrict__ kv,
         for (int g = 0; g < GM; ++g) {
             const float s = warp_sum(acc[g]);
             if (lane == 0 && g < G)
-                out[(((size_t)a * G + g) * H + h) * DH + d] = from_float<T>(s);
+                out[((row0 + g) * H + h) * DH + d] = from_float<T>(s);
         }
     }
 }
 
-template <typename T, typename C, int GM>
+template <int DH, typename T, typename C, int GM>
 int launch(const void* q, const void* kv, const void* ksc, const void* vsc, void* out, int A,
            int G, int H, int Tk, int layer, cudaStream_t stream) {
-    const size_t smem = (size_t)G * Tk * sizeof(float);
-    auto kernel = cross_attn_kernel<T, C, GM>;
+    const size_t smem = (size_t)(G < GM ? G : GM) * Tk * sizeof(float);
+    auto kernel = cross_attn_kernel<DH, T, C, GM>;
     if (smem > 32 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    kernel<<<dim3(H, A), THREADS, smem, stream>>>(
+    kernel<<<dim3(H, A, (G + GM - 1) / GM), THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const C*>(kv), static_cast<const float*>(ksc),
         static_cast<const float*>(vsc), static_cast<T*>(out), A, G, H, Tk, layer);
     return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH, typename T, typename C>
+int by_rows(const void* q, const void* kv, const void* ksc, const void* vsc, void* out, int A,
+            int G, int H, int Tk, int layer, cudaStream_t s) {
+    if (G == 1) return launch<DH, T, C, 1>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    if (G <= 2) return launch<DH, T, C, 2>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    if (G <= 4) return launch<DH, T, C, 4>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    return launch<DH, T, C, 8>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+}
+
+// The instantiated head dims, 16 and 64; any other dh is refused.
 template <typename T, typename C>
 int dispatch(const void* q, const void* kv, const void* ksc, const void* vsc, void* out, int A,
-             int G, int H, int Tk, int layer, void* stream) {
+             int G, int H, int Tk, int layer, int dh, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (G == 1) return launch<T, C, 1>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
-    if (G <= 2) return launch<T, C, 2>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
-    if (G <= 4) return launch<T, C, 4>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
-    if (G <= 8) return launch<T, C, 8>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    if (dh == 64) return by_rows<64, T, C>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
+    if (dh == 16) return by_rows<16, T, C>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q: [A, G, H, 64] pre-scaled; kv: [L, A, H, 2, 64, Tk] with Tk % 4 == 0;
-// out: [A, G, H, 64]; all contiguous, 16-byte aligned; 1 <= G <= 8.
+// q: [A, G, H, dh] pre-scaled; kv: [L, A, H, 2, dh, Tk] with Tk % 4 == 0;
+// out: [A, G, H, dh]; dh 16 or 64; all contiguous, 16-byte aligned; G >= 1.
 extern "C" int cross_attention_bf16(const void* q, const void* kv, void* out, int A, int G,
-                                    int H, int Tk, int layer, void* stream) {
-    return dispatch<bf16, bf16>(q, kv, nullptr, nullptr, out, A, G, H, Tk, layer, stream);
+                                    int H, int Tk, int layer, int dh, void* stream) {
+    return dispatch<bf16, bf16>(q, kv, nullptr, nullptr, out, A, G, H, Tk, layer, dh, stream);
 }
 
 extern "C" int cross_attention_f32(const void* q, const void* kv, void* out, int A, int G,
-                                   int H, int Tk, int layer, void* stream) {
-    return dispatch<float, float>(q, kv, nullptr, nullptr, out, A, G, H, Tk, layer, stream);
+                                   int H, int Tk, int layer, int dh, void* stream) {
+    return dispatch<float, float>(q, kv, nullptr, nullptr, out, A, G, H, Tk, layer, dh, stream);
 }
 
 // As above with kv int8 and its f32 scales ksc, vsc [L, A, H, Tk]
 // (contiguous, 16-byte aligned).
 extern "C" int cross_attention_int8_bf16(const void* q, const void* kv, const void* ksc,
                                          const void* vsc, void* out, int A, int G, int H, int Tk,
-                                         int layer, void* stream) {
-    return dispatch<bf16, int8_t>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, stream);
+                                         int layer, int dh, void* stream) {
+    return dispatch<bf16, int8_t>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, dh, stream);
 }
 
 extern "C" int cross_attention_int8_f32(const void* q, const void* kv, const void* ksc,
                                         const void* vsc, void* out, int A, int G, int H, int Tk,
-                                        int layer, void* stream) {
-    return dispatch<float, int8_t>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, stream);
+                                        int layer, int dh, void* stream) {
+    return dispatch<float, int8_t>(q, kv, ksc, vsc, out, A, G, H, Tk, layer, dh, stream);
 }

@@ -33,7 +33,10 @@
 // run on the FMA pipes: simple first, no mma.sync, split-K or TMA yet.  At
 // large-v3 b12 fc2 has only 640 warps, each streaming 20 KB in turn with
 // 2 KB in flight, so it likely waits on memory latency rather than
-// bandwidth; at large batch the FMA issue rate bounds it.
+// bandwidth; at large batch the FMA issue rate bounds it.  A K that is not
+// a multiple of 128 (fc1 at D 64, the golden test dims) takes the TAIL
+// instance, whose lanes past K load zeros; every registry model's D is a
+// multiple of 128 and takes the instance without the check.
 #include "common.cuh"
 
 namespace {
@@ -64,7 +67,8 @@ __device__ __forceinline__ float gelu<bf16>(float x) {
 
 // Each lane's f32 partial of x[bb] . w[r] over K, for r < ROWS and bb < nb,
 // summed across the warp; then lane r * MB + bb returns output (r, bb).
-template <typename T>
+// K % 4 == 0; without TAIL, K % CHUNK == 0.
+template <bool TAIL, typename T>
 __device__ __forceinline__ float rows_dot(const T* __restrict__ w, const T* __restrict__ x,
                                           int K, int nb, int lane) {
     float acc[ROWS][MB];
@@ -73,21 +77,23 @@ __device__ __forceinline__ float rows_dot(const T* __restrict__ w, const T* __re
 #pragma unroll
         for (int bb = 0; bb < MB; ++bb) acc[r][bb] = 0.f;
 
-    const int nc = K / CHUNK;
+    const int nc = (K + CHUNK - 1) / CHUNK;
+    // whether this lane's 4 columns of chunk c lie inside K
+    auto inside = [&](int c) { return c < nc && (!TAIL || c * CHUNK + 4 * lane < K); };
     for (int c0 = 0; c0 < nc; c0 += PF) {
         float4 wv[PF][ROWS];
 #pragma unroll
         for (int p = 0; p < PF; ++p)
 #pragma unroll
             for (int r = 0; r < ROWS; ++r)
-                wv[p][r] = c0 + p < nc
+                wv[p][r] = inside(c0 + p)
                                ? load4(w + (size_t)r * K + (c0 + p) * CHUNK + 4 * lane)
                                : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int bb = 0; bb < MB; ++bb) {
 #pragma unroll
             for (int p = 0; p < PF; ++p) {
-                if (bb < nb && c0 + p < nc) {
+                if (bb < nb && inside(c0 + p)) {
                     const float4 xv = load4(x + (size_t)bb * K + (c0 + p) * CHUNK + 4 * lane);
 #pragma unroll
                     for (int r = 0; r < ROWS; ++r) {
@@ -112,7 +118,7 @@ __device__ __forceinline__ float rows_dot(const T* __restrict__ w, const T* __re
 }
 
 // g[b, j] = gelu(round(h[b] . W1[j] + b1[j])) for the warp's rows j.
-template <typename T>
+template <bool TAIL, typename T>
 __global__ void __launch_bounds__(THREADS)
 mlp_fc1_gelu_kernel(const T* __restrict__ h, const T* __restrict__ w1,
                     const T* __restrict__ b1, T* __restrict__ g, int B, int D, int H4) {
@@ -120,7 +126,7 @@ mlp_fc1_gelu_kernel(const T* __restrict__ h, const T* __restrict__ w1,
     const int j0 = (blockIdx.x * WARPS + warp) * ROWS;
     const int b0 = blockIdx.y * MB;
     const int nb = min(MB, B - b0);
-    const float s = rows_dot(w1 + (size_t)j0 * D, h + (size_t)b0 * D, D, nb, lane);
+    const float s = rows_dot<TAIL>(w1 + (size_t)j0 * D, h + (size_t)b0 * D, D, nb, lane);
     const int r = lane / MB, bb = lane % MB;
     if (bb < nb) {
         const float a = round_to<T>(s + to_float(b1[j0 + r]));
@@ -129,7 +135,7 @@ mlp_fc1_gelu_kernel(const T* __restrict__ h, const T* __restrict__ w1,
 }
 
 // out[b, n] = g[b] . W2[n] for the warp's rows n.
-template <typename T>
+template <bool TAIL, typename T>
 __global__ void __launch_bounds__(THREADS)
 mlp_fc2_kernel(const T* __restrict__ g, const T* __restrict__ w2, T* __restrict__ out,
                int B, int D, int H4) {
@@ -137,7 +143,7 @@ mlp_fc2_kernel(const T* __restrict__ g, const T* __restrict__ w2, T* __restrict_
     const int n0 = (blockIdx.x * WARPS + warp) * ROWS;
     const int b0 = blockIdx.y * MB;
     const int nb = min(MB, B - b0);
-    const float s = rows_dot(w2 + (size_t)n0 * H4, g + (size_t)b0 * H4, H4, nb, lane);
+    const float s = rows_dot<TAIL>(w2 + (size_t)n0 * H4, g + (size_t)b0 * H4, H4, nb, lane);
     const int r = lane / MB, bb = lane % MB;
     if (bb < nb) out[(size_t)(b0 + bb) * D + n0 + r] = from_float<T>(s);
 }
@@ -145,24 +151,35 @@ mlp_fc2_kernel(const T* __restrict__ g, const T* __restrict__ w2, T* __restrict_
 template <typename T>
 int launch(const void* h, const void* w1, const void* b1, const void* w2, void* g, void* out,
            int B, int D, void* stream) {
-    if (B < 1 || D < CHUNK || D % CHUNK)
+    // whole 4-element loads, and whole warps of ROWS rows over D and 4D
+    if (B < 1 || D < WARPS * ROWS || D % (WARPS * ROWS))
         return static_cast<int>(cudaErrorInvalidValue);
     const int H4 = 4 * D;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int btiles = (B + MB - 1) / MB;
-    mlp_fc1_gelu_kernel<T><<<dim3(H4 / (WARPS * ROWS), btiles), THREADS, 0, s>>>(
-        static_cast<const T*>(h), static_cast<const T*>(w1), static_cast<const T*>(b1),
-        static_cast<T*>(g), B, D, H4);
+    const dim3 fc1_grid(H4 / (WARPS * ROWS), btiles), fc2_grid(D / (WARPS * ROWS), btiles);
+    const auto h_ = static_cast<const T*>(h), w1_ = static_cast<const T*>(w1),
+               b1_ = static_cast<const T*>(b1), w2_ = static_cast<const T*>(w2);
+    if (D % CHUNK)
+        mlp_fc1_gelu_kernel<true, T><<<fc1_grid, THREADS, 0, s>>>(h_, w1_, b1_,
+                                                                   static_cast<T*>(g), B, D, H4);
+    else
+        mlp_fc1_gelu_kernel<false, T><<<fc1_grid, THREADS, 0, s>>>(h_, w1_, b1_,
+                                                                    static_cast<T*>(g), B, D, H4);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    mlp_fc2_kernel<T><<<dim3(D / (WARPS * ROWS), btiles), THREADS, 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(w2), static_cast<T*>(out), B, D, H4);
+    if (H4 % CHUNK)
+        mlp_fc2_kernel<true, T><<<fc2_grid, THREADS, 0, s>>>(static_cast<const T*>(g), w2_,
+                                                              static_cast<T*>(out), B, D, H4);
+    else
+        mlp_fc2_kernel<false, T><<<fc2_grid, THREADS, 0, s>>>(static_cast<const T*>(g), w2_,
+                                                               static_cast<T*>(out), B, D, H4);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 // h, out: [B, D]; w1: [4D, D]; b1: [4D]; w2: [D, 4D]; g: [B, 4D] scratch;
-// all contiguous, 16-byte aligned; D % 128 == 0.
+// all contiguous, 16-byte aligned; D % 8 == 0.
 extern "C" int decoder_mlp_bf16(const void* h, const void* w1, const void* b1, const void* w2,
                                 void* g, void* out, int B, int D, void* stream) {
     return launch<bf16>(h, w1, b1, w2, g, out, B, D, stream);

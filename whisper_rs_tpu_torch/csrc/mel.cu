@@ -91,7 +91,9 @@ log_mel_kernel(const float* __restrict__ padded, const float* __restrict__ wcos,
 
 }  // namespace
 
-// padded: [B, row_stride] reflect-padded f32 audio (row_stride >= 480240);
+// padded: B rows of reflect-padded f32 audio, row b at padded + b * row_stride,
+// each read for its first 480240 samples (rows may overlap: the chunks of
+// one padded file have row_stride 480000);
 // wcos, wsin: [400, 201] Hann-folded DFT basis; fb: [n_mels, 201];
 // out: [B, n_mels, 3000] f32.
 extern "C" int log_mel_f32(const float* padded, const float* wcos, const float* wsin,

@@ -36,8 +36,8 @@
 // all-pairs q.k, then picked each (beam, position)'s ancestor with a
 // select; its int8 form picked the scale rows of each source beam by a
 // masked reduce.  All of that served Mosaic.  Here the cache stays
-// ctx-major [L, B, H, n_ctx, 64]: a key row is 64 contiguous elements (128
-// bytes in bf16, 64 in int8), so a row of any source beam is one coalesced
+// ctx-major [L, B, H, n_ctx, dh]: a key row is dh contiguous elements (128
+// bytes in bf16 at dh 64, 64 in int8), so a row of any source beam is one coalesced
 // read, and the beam kernels read exactly one K row and one V row (and,
 // int8, one scale of each) per (row, head, slot): a gather at read time,
 // with no G-fold compute and no copy of the cache.  The layer index is a
@@ -59,11 +59,15 @@
 // read-only blocks read slot pos from the cache.  Only slots lo..pos are
 // read: masked slots have weight exactly 0 in f32 (exp of NEG - max
 // underflows), so skipping them changes nothing.  A group of lanes reads
-// one key row with 16-byte loads (4 lanes in int8, 8 in bf16, 16 in f32);
+// one key row with 16-byte loads (at dh 64: 4 lanes in int8, 8 in bf16, 16
+// in f32; at dh 16 a quarter of that, so a warp takes 4 times the rows);
 // the scores go to shared memory, the block takes max and sum, and the
 // same lane groups then walk V with the weights, reduced across groups and
 // warps in a fixed order (deterministic, no atomics).  Simple first: two
-// passes over the rows, no cp.async prefetch of V under the softmax.
+// passes over the rows, no cp.async prefetch of V under the softmax.  The
+// head dim is a template parameter, instantiated at 64 (every registry
+// model) and 16 (the golden test dims); the entry points take dh and refuse
+// any other.
 #include <type_traits>
 
 #include "common.cuh"
@@ -72,7 +76,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 64;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_WINDOW = 12 * 1024;  // W floats of scores in 48 KB
@@ -120,14 +123,15 @@ __device__ __forceinline__ void load_n(const T* p, float (&x)[N]) {
     }
 }
 
-// The body of the five kernels for block (h, b).  T: the query, output and
+// The body of the five kernels for block (h, b), at head dim DH (16 or 64:
+// a key row is then 1 to 16 lanes' 16-byte loads).  T: the query, output and
 // fresh-column dtype; C: the cache's (T, or int8 with the f32 scales ksc,
 // vsc [L, B, H, n_ctx]).  anc: null for the greedy kernels (every slot from
 // row b, key_start of row b); else the [B, n_ctx] beam-local ancestor table
 // of groups of G rows.  WRITE (C == T): this step's column comes in knew
 // and vnew and is written here; without it, knew and vnew are unused and
 // slot pos is read from the cache like any other.
-template <typename T, typename C, bool WRITE>
+template <int DH, typename T, typename C, bool WRITE>
 __device__ __forceinline__ void attend_step(
     const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
     C* __restrict__ kc, C* __restrict__ vc, const float* __restrict__ ksc,
@@ -137,8 +141,9 @@ __device__ __forceinline__ void attend_step(
     constexpr bool INT8 = std::is_same<C, int8_t>::value;
     static_assert(!WRITE || std::is_same<C, T>::value, "the column is written in the cache dtype");
     constexpr int VEC = Vec16<C>::N;  // cache elements per 16-byte load
-    constexpr int LPR = DH / VEC;     // lanes per key row: 4 (int8), 8 (bf16) or 16 (f32)
-    constexpr int KPW = 32 / LPR;     // key rows per warp pass: 8, 4 or 2
+    constexpr int LPR = DH / VEC;     // lanes per key row, at DH 64: 4 (int8), 8 (bf16) or 16 (f32)
+    constexpr int KPW = 32 / LPR;     // key rows per warp pass, at DH 64: 8, 4 or 2
+    static_assert(DH % VEC == 0 && 32 % LPR == 0, "whole 16-byte loads, whole rows a warp");
     constexpr int STRIDE = WARPS * KPW;
     __shared__ float red[WARPS][DH];
     __shared__ float stat[WARPS];
@@ -264,50 +269,50 @@ __device__ __forceinline__ void attend_step(
 }
 
 // ws: [n] scores, then weights, of slots lo..hi, in dynamic shared memory
-template <typename T>
+template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                    const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
                    const long long* __restrict__ key_start, T* __restrict__ out,
                    int B, int H, int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, nullptr, 1, out,
+    attend_step<DH, T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, nullptr, 1, out,
                             B, H, n_ctx, layer, pos, W, ws);
 }
 
-template <typename T>
+template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 beam_self_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                  const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
                  const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
                  T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, anc, G, out, B,
+    attend_step<DH, T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, anc, G, out, B,
                             H, n_ctx, layer, pos, W, ws);
 }
 
-template <typename T>
+template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 self_fused_kernel(const T* __restrict__ q, T* __restrict__ kc, T* __restrict__ vc,
                   const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
                   int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T, T, false>(q, nullptr, nullptr, kc, vc, nullptr, nullptr, key_start, nullptr,
+    attend_step<DH, T, T, false>(q, nullptr, nullptr, kc, vc, nullptr, nullptr, key_start, nullptr,
                              1, out, B, H, n_ctx, layer, pos, W, ws);
 }
 
-template <typename T, typename C>
+template <int DH, typename T, typename C>
 __global__ void __launch_bounds__(THREADS)
 self_step_kernel(const T* __restrict__ q, C* __restrict__ kc, C* __restrict__ vc,
                  const float* __restrict__ ksc, const float* __restrict__ vsc,
                  const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
                  int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T, C, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, nullptr, 1, out,
+    attend_step<DH, T, C, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, nullptr, 1, out,
                              B, H, n_ctx, layer, pos, W, ws);
 }
 
-template <typename T>
+template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 beam_self_int8_kernel(const T* __restrict__ q, int8_t* __restrict__ kc,
                       int8_t* __restrict__ vc, const float* __restrict__ ksc,
@@ -315,7 +320,7 @@ beam_self_int8_kernel(const T* __restrict__ q, int8_t* __restrict__ kc,
                       const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H,
                       int n_ctx, int layer, int pos, int W) {
     extern __shared__ float ws[];
-    attend_step<T, int8_t, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, anc, G, out,
+    attend_step<DH, T, int8_t, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, anc, G, out,
                                   B, H, n_ctx, layer, pos, W, ws);
 }
 
@@ -333,78 +338,99 @@ int launch(void (*kernel)(Params...), int B, int H, int n_ctx, int pos, int wind
     return static_cast<int>(cudaGetLastError());
 }
 
+// Call f with the head dim as a compile-time constant: the instances are
+// 16 and 64, and any other dh is refused.
+template <typename F>
+int by_head_dim(int dh, F&& f) {
+    if (dh == 64) return f(std::integral_constant<int, 64>{});
+    if (dh == 16) return f(std::integral_constant<int, 16>{});
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int append(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
            const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
-           int window, void* stream) {
-    return launch(self_append_kernel<T>, B, H, n_ctx, pos, window, 1, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(knew),
-                  static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
-                  static_cast<const long long*>(key_start), static_cast<T*>(out), B, H, n_ctx,
-                  layer, pos, window);
+           int window, int dh, void* stream) {
+    return by_head_dim(dh, [&](auto D) {
+        return launch(self_append_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, 1,
+                      stream, static_cast<const T*>(q), static_cast<const T*>(knew),
+                      static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
+                      static_cast<const long long*>(key_start), static_cast<T*>(out), B, H,
+                      n_ctx, layer, pos, window);
+    });
 }
 
 template <typename T>
 int beam(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
          const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
-         int layer, int pos, int window, void* stream) {
-    return launch(beam_self_kernel<T>, B, H, n_ctx, pos, window, G, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(knew),
-                  static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
-                  static_cast<const long long*>(key_start), static_cast<const int*>(anc), G,
-                  static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
+         int layer, int pos, int window, int dh, void* stream) {
+    return by_head_dim(dh, [&](auto D) {
+        return launch(beam_self_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, G,
+                      stream, static_cast<const T*>(q), static_cast<const T*>(knew),
+                      static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
+                      static_cast<const long long*>(key_start), static_cast<const int*>(anc), G,
+                      static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
+    });
 }
 
 template <typename T>
 int fused(const void* q, void* kc, void* vc, const void* key_start, void* out, int B, int H,
-          int n_ctx, int layer, int pos, int window, void* stream) {
-    return launch(self_fused_kernel<T>, B, H, n_ctx, pos, window, 1, stream,
-                  static_cast<const T*>(q), static_cast<T*>(kc), static_cast<T*>(vc),
-                  static_cast<const long long*>(key_start), static_cast<T*>(out), B, H, n_ctx,
-                  layer, pos, window);
+          int n_ctx, int layer, int pos, int window, int dh, void* stream) {
+    return by_head_dim(dh, [&](auto D) {
+        return launch(self_fused_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, 1,
+                      stream, static_cast<const T*>(q), static_cast<T*>(kc),
+                      static_cast<T*>(vc), static_cast<const long long*>(key_start),
+                      static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
+    });
 }
 
 template <typename T, typename C>
 int step(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
          const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
-         int window, void* stream) {
-    return launch(self_step_kernel<T, C>, B, H, n_ctx, pos, window, 1, stream,
-                  static_cast<const T*>(q), static_cast<C*>(kc), static_cast<C*>(vc),
-                  static_cast<const float*>(ksc), static_cast<const float*>(vsc),
-                  static_cast<const long long*>(key_start), static_cast<T*>(out), B, H, n_ctx,
-                  layer, pos, window);
+         int window, int dh, void* stream) {
+    return by_head_dim(dh, [&](auto D) {
+        return launch(self_step_kernel<decltype(D)::value, T, C>, B, H, n_ctx, pos, window, 1,
+                      stream, static_cast<const T*>(q), static_cast<C*>(kc), static_cast<C*>(vc),
+                      static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+                      static_cast<const long long*>(key_start), static_cast<T*>(out), B, H,
+                      n_ctx, layer, pos, window);
+    });
 }
 
 template <typename T>
 int beam_int8(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
               const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
-              int layer, int pos, int window, void* stream) {
-    return launch(beam_self_int8_kernel<T>, B, H, n_ctx, pos, window, G, stream,
-                  static_cast<const T*>(q), static_cast<int8_t*>(kc), static_cast<int8_t*>(vc),
-                  static_cast<const float*>(ksc), static_cast<const float*>(vsc),
-                  static_cast<const long long*>(key_start), static_cast<const int*>(anc), G,
-                  static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
+              int layer, int pos, int window, int dh, void* stream) {
+    return by_head_dim(dh, [&](auto D) {
+        return launch(beam_self_int8_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, G,
+                      stream, static_cast<const T*>(q), static_cast<int8_t*>(kc),
+                      static_cast<int8_t*>(vc), static_cast<const float*>(ksc),
+                      static_cast<const float*>(vsc), static_cast<const long long*>(key_start),
+                      static_cast<const int*>(anc), G, static_cast<T*>(out), B, H, n_ctx, layer,
+                      pos, window);
+    });
 }
 
 }  // namespace
 
-// q, knew, vnew, out: [B, H, 64]; kc, vc: [L, B, H, n_ctx, 64]; key_start:
-// [B] int64 or null (zeros); all contiguous and 16-byte aligned; the caches
-// are written at slot pos of layer in place.  0 <= pos < window <= n_ctx.
+// q, knew, vnew, out: [B, H, dh]; kc, vc: [L, B, H, n_ctx, dh]; dh 16 or 64;
+// key_start: [B] int64 or null (zeros); all contiguous and 16-byte aligned;
+// the caches are written at slot pos of layer in place.
+// 0 <= pos < window <= n_ctx.
 extern "C" int self_attention_append_bf16(const void* q, const void* knew, const void* vnew,
                                           void* kc, void* vc, const void* key_start, void* out,
                                           int B, int H, int n_ctx, int layer, int pos,
-                                          int window, void* stream) {
+                                          int window, int dh, void* stream) {
     return append<bf16>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
-                        stream);
+                        dh, stream);
 }
 
 extern "C" int self_attention_append_f32(const void* q, const void* knew, const void* vnew,
                                          void* kc, void* vc, const void* key_start, void* out,
                                          int B, int H, int n_ctx, int layer, int pos,
-                                         int window, void* stream) {
+                                         int window, int dh, void* stream) {
     return append<float>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
-                         stream);
+                         dh, stream);
 }
 
 // As the append entry points, plus anc: [B, n_ctx] int32, beam-local
@@ -412,19 +438,19 @@ extern "C" int self_attention_append_f32(const void* q, const void* knew, const 
 extern "C" int beam_self_attention_bf16(const void* q, const void* knew, const void* vnew,
                                         void* kc, void* vc, const void* key_start,
                                         const void* anc, int G, void* out, int B, int H,
-                                        int n_ctx, int layer, int pos, int window,
+                                        int n_ctx, int layer, int pos, int window, int dh,
                                         void* stream) {
     return beam<bf16>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                      window, stream);
+                      window, dh, stream);
 }
 
 extern "C" int beam_self_attention_f32(const void* q, const void* knew, const void* vnew,
                                        void* kc, void* vc, const void* key_start,
                                        const void* anc, int G, void* out, int B, int H,
-                                       int n_ctx, int layer, int pos, int window,
+                                       int n_ctx, int layer, int pos, int window, int dh,
                                        void* stream) {
     return beam<float>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                       window, stream);
+                       window, dh, stream);
 }
 
 // The append entry points without k_new/v_new: slot pos of both caches was
@@ -432,15 +458,15 @@ extern "C" int beam_self_attention_f32(const void* q, const void* knew, const vo
 // and writes nothing but out.
 extern "C" int self_attention_fused_bf16(const void* q, void* kc, void* vc,
                                          const void* key_start, void* out, int B, int H,
-                                         int n_ctx, int layer, int pos, int window,
+                                         int n_ctx, int layer, int pos, int window, int dh,
                                          void* stream) {
-    return fused<bf16>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, stream);
+    return fused<bf16>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, stream);
 }
 
 extern "C" int self_attention_fused_f32(const void* q, void* kc, void* vc, const void* key_start,
                                         void* out, int B, int H, int n_ctx, int layer, int pos,
-                                        int window, void* stream) {
-    return fused<float>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, stream);
+                                        int window, int dh, void* stream) {
+    return fused<float>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, stream);
 }
 
 // As the fused entry points, over a cache in q's dtype (ksc, vsc null) or
@@ -448,21 +474,21 @@ extern "C" int self_attention_fused_f32(const void* q, void* kc, void* vc, const
 extern "C" int self_attention_step_bf16(const void* q, void* kc, void* vc, const void* ksc,
                                         const void* vsc, const void* key_start, void* out,
                                         int B, int H, int n_ctx, int layer, int pos, int window,
-                                        void* stream) {
+                                        int dh, void* stream) {
     return ksc ? step<bf16, int8_t>(q, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer,
-                                    pos, window, stream)
+                                    pos, window, dh, stream)
                : step<bf16, bf16>(q, kc, vc, nullptr, nullptr, key_start, out, B, H, n_ctx,
-                                  layer, pos, window, stream);
+                                  layer, pos, window, dh, stream);
 }
 
 extern "C" int self_attention_step_f32(const void* q, void* kc, void* vc, const void* ksc,
                                        const void* vsc, const void* key_start, void* out, int B,
-                                       int H, int n_ctx, int layer, int pos, int window,
+                                       int H, int n_ctx, int layer, int pos, int window, int dh,
                                        void* stream) {
     return ksc ? step<float, int8_t>(q, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer,
-                                     pos, window, stream)
+                                     pos, window, dh, stream)
                : step<float, float>(q, kc, vc, nullptr, nullptr, key_start, out, B, H, n_ctx,
-                                    layer, pos, window, stream);
+                                    layer, pos, window, dh, stream);
 }
 
 // The beam entry points over an int8 cache with f32 scales ksc, vsc
@@ -470,17 +496,17 @@ extern "C" int self_attention_step_f32(const void* q, void* kc, void* vc, const 
 extern "C" int beam_self_attention_int8_bf16(const void* q, void* kc, void* vc, const void* ksc,
                                              const void* vsc, const void* key_start,
                                              const void* anc, int G, void* out, int B, int H,
-                                             int n_ctx, int layer, int pos, int window,
+                                             int n_ctx, int layer, int pos, int window, int dh,
                                              void* stream) {
     return beam_int8<bf16>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                           window, stream);
+                           window, dh, stream);
 }
 
 extern "C" int beam_self_attention_int8_f32(const void* q, void* kc, void* vc, const void* ksc,
                                             const void* vsc, const void* key_start,
                                             const void* anc, int G, void* out, int B, int H,
-                                            int n_ctx, int layer, int pos, int window,
+                                            int n_ctx, int layer, int pos, int window, int dh,
                                             void* stream) {
     return beam_int8<float>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                            window, stream);
+                            window, dh, stream);
 }

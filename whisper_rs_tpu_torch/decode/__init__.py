@@ -1,19 +1,24 @@
-"""Window decode, greedy and beam search: filters, prompts, the step loops
-and ranking."""
+"""Window decode, greedy and beam search: filters, prompts, the step loops,
+ranking, ``DecodeTask`` and language identification."""
 
 from .filters import FilterConfig, apply_filters
+from .language import detect_language
 from .loop import DecodeResult, decode_beam, decode_greedy
 from .prompt import PREFILL_BUCKETS, build_batch_prompts, prefill_bucket
 from .ranker import rank_max_likelihood
+from .task import DecodeOutput, DecodeTask
 
 __all__ = [
     "PREFILL_BUCKETS",
+    "DecodeOutput",
     "DecodeResult",
+    "DecodeTask",
     "FilterConfig",
     "apply_filters",
     "build_batch_prompts",
     "decode_beam",
     "decode_greedy",
+    "detect_language",
     "prefill_bucket",
     "rank_max_likelihood",
 ]

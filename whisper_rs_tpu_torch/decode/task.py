@@ -1,0 +1,164 @@
+"""DecodeTask: one batch of 30 s windows, from prompts to text (counterpart
+of ``whisper_rs_tpu/decode/task.py``).
+
+The filter stack is assembled once from ``DecodeOptions`` and the
+tokenizer; a run builds the end-aligned prompts of its rows
+(``build_batch_prompts``, per-row ``key_start``), decodes through
+``decode_greedy`` or ``decode_beam`` on the model's device, ranks the
+candidates and detokenizes the chosen one of each audio.  Temperature
+sampling and the audio features for word alignment are not ported: a
+temperature above 0 and ``keep_audio_features`` raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import DecodeOptions, GreedyMode
+from ..models.whisper import Whisper
+from ..tokenize import Tokenizer
+from .filters import FilterConfig
+from .loop import decode_beam, decode_greedy
+from .prompt import build_batch_prompts
+from .ranker import rank_max_likelihood
+
+
+@dataclasses.dataclass
+class DecodeOutput:
+    """One audio's result: the sampled tokens (``sample_begin`` up to the
+    EOT), their text, the average log-probability of the chosen candidate
+    and the no-speech probability."""
+
+    tokens: np.ndarray
+    text: str
+    avg_logprob: float
+    no_speech_prob: float
+
+
+class DecodeTask:
+    """Decodes windows with ``model`` (on its device): greedy at temperature
+    0 or beam search, as ``options.mode`` says.  ``kernels``,
+    ``step_kernel`` (greedy only) and ``quantize_kv`` pass through to the
+    decode loop."""
+
+    def __init__(
+        self,
+        model: Whisper,
+        tokenizer: Tokenizer,
+        options: DecodeOptions = DecodeOptions(),
+        *,
+        keep_audio_features: bool = False,
+        quantize_kv: bool = False,
+        kernels: bool = True,
+        step_kernel: str = "append",
+    ):
+        if keep_audio_features:
+            raise NotImplementedError(
+                "keep_audio_features serves word-level alignment, which is not ported"
+            )
+        dims = model.dims
+        self.model = model
+        self.dims = dims
+        self.tokenizer = tokenizer
+        self.options = options
+        self.quantize_kv = quantize_kv
+        self.kernels = kernels
+        self.step_kernel = step_kernel
+
+        suppress: tuple = tuple(options.suppress_tokens or ())
+        if options.suppress_non_speech:
+            suppress = tuple(sorted(set(suppress) | set(tokenizer.non_speech_tokens())))
+        max_initial_ts_index = None
+        if options.timestamps and options.max_initial_timestamp is not None:
+            precision = 30.0 / dims.n_audio_ctx  # 0.02 s a timestamp step
+            max_initial_ts_index = int(round(options.max_initial_timestamp / precision))
+        self.filter_cfg = FilterConfig(
+            n_vocab=dims.n_vocab,
+            token_id_eot=tokenizer.token_id_eot,
+            token_id_space=tokenizer.token_id_space,
+            token_id_ts_begin=tokenizer.token_id_ts_begin,
+            token_id_no_timestamps=tokenizer.token_id_no_timestamps,
+            suppress_blank=options.suppress_blank,
+            timestamps=options.timestamps,
+            suppress_ids=suppress,
+            max_initial_timestamp_index=max_initial_ts_index,
+        )
+        self.sample_len = (
+            options.sample_len if options.sample_len is not None else dims.sample_len_default
+        )
+        self._prompt_tokens: Optional[List[int]] = None
+
+    def set_prompt(self, prompt: Optional[Sequence[int]]) -> None:
+        """The prompt of every row of the next ``run`` (None or empty: none)."""
+        self._prompt_tokens = list(prompt) if prompt is not None and len(prompt) else None
+
+    def run(self, mel, temperature: Optional[float] = None) -> List[DecodeOutput]:
+        """mel [n_mels, 3000] or [n_audio, n_mels, 3000] (numpy or tensor)
+        -> one DecodeOutput per audio, every row prompted with the current
+        prompt (``set_prompt``)."""
+        mel = torch.as_tensor(mel)
+        if mel.ndim == 2:
+            mel = mel[None]
+        return self.run_batch(mel, [self._prompt_tokens] * mel.shape[0], temperature=temperature)
+
+    def run_batch(self, mel, prompts, temperature: Optional[float] = None) -> List[DecodeOutput]:
+        """Decode of [n_audio, n_mels, 3000] with a prompt per row (a token
+        sequence, or None): the prompts end-aligned into one prefill bucket,
+        each row masked from its own ``key_start``.  ``temperature`` 0 (or
+        None) is greedy's argmax; above 0 it raises, as sampling is not
+        ported."""
+        mel = torch.as_tensor(mel)
+        if mel.ndim == 2:
+            mel = mel[None]
+        n_audio = mel.shape[0]
+        if len(prompts) != n_audio:
+            raise ValueError(f"{len(prompts)} prompts for {n_audio} audios")
+        mode = self.options.mode
+        greedy = isinstance(mode, GreedyMode)
+        if temperature is not None:
+            if not greedy:
+                raise ValueError("a temperature override applies to greedy decoding only")
+            if temperature > 0.0:
+                raise NotImplementedError(
+                    "temperature sampling is not ported: the reference's noise comes from JAX "
+                    "threefry, which torch cannot reproduce"
+                )
+        tok = self.tokenizer
+        tokens, key_start, sample_begin, sot_idx = build_batch_prompts(
+            prompts, tok.sequence_sot(), tok.token_id_sot, tok.token_id_startofprev,
+            self.dims.n_text_ctx,
+        )
+        args = (self.model, mel.to(self.model.device), tokens, sample_begin, sot_idx,
+                self.filter_cfg, mode, self.sample_len, tok.token_id_no_speech)
+        kwargs = dict(key_start=key_start, kernels=self.kernels, quantize_kv=self.quantize_kv)
+        if greedy:
+            result = decode_greedy(*args, step_kernel=self.step_kernel, **kwargs)
+        else:
+            result = decode_beam(*args, **kwargs)
+        selected, avg_logprob, lengths = rank_max_likelihood(
+            result, sample_begin, tok.token_id_eot, self.options.length_penalty
+        )
+        return self._assemble(result, selected, avg_logprob, lengths, sample_begin)
+
+    def _assemble(self, result, selected, avg_logprob, lengths,
+                  sample_begin: int) -> List[DecodeOutput]:
+        candidates = result.candidates.cpu().numpy()
+        selected = selected.cpu().numpy()
+        avg_logprob = avg_logprob.cpu().numpy()
+        lengths = lengths.cpu().numpy()
+        no_speech = result.no_speech_probs.float().cpu().numpy()
+        outputs = []
+        for i in range(candidates.shape[0]):
+            sel = int(selected[i])
+            toks = candidates[i, sel, sample_begin : sample_begin + int(lengths[i, sel])]
+            outputs.append(DecodeOutput(
+                tokens=toks,
+                text=self.tokenizer.decode(toks),
+                avg_logprob=float(avg_logprob[i]),
+                no_speech_prob=float(no_speech[i]),
+            ))
+        return outputs

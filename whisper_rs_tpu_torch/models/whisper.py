@@ -27,7 +27,14 @@ every width-1 decoder pass takes the cross-attention kernel of
     JAX package's ``WHISPER_FUSED_SELF=ctx``);
   * ``"layer"``: after the embedding, one launch of the whole-step kernel
     of ``ops/decoder_layer_fused.py`` runs every layer, then the final
-    LayerNorm and the logits (the JAX ``WHISPER_PALLAS_DECODE=layer``).
+    LayerNorm and the logits (the JAX ``WHISPER_PALLAS_DECODE=layer``); a
+    step whose shape ``layer_kernel_takes`` refuses takes the append route
+    instead, as the JAX loop takes the layered step.
+
+The encoder's self-attention takes the merged-layout kernel where
+``ops.encoder_attention.merged_kernel_takes`` the shape, else the
+split-layout one; on the card a kernel wrapper raises on a shape its
+predicate refuses, and never runs its plain version (``ops/__init__.py``).
 
 A beam step (``ancestors`` given) takes the beam self-attention kernel in
 the append kernel's place: it writes the column the same way and reads
@@ -78,13 +85,21 @@ from ..ops.decode_attention import (
     self_attention_step,
     self_attention_step_plain,
 )
+from ..ops import LAUNCHES
 from ..ops.decoder_layer_fused import (
     decoder_step_fused,
     decoder_step_fused_plain,
     decoder_step_weights,
+    layer_kernel_takes,
 )
 from ..ops.decoder_mlp_fused import decoder_mlp_step, decoder_mlp_step_plain, gelu
-from ..ops.encoder_attention import encoder_attention_merged, encoder_attention_merged_plain
+from ..ops.encoder_attention import (
+    encoder_attention_merged,
+    encoder_attention_merged_plain,
+    encoder_attention_split,
+    encoder_attention_split_plain,
+    merged_kernel_takes,
+)
 from ..ops.encoder_fused import ln_fused, ln_fused_plain, residual_ln, residual_ln_plain
 
 
@@ -293,11 +308,20 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(n_state, n_state)
 
     def encoder_self(self, x_ln: torch.Tensor, kernels: bool) -> torch.Tensor:
-        """Full non-causal self-attention on merged heads (the encoder's)."""
-        dh = x_ln.shape[-1] // self.n_head
-        fn = encoder_attention_merged if kernels else encoder_attention_merged_plain
-        out = fn(self.query(x_ln), self.key(x_ln), self.value(x_ln), self.n_head, dh**-0.5)
-        return self.out(out)
+        """Full non-causal self-attention (the encoder's), routed as the JAX
+        encoder routes it: on merged heads where ``merged_kernel_takes`` the
+        shape (head dim 64, an even head count), else on split heads
+        ([B, T, D] -> [B, H, T, dh] and back; views, which the split kernel
+        reads at their strides)."""
+        H = self.n_head
+        dh = x_ln.shape[-1] // H
+        q, k, v = self.query(x_ln), self.key(x_ln), self.value(x_ln)
+        if merged_kernel_takes(H, dh):
+            fn = encoder_attention_merged if kernels else encoder_attention_merged_plain
+            return self.out(fn(q, k, v, H, dh**-0.5))
+        fn = encoder_attention_split if kernels else encoder_attention_split_plain
+        out = fn(*(split_heads(t, H) for t in (q, k, v)), dh**-0.5)
+        return self.out(merge_heads(out))
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -517,7 +541,10 @@ class TextDecoder(nn.Module):
         ``step_kernel`` picks an incremental greedy step's route (see the
         module docstring): ``"append"``, ``"ctx"`` or ``"layer"``; the last
         reads ``step_weights`` (``ops.decoder_layer_fused.
-        decoder_step_weights`` of ``self.blocks``), built here when None.
+        decoder_step_weights`` of ``self.blocks``), built here when None,
+        and takes the append route where ``layer_kernel_takes`` refuses the
+        step's shape (counted under ``"decoder_step_fused:append"`` when
+        ``kernels`` on the card).
         Over an int8 cache the append route takes ``self_attention_step``
         in the append kernel's place; ctx and layer refuse it
         (``check_route``).
@@ -552,6 +579,13 @@ class TextDecoder(nn.Module):
         if emb_scale is not None:
             emb = emb * emb_scale[tokens][..., None].to(dtype)
         x = emb + pos.to(dtype)
+        D = x.shape[-1]
+        if step_kernel == "layer" and not layer_kernel_takes(
+                B, cross_group, D // self.blocks[0].attn.n_head, cross_kv.kv.shape[-1],
+                cache.k.shape[3], D, x.element_size()):
+            if kernels and dev.type != "cpu":
+                LAUNCHES["decoder_step_fused:append"] += 1
+            step_kernel = "append"
         if step_kernel == "layer":
             if step_weights is None:
                 step_weights = decoder_step_weights(self.blocks)

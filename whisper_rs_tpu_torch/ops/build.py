@@ -7,7 +7,8 @@ edited source is rebuilt and an unchanged one is reused.  ``build_all``
 starts one nvcc per source at once and waits for all of them.
 
 Every C entry point takes device pointers and the CUDA stream as
-``c_void_p``, sizes as ``c_int``, launches on that stream and returns
+``c_void_p``, sizes as ``c_int`` (strides that may pass 2^31 as
+``c_longlong``), launches on that stream and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
 """
 
@@ -114,4 +115,5 @@ def check(library: str, symbol: str, err: int) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+I64 = ctypes.c_longlong
 F = ctypes.c_float

@@ -32,6 +32,11 @@ K/V column at slot ``pos`` already (as XLA does before the TPU kernel);
 the kernel reads slots ``key_start[b] <= j <= pos`` and writes only its
 output.  Its math is the append step's.
 
+Each kernel has its predicate: ``step_kernel_takes`` for the four step
+self-attention kernels (head dim 16 or 64, the instances of the CUDA
+bodies) and ``cross_kernel_takes`` for the cross kernel (head dim 16 or 64,
+Tk % 4 = 0, any G).  A call on the card that they refuse raises.
+
 ``cross_attention_step`` (``csrc/cross_attention.cu``): G query rows per
 audio share one encoder K/V, read from the fused layout
 ``kv [L, A, H, 2, dh, Tk]`` (K^T and V^T planes, see ``models.whisper.
@@ -46,12 +51,23 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, use_kernel
 from .build import I, P, check, kernel_function
 
-HEAD_DIM = 64
-MAX_GROUP = 8
+HEAD_DIMS = (16, 64)  # the head dims the CUDA step and cross kernels are built for
 NEG = -1e9  # finite mask value, as in the Pallas kernels
+
+
+def step_kernel_takes(head_dim: int) -> bool:
+    """Whether the step self-attention kernels (the append, beam, read-only
+    and fused steps) take this head dim: 16 or 64."""
+    return head_dim in HEAD_DIMS
+
+
+def cross_kernel_takes(head_dim: int, Tk: int) -> bool:
+    """Whether the cross kernel takes this head dim (16 or 64) and encoder
+    length (a multiple of 4); it takes any number of rows an audio."""
+    return head_dim in HEAD_DIMS and Tk % 4 == 0
 
 
 def _check_append_args(name, q, k_all, layer: int, pos: int, window: int):
@@ -87,13 +103,13 @@ def _check_scales(name, q, planes, k_scale, v_scale, shape) -> bool:
 
 
 def _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *extra):
-    """What the CUDA step kernels take: head dim 64; q, k_new, v_new (None
+    """What the CUDA step kernels take: q, k_new, v_new (None
     for the read-only steps) f32 or bf16 alike; the caches in q's dtype or
     int8; key_start int64 [B]; every tensor contiguous, 16-byte aligned and
     on q's device."""
     new = tuple(t for t in (k_new, v_new) if t is not None)
-    if k_all.shape[-1] != HEAD_DIM or any(t.shape != q.shape for t in new):
-        raise ValueError(f"{name}: q, k_new, v_new must be [B, H, {HEAD_DIM}] alike")
+    if k_all.shape[-1] != q.shape[-1] or any(t.shape != q.shape for t in new):
+        raise ValueError(f"{name}: q, k_new, v_new must be [B, H, dh] alike, the caches' dh")
     if v_all.shape != k_all.shape:
         raise ValueError(f"{name}: k_all {tuple(k_all.shape)} vs v_all {tuple(v_all.shape)}")
     cache_dtype = torch.int8 if k_all.dtype == torch.int8 else q.dtype
@@ -177,16 +193,15 @@ def self_attention_append_step(
     v_all: torch.Tensor, layer: int, pos: int, key_start=None, *, window: int,
 ) -> torch.Tensor:
     """One greedy step's self-attention at ``layer``, with this step's K/V
-    column written into the cache in place: the kernel on the card, the
-    plain version on the CPU.  q, k_new, v_new [B, H, dh] (q pre-scaled);
-    caches [L, B, H, n_ctx, dh]; ``key_start`` [B] int64 or None (zeros)."""
-    if q.device.type == "cpu":
+    column written into the cache in place: the kernel on the card (head dim
+    16 or 64, ``step_kernel_takes``; any other raises), the plain version
+    on the CPU.  q, k_new, v_new [B, H, dh] (q pre-scaled); caches [L, B, H,
+    n_ctx, dh]; ``key_start`` [B] int64 or None (zeros)."""
+    name = "self_attention_append_step"
+    if not use_kernel(name, step_kernel_takes(q.shape[-1]), q.device):
         return self_attention_append_step_plain(
             q, k_new, v_new, k_all, v_all, layer, pos, key_start, window=window
         )
-    name = "self_attention_append_step"
-    if not q.is_cuda:
-        raise ValueError(f"{name}: unsupported device {q.device}")
     _check_append_args(name, q, k_all, layer, pos, window)
     if k_all.dtype == torch.int8:
         raise ValueError(f"{name}: an int8 cache takes self_attention_step")
@@ -194,11 +209,12 @@ def self_attention_append_step(
     L, B, H, n_ctx, dh = k_all.shape
     out = torch.empty_like(q)
     symbol = "self_attention_append_bf16" if q.dtype == torch.bfloat16 else "self_attention_append_f32"
-    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, P))
+    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                                    P))
     err = fn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
         None if key_start is None else key_start.data_ptr(), out.data_ptr(),
-        B, H, n_ctx, int(layer), int(pos), int(window),
+        B, H, n_ctx, int(layer), int(pos), int(window), dh,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check("self_attention", symbol, err)
@@ -211,15 +227,14 @@ def self_attention_fused_step(
     key_start=None, *, window: int,
 ) -> torch.Tensor:
     """One greedy step's self-attention at ``layer`` over a cache whose slot
-    ``pos`` the caller has written: the kernel on the card, the plain
-    version on the CPU.  q [B, H, dh] pre-scaled; caches [L, B, H, n_ctx,
-    dh], read only; ``key_start`` [B] int64 or None (zeros)."""
-    if q.device.type == "cpu":
+    ``pos`` the caller has written: the kernel on the card (head dim 16 or
+    64, ``step_kernel_takes``), the plain version on the CPU.  q [B, H, dh]
+    pre-scaled; caches [L, B, H, n_ctx, dh], read only; ``key_start`` [B]
+    int64 or None (zeros)."""
+    name = "self_attention_fused_step"
+    if not use_kernel(name, step_kernel_takes(q.shape[-1]), q.device):
         return self_attention_fused_step_plain(q, k_all, v_all, layer, pos, key_start,
                                                window=window)
-    name = "self_attention_fused_step"
-    if not q.is_cuda:
-        raise ValueError(f"{name}: unsupported device {q.device}")
     _check_append_args(name, q, k_all, layer, pos, window)
     if k_all.dtype == torch.int8:
         raise ValueError(f"{name}: an int8 cache takes self_attention_step")
@@ -227,11 +242,11 @@ def self_attention_fused_step(
     L, B, H, n_ctx, dh = k_all.shape
     out = torch.empty_like(q)
     symbol = "self_attention_fused_bf16" if q.dtype == torch.bfloat16 else "self_attention_fused_f32"
-    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, I, I, I, I, I, I, P))
+    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, I, I, I, I, I, I, I, P))
     err = fn(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
         None if key_start is None else key_start.data_ptr(), out.data_ptr(),
-        B, H, n_ctx, int(layer), int(pos), int(window),
+        B, H, n_ctx, int(layer), int(pos), int(window), dh,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check("self_attention", symbol, err)
@@ -244,16 +259,15 @@ def self_attention_step(
     key_start=None, *, window: int, k_scale=None, v_scale=None,
 ) -> torch.Tensor:
     """One greedy step's self-attention at ``layer`` over a cache whose slot
-    ``pos`` the caller has written, read only: the kernel on the card, the
-    plain version on the CPU.  q [B, H, dh] pre-scaled; caches [L, B, H,
-    n_ctx, dh], int8 with ``k_scale``/``v_scale`` [L, B, H, n_ctx] f32, or
-    in q's dtype without them; ``key_start`` [B] int64 or None (zeros)."""
-    if q.device.type == "cpu":
+    ``pos`` the caller has written, read only: the kernel on the card (head
+    dim 16 or 64, ``step_kernel_takes``), the plain version on the CPU.  q
+    [B, H, dh] pre-scaled; caches [L, B, H, n_ctx, dh], int8 with
+    ``k_scale``/``v_scale`` [L, B, H, n_ctx] f32, or in q's dtype without
+    them; ``key_start`` [B] int64 or None (zeros)."""
+    name = "self_attention_step"
+    if not use_kernel(name, step_kernel_takes(q.shape[-1]), q.device):
         return self_attention_step_plain(q, k_all, v_all, layer, pos, key_start, window=window,
                                          k_scale=k_scale, v_scale=v_scale)
-    name = "self_attention_step"
-    if not q.is_cuda:
-        raise ValueError(f"{name}: unsupported device {q.device}")
     _check_append_args(name, q, k_all, layer, pos, window)
     scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
     scales = (k_scale, v_scale) if scaled else ()
@@ -261,12 +275,13 @@ def self_attention_step(
     L, B, H, n_ctx, dh = k_all.shape
     out = torch.empty_like(q)
     symbol = "self_attention_step_bf16" if q.dtype == torch.bfloat16 else "self_attention_step_f32"
-    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, P))
+    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                                    P))
     err = fn(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
         *((s.data_ptr() for s in scales) if scaled else (None, None)),
         None if key_start is None else key_start.data_ptr(), out.data_ptr(),
-        B, H, n_ctx, int(layer), int(pos), int(window),
+        B, H, n_ctx, int(layer), int(pos), int(window), dh,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check("self_attention", symbol, err)
@@ -327,23 +342,21 @@ def beam_self_attention_step(
     pos: int, key_start, anc_local: torch.Tensor, group: int, *, window: int, k_scale=None,
     v_scale=None,
 ) -> torch.Tensor:
-    """One beam step's self-attention at ``layer``, with this step's K/V
-    column written into the cache in place: the kernel on the card, the
-    plain version on the CPU.  q, k_new, v_new [B, H, dh] (q pre-scaled);
-    caches [L, B, H, n_ctx, dh]; ``key_start`` [B] int64 or None (zeros);
-    ``anc_local`` [B, n_ctx] int32 beam-local ancestors in [0, group), with
-    ``anc_local[b, pos] == b % group`` (the row's own fresh column).  An
-    int8 cache with ``k_scale``/``v_scale`` [L, B, H, n_ctx] f32 is read
-    only: the caller has written slot ``pos`` and its scales, and passes
-    k_new and v_new as None."""
-    if q.device.type == "cpu":
+    """One beam step's self-attention at ``layer``, with this step's K/V column
+    written into the cache in place: the kernel on the card (head dim 16 or
+    64, ``step_kernel_takes``), the plain version on the CPU.  q, k_new,
+    v_new [B, H, dh] (q pre-scaled); caches [L, B, H, n_ctx, dh]; ``key_start`` [B] int64
+    or None (zeros); ``anc_local`` [B, n_ctx] int32 beam-local ancestors in
+    [0, group), with ``anc_local[b, pos] == b % group`` (the row's own fresh
+    column).  An int8 cache with ``k_scale``/``v_scale`` [L, B, H, n_ctx]
+    f32 is read only: the caller has written slot ``pos`` and its scales,
+    and passes k_new and v_new as None."""
+    name = "beam_self_attention_step"
+    if not use_kernel(name, step_kernel_takes(q.shape[-1]), q.device):
         return beam_self_attention_step_plain(
             q, k_new, v_new, k_all, v_all, layer, pos, key_start, anc_local, group,
             window=window, k_scale=k_scale, v_scale=v_scale,
         )
-    name = "beam_self_attention_step"
-    if not q.is_cuda:
-        raise ValueError(f"{name}: unsupported device {q.device}")
     scaled = _check_beam_args(name, q, k_new, v_new, k_all, v_all, layer, pos, window, key_start,
                               anc_local, group, k_scale, v_scale)
     scales = (k_scale, v_scale) if scaled else ()
@@ -358,20 +371,20 @@ def beam_self_attention_step(
     if scaled:
         symbol = f"beam_self_attention_int8_{tag}"
         fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I,
-                                                        I, P))
+                                                        I, I, P))
         err = fn(
             q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), ks_ptr, anc_local.data_ptr(), int(group), out.data_ptr(), B, H,
-            n_ctx, int(layer), int(pos), int(window), stream,
+            n_ctx, int(layer), int(pos), int(window), dh, stream,
         )
     else:
         symbol = f"beam_self_attention_{tag}"
         fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I,
-                                                        I, P))
+                                                        I, I, P))
         err = fn(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
             ks_ptr, anc_local.data_ptr(), int(group), out.data_ptr(), B, H, n_ctx, int(layer),
-            int(pos), int(window), stream,
+            int(pos), int(window), dh, stream,
         )
     check("self_attention", symbol, err)
     LAUNCHES["beam_self_attention_step"] += 1
@@ -406,24 +419,21 @@ def cross_attention_step(
     q: torch.Tensor, kv_all: torch.Tensor, layer: int, *, k_scale=None, v_scale=None
 ) -> torch.Tensor:
     """Cross-attention for one decode step at ``layer``: the kernel on the
-    card, the plain version on the CPU.  q [A, G, H, dh] pre-scaled;
-    ``kv_all`` [L, A, H, 2, dh, Tk] in q's dtype, or int8 with f32
-    ``k_scale``/``v_scale`` [L, A, H, Tk]."""
-    if q.device.type == "cpu":
-        return cross_attention_step_plain(q, kv_all, layer, k_scale=k_scale, v_scale=v_scale)
+    card (``cross_kernel_takes``: head dim 16 or 64, any G; any other shape
+    raises), the plain version on the CPU.  q [A, G, H, dh] pre-scaled; ``kv_all``
+    [L, A, H, 2, dh, Tk] in q's dtype, or int8 with f32 ``k_scale``/
+    ``v_scale`` [L, A, H, Tk]."""
     name = "cross_attention_step"
-    if not q.is_cuda:
-        raise ValueError(f"{name}: unsupported device {q.device}")
+    if not use_kernel(name, cross_kernel_takes(kv_all.shape[-2], kv_all.shape[-1]), q.device):
+        return cross_attention_step_plain(q, kv_all, layer, k_scale=k_scale, v_scale=v_scale)
     A, G, H, dh = q.shape
     L, A2, H2, two, dh2, Tk = kv_all.shape
-    if (A2, H2, two, dh2) != (A, H, 2, dh) or dh != HEAD_DIM:
-        raise ValueError(
-            f"{name}: q {tuple(q.shape)} vs kv {tuple(kv_all.shape)} (head dim must be {HEAD_DIM})"
-        )
+    if (A2, H2, two, dh2) != (A, H, 2, dh):
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs kv {tuple(kv_all.shape)}")
     if not 0 <= layer < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
-    if not 1 <= G <= MAX_GROUP or Tk % 4:
-        raise ValueError(f"{name}: needs 1 <= G <= {MAX_GROUP}, Tk % 4 == 0")
+    if G < 1:
+        raise ValueError(f"{name}: needs G >= 1, got {G}")
     scaled = _cross_scales(name, q, kv_all, k_scale, v_scale)
     if q.dtype not in (torch.float32, torch.bfloat16) or (
             kv_all.dtype != (torch.int8 if scaled else q.dtype)):
@@ -438,13 +448,14 @@ def cross_attention_step(
     tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
     if scaled:
         symbol = f"cross_attention_int8_{tag}"
-        fn = kernel_function("cross_attention", symbol, (P, P, P, P, P, I, I, I, I, I, P))
+        fn = kernel_function("cross_attention", symbol, (P, P, P, P, P, I, I, I, I, I, I, P))
         err = fn(q.data_ptr(), kv_all.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                 out.data_ptr(), A, G, H, Tk, int(layer), stream)
+                 out.data_ptr(), A, G, H, Tk, int(layer), dh, stream)
     else:
         symbol = f"cross_attention_{tag}"
-        fn = kernel_function("cross_attention", symbol, (P, P, P, I, I, I, I, I, P))
-        err = fn(q.data_ptr(), kv_all.data_ptr(), out.data_ptr(), A, G, H, Tk, int(layer), stream)
+        fn = kernel_function("cross_attention", symbol, (P, P, P, I, I, I, I, I, I, P))
+        err = fn(q.data_ptr(), kv_all.data_ptr(), out.data_ptr(), A, G, H, Tk, int(layer), dh,
+                 stream)
     check("cross_attention", symbol, err)
     LAUNCHES["cross_attention_step"] += 1
     return out

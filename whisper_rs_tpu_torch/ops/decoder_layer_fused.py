@@ -27,8 +27,12 @@ packed the weights into one [L, 2, n, 8n] stream because one wide DMA ran
 full rate, and the copy would take 705 MB more device memory at medium.en
 bf16 and a copy pass per decode.
 
-The kernel's shape check stands in for the TPU's VMEM gate: it raises on
-what the kernel cannot take, and never falls back to the plain version.
+``layer_kernel_takes`` is the kernel's routing predicate, in the place of
+the TPU's VMEM gate (``layer_fused_ok``): where it refuses a shape, the
+decoder runs that step through the append route instead, as the JAX loop
+runs the layered step (``models.whisper.TextDecoder.forward`` counts it under
+``"decoder_step_fused:append"``).  The wrapper itself raises on a shape the
+predicate refuses, and never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -39,10 +43,11 @@ import torch
 
 from . import LAUNCHES
 from .build import F, I, P, check, kernel_function
-from .decode_attention import HEAD_DIM, NEG
+from .decode_attention import NEG
 from .decoder_mlp_fused import gelu
 from .encoder_fused import ln_fused_plain
 
+HEAD_DIM = 64  # the whole-step kernel's only head dim
 MAX_ROWS = 16  # rows a launch takes (one warp a row in the LayerNorms)
 GROUPS = (1, 2, 4, 8)  # rows an audio in the cross-attention
 SMEM_LIMIT = 220 * 1024  # dynamic shared memory a block may take, bytes
@@ -90,6 +95,21 @@ def decoder_step_weights(blocks) -> DecoderStepWeights:
         [[t.data_ptr() for t in layer] for layer in layers], dtype=torch.int64
     ).to(first.device)
     return DecoderStepWeights(tuple(layers), table)
+
+
+def _smem_bytes(rows: int, d_model: int, itemsize: int, group: int, Tk: int, n_ctx: int) -> int:
+    """The kernel's dynamic shared memory: the largest of the staged rows
+    [B, 4D], the cross scores [G, Tk] f32 and the self scores [n_ctx] f32."""
+    return max(rows * 4 * d_model * itemsize, group * Tk * 4, n_ctx * 4)
+
+
+def layer_kernel_takes(rows: int, group: int, head_dim: int, Tk: int, n_ctx: int,
+                       d_model: int, itemsize: int) -> bool:
+    """Whether the whole-step kernel takes a step of ``rows`` rows in groups
+    of ``group``: head dim 64, at most 16 rows, groups of 1, 2, 4 or 8,
+    Tk % 4 = 0, and its shared memory within a block's."""
+    return (head_dim == HEAD_DIM and rows <= MAX_ROWS and group in GROUPS and Tk % 4 == 0
+            and _smem_bytes(rows, d_model, itemsize, group, Tk, n_ctx) <= SMEM_LIMIT)
 
 
 def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -192,16 +212,13 @@ def decoder_step_fused(
     B, D = x.shape
     L, _, H, n_ctx, dh = k_cache.shape
     Tk = cross_kv.shape[-1]
-    if dh != HEAD_DIM or B > MAX_ROWS or group not in GROUPS or Tk % 4:
+    if not layer_kernel_takes(B, group, dh, Tk, n_ctx, D, x.element_size()):
         raise ValueError(
             f"{name}: the kernel takes head dim {HEAD_DIM}, at most {MAX_ROWS} rows, groups of "
-            f"{GROUPS} and Tk % 4 == 0; got dh {dh}, {B} rows, group {group}, Tk {Tk}"
+            f"{GROUPS}, Tk % 4 == 0 and {SMEM_LIMIT} bytes of shared memory a block; got dh "
+            f"{dh}, {B} rows, group {group}, Tk {Tk}, "
+            f"{_smem_bytes(B, D, x.element_size(), group, Tk, n_ctx)} bytes"
         )
-    # the kernel's dynamic shared memory: the largest of the staged rows
-    # [B, 4D], the cross scores [G, Tk] f32 and the self scores [n_ctx] f32
-    smem = max(B * 4 * D * x.element_size(), group * Tk * 4, n_ctx * 4)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory a block, over {SMEM_LIMIT}")
     tensors = [x, cross_kv, k_cache, v_cache]  # the weights were checked once, when built
     dtypes = [t.dtype for t in tensors] + [weights.layers[0][0].dtype]
     if x.dtype not in (torch.float32, torch.bfloat16) or any(d != x.dtype for d in dtypes):

@@ -17,10 +17,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES
+from . import LAUNCHES, use_kernel
 from .build import I, P, check, kernel_function
 
-CHUNK = 128  # the kernel walks D in chunks of 128
+ROWS_A_BLOCK = 8  # weight rows a block of the kernel: 4 warps of 2
+
+
+def mlp_kernel_takes(d_model: int) -> bool:
+    """Whether the MLP kernel takes this width: D a multiple of 8 (whole
+    blocks of rows over D and 4D; a D that is not a multiple of the
+    kernel's 128-wide chunks takes its tail instance)."""
+    return d_model >= ROWS_A_BLOCK and d_model % ROWS_A_BLOCK == 0
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -37,21 +44,18 @@ def decoder_mlp_step_plain(h, w1, b1, w2) -> torch.Tensor:
 
 
 def decoder_mlp_step(h, w1, b1, w2) -> torch.Tensor:
-    """The decode step's MLP without the fc2 bias: the kernel on the card,
-    the plain version on the CPU."""
-    if h.device.type == "cpu":
-        return decoder_mlp_step_plain(h, w1, b1, w2)
+    """The decode step's MLP without the fc2 bias: the kernel on the card
+    (``mlp_kernel_takes``: D a multiple of 8; any other raises), the plain
+    version on the CPU."""
     name = "decoder_mlp_step"
-    if not h.is_cuda:
-        raise ValueError(f"{name}: unsupported device {h.device}")
+    if not use_kernel(name, mlp_kernel_takes(h.shape[-1]), h.device):
+        return decoder_mlp_step_plain(h, w1, b1, w2)
     B, D = h.shape
     if w1.shape != (4 * D, D) or b1.shape != (4 * D,) or w2.shape != (D, 4 * D):
         raise ValueError(
             f"{name}: h {tuple(h.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
             f"w2 {tuple(w2.shape)}"
         )
-    if D % CHUNK:
-        raise ValueError(f"{name}: needs D % {CHUNK} == 0, got D = {D}")
     tensors = (h, w1, b1, w2)
     if h.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != h.dtype for t in tensors):
         raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}")

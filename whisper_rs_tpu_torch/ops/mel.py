@@ -1,11 +1,13 @@
-"""Log-mel frontend for exact 30 s windows: CUDA kernel, its plain version,
-and the router ``log_mel_frontend`` (counterpart of
-``whisper_rs_tpu/ops/mel_pallas.py``).
+"""Log-mel frontend: CUDA kernel, its plain version, the router
+``log_mel_frontend`` for 30 s windows and the whole-file ``log_mel_file``
+(counterpart of ``whisper_rs_tpu/ops/mel_pallas.py``).
 
 ``raw_log10_mel`` is the kernel (``csrc/mel.cu``): reflect-padded audio
-[B, 480400] -> log10 mel [B, n_mels, 3000], before the dynamic-range floor.
-The reflect padding and the per-utterance ``max - 8`` floor and ``(x+4)/4``
-scale stay plain PyTorch around it.
+rows [B, 480400] (a row pitch of its own, so the overlapping chunks of one
+padded file are a strided view) -> log10 mel [B, n_mels, 3000], before the
+dynamic-range floor.  The reflect padding and the ``max - 8`` floor and
+``(x+4)/4`` scale stay plain PyTorch around it: per utterance for windows,
+over the whole file for ``log_mel_file``.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ def raw_log10_mel_plain(padded: torch.Tensor, n_mels: int) -> torch.Tensor:
 def raw_log10_mel(padded: torch.Tensor, n_mels: int) -> torch.Tensor:
     """log10 mel of reflect-padded 30 s windows, [B, 480400] f32 ->
     [B, n_mels, 3000] f32: the kernel on the card, the plain version on the
-    CPU."""
+    CPU.  The rows may be a strided view with unit stride along a row
+    (overlapping rows included)."""
     if padded.device.type == "cpu":
         return raw_log10_mel_plain(padded, n_mels)
     if not padded.is_cuda:
@@ -64,15 +67,15 @@ def raw_log10_mel(padded: torch.Tensor, n_mels: int) -> torch.Tensor:
             f"raw_log10_mel wants [B, {PADDED_LEN}] float32, got "
             f"{tuple(padded.shape)} {padded.dtype}"
         )
-    if not padded.is_contiguous():
-        raise ValueError("raw_log10_mel: padded audio must be contiguous")
+    if padded.stride(1) != 1 or padded.stride(0) < 1:
+        raise ValueError("raw_log10_mel: each row of padded audio must be contiguous")
     wcos, wsin, fb = _constants_on(padded.device, n_mels)
     B = padded.shape[0]
     out = torch.empty((B, n_mels, N_FRAMES), dtype=torch.float32, device=padded.device)
     fn = kernel_function("mel", "log_mel_f32", (P, P, P, P, P, I, I, I, P))
     err = fn(
         padded.data_ptr(), wcos.data_ptr(), wsin.data_ptr(), fb.data_ptr(),
-        out.data_ptr(), B, n_mels, PADDED_LEN,
+        out.data_ptr(), B, n_mels, padded.stride(0),
         torch.cuda.current_stream(padded.device).cuda_stream,
     )
     check("mel", "log_mel_f32", err)
@@ -97,6 +100,35 @@ def log_mel_windows(audio: torch.Tensor, n_mels: int = 80, *, dtype=torch.float3
         raise ValueError(f"log_mel_windows expects 30 s windows, got {a.shape[-1]} samples")
     out = _floor_and_scale(raw_log10_mel(reflect_pad(a).contiguous(), n_mels), dtype)
     return out[0] if squeeze else out
+
+
+def log_mel_file(
+    audio, n_mels: int = 80, *, dtype=torch.float32, device=None, kernels: bool = True
+) -> torch.Tensor:
+    """Whole-file log-mel [n_samples] (numpy or tensor) -> [n_mels,
+    n_samples // 160] on ``device`` (``cuda`` unless named), as the JAX
+    ``log_mel_file`` computes it: the file zero-padded to a whole number C
+    of 30 s buckets and reflect-padded once; C chunks of 480400 samples cut
+    from it with true-sample halos (chunk c is ``padded[c 480000 :
+    c 480000 + 480400]``, a strided view, so a chunk's last frames read the
+    next chunk's samples and only the file's two ends are reflected); one
+    batch of C through ``raw_log10_mel`` (the kernel when ``kernels`` on the
+    card); the floor at the whole file's max - 8 and the scale; then the
+    true frame count."""
+    dev = resolve_device(device)
+    a = torch.as_tensor(audio, dtype=torch.float32).to(dev)
+    if a.ndim != 1:
+        raise ValueError(f"log_mel_file takes one file [n_samples], got {tuple(a.shape)}")
+    n = a.shape[0]
+    C = max(1, -(-n // N_SAMPLES))
+    buf = torch.zeros(C * N_SAMPLES, dtype=torch.float32, device=dev)
+    buf[:n] = a
+    padded = reflect_pad(buf[None])[0]  # [C 480000 + 400]
+    chunks = padded.as_strided((C, PADDED_LEN), (N_SAMPLES, 1))
+    raw = (raw_log10_mel if kernels else raw_log10_mel_plain)(chunks, n_mels)
+    mel = raw.transpose(0, 1).reshape(n_mels, C * N_FRAMES)
+    floor = mel.amax() - 8.0  # over every bucket frame of the file
+    return ((torch.maximum(mel, floor) + 4.0) / 4.0).to(dtype)[:, : n // HOP_LENGTH]
 
 
 def log_mel_frontend(
