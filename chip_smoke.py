@@ -70,6 +70,12 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               64; off the path, the fused and read-only steps and the int8
               branches); on the main path every kernel at base.en batch 1,
               beam 5;
+              row 4 is also compared with n_valid < T; rows 4, 6 and 8 in
+              bf16 are called twice on the same inputs and must give
+              bit-identical outputs; row 8 is timed hot and cold in L2 (rotating
+              through n_text_layer weight sets, its library call the same
+              way) and checked at 129 rows of base.en, past its widest
+              batch tile;
   4. parity   f32, 4 seeded 30 s windows, through the kernels and through
               the plain versions: base.en at full width, and large-v3 at
               full width with the depth cut to 4 + 4 layers, log_mel_frontend
@@ -477,13 +483,24 @@ def kernel_checks(dims, B: int, dtypes, group: int = 1) -> dict:
             split = lambda t: t.view(B, T, H, dh).transpose(1, 2)
             return F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale)
 
-        rows["encoder_attention_merged"][tag] = check_kernel(
+        # keys past n_valid masked: compared, not timed
+        nv = T - 37
+        masked = compare(f"encoder_attention_merged {tag} n_valid {nv}",
+                         (encoder_attention_merged(q, k, v, H, scale, nv),),
+                         (encoder_attention_merged_plain(q, k, v, H, scale, nv),),
+                         tolerance("encoder_attention_merged", dtype))
+        row = rows["encoder_attention_merged"][tag] = check_kernel(
             "encoder_attention_merged", dtype,
             lambda: encoder_attention_merged(q, k, v, H, scale),
             lambda: encoder_attention_merged_plain(q, k, v, H, scale),
             sdpa, nbytes=4 * q.numel() * isz, flops=4 * B * T * T * D,
             reps=3 if dtype == torch.float32 else 10, graph=False,
         )
+        row["max_abs_err"] = max(row["max_abs_err"], masked[0])
+        row["tol_share"] = max(row["tol_share"], masked[1])
+        if dtype == torch.bfloat16:
+            check_deterministic("encoder_attention_merged",
+                                lambda: encoder_attention_merged(q, k, v, H, scale), row)
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -811,26 +828,51 @@ def time_beam_ranking(dims, A: int, G: int, randn) -> None:
           f"{ms_sort:.4f} ms a step (eager; torch.topk {ms_topk:.4f} ms)", flush=True)
 
 
+def check_deterministic(name: str, kernel, row: dict) -> None:
+    """Two calls of ``kernel`` on the same inputs must give bit-identical
+    outputs (the redesigned kernels sum in a fixed order, with no atomics);
+    recorded in ``row`` as ``bit_identical``."""
+    a, b = kernel(), kernel()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    row["bit_identical"] = True
+    print(f"  {name}: two calls bit-identical", flush=True)
+
+
 def check_mlp(dims, B: int, dtype, randn) -> dict:
     """The fused decode MLP at the step shapes: unit-scale h [B, D],
-    weights N(0, 1/n_in) as in init_random, b1 N(0, 0.1^2)."""
-    D = dims.n_text_state
+    weights N(0, 1/n_in) as in init_random, b1 N(0, 0.1^2).  In bf16 also
+    two calls bit-identical, and the kernel and the library calls timed
+    cold in L2 (``cold_ms``, ``library_cold_ms``): rotating through
+    n_text_layer weight sets, as a decode step finds a layer's weights (a
+    medium.en layer's 16.8 MB and a large-v3 layer's 26 MB stay resident in
+    the 50 MB L2 when one set is replayed)."""
+    D, L = dims.n_text_state, dims.n_text_layer
     isz = torch.tensor([], dtype=dtype).element_size()
     h = randn(B, D, dtype=dtype)
-    w1 = randn(4 * D, D, dtype=dtype, scale=D**-0.5)
-    b1 = randn(4 * D, dtype=dtype, scale=0.1)
-    w2 = randn(D, 4 * D, dtype=dtype, scale=(4 * D) ** -0.5)
+    layers = [(randn(4 * D, D, dtype=dtype, scale=D**-0.5), randn(4 * D, dtype=dtype, scale=0.1),
+               randn(D, 4 * D, dtype=dtype, scale=(4 * D) ** -0.5))
+              for _ in range(L if dtype == torch.bfloat16 else 1)]
+    w1, b1, w2 = layers[0]
     approximate = "none" if dtype == torch.float32 else "tanh"
 
-    def three_calls():  # F.linear -> F.gelu -> F.linear
+    def three_calls(w1=w1, b1=b1, w2=w2):  # F.linear -> F.gelu -> F.linear
         return F.linear(F.gelu(F.linear(h, w1, b1), approximate=approximate), w2)
 
-    return check_kernel(
+    row = check_kernel(
         "decoder_mlp_step", dtype,
         lambda: decoder_mlp_step(h, w1, b1, w2), lambda: decoder_mlp_step_plain(h, w1, b1, w2),
         three_calls, nbytes=(8 * D * D + 4 * D + 2 * B * D) * isz, flops=16 * B * D * D,
         reps=50,
     )
+    if dtype == torch.bfloat16:
+        check_deterministic("decoder_mlp_step", lambda: decoder_mlp_step(h, w1, b1, w2), row)
+        layer = rotating(L)
+        row["cold_ms"] = timed_ms(lambda: decoder_mlp_step(h, *layers[layer()]), 50, True)
+        row["library_cold_ms"] = timed_ms(lambda: three_calls(*layers[layer()]), 50, True)
+        print(f"    cold in L2 (rotating {L} weight sets): kernel {row['cold_ms']:.4f} ms | "
+              f"library {row['library_cold_ms']:.4f} ms", flush=True)
+    return row
 
 
 def random_decoder(dims, n_layer: int, dtype, gen, device) -> TextDecoder:
@@ -1654,9 +1696,32 @@ def check_split_attention(shape, dtype, randn) -> dict:
         nbytes=4 * q.numel() * isz, flops=4 * B * H * T * T * dh,
         reps=20 if small else (3 if dtype == torch.float32 else 10), graph=small, checked=worst,
     )
+    if dtype == torch.bfloat16:
+        check_deterministic(name, lambda: encoder_attention_split(q, k, v, scale), row)
     del q, k, v
     torch.cuda.empty_cache()
     return row
+
+
+# row 8 past the bf16 kernel's widest batch tile (48 columns): base.en at
+# 129 rows takes three batch tiles; checked in the kernels phase only
+MLP_TILES_LABEL = "base.en b129 MLP batch tiles"
+
+
+def kernel_checks_mlp_tiles(rows: dict) -> None:
+    """Row 8 at 129 rows of base.en, in f32 and bf16, into ``rows``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    rows[MLP_TILES_LABEL] = {name: {} for name in KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] decoder_mlp_step ({tag}, base.en, 129 rows)", flush=True)
+        rows[MLP_TILES_LABEL]["decoder_mlp_step"][tag] = check_mlp(dims_for("base.en"), 129,
+                                                                   dtype, randn)
 
 
 def kernel_checks_transcribe(rows: dict) -> None:
@@ -2021,12 +2086,14 @@ def transcribe_main_path() -> dict:
 OWN_KERNELS = {
     "log_mel_kernel": "log_mel",
     "layer_norm_rows": "ln_fused/residual_ln",
-    "attn_bf16_kernel": "encoder_attention_merged / encoder_attention_split",
+    "attn_wgmma_kernel": "encoder_attention_merged / encoder_attention_split (bf16, dh 64)",
+    "attn_mma_kernel": "encoder_attention_split (bf16, dh 16)",
     "cross_attn_kernel": "cross_attention_step",
     "self_append_kernel": "self_attention_append_step",
     "beam_self_kernel": "beam_self_attention_step",
-    "mlp_fc1_gelu_kernel": "decoder_mlp_step (fc1 + GELU)",
-    "mlp_fc2_kernel": "decoder_mlp_step (fc2)",
+    "mlp_tc_kernel": "decoder_mlp_step (bf16: fc1 + GELU, fc2)",
+    "mlp_fc1_gelu_kernel": "decoder_mlp_step (f32: fc1 + GELU)",
+    "mlp_fc2_kernel": "decoder_mlp_step (f32: fc2)",
     "self_fused_kernel": "self_attention_fused_step",
     "decoder_step_kernel": "decoder_step_fused",
     "self_step_kernel": "self_attention_step",
@@ -2197,6 +2264,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_checks_transcribe(rows)
     phase_done("kernels transcription", t0)
+    t0 = time.perf_counter()
+    kernel_checks_mlp_tiles(rows)
+    phase_done("kernels MLP batch tiles", t0)
 
     for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
@@ -2259,8 +2329,10 @@ def main() -> int:
     configs = ([label(*path) for path in PATHS] + [layer_label, ctx_label]
                + [int8_label(*path[:3]) for path in INT8_PATHS]
                + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"]
-               + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL])
-    extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "library_call")
+               + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL,
+                                       MLP_TILES_LABEL])
+    extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "library_call",
+                  "cold_ms", "library_cold_ms", "bit_identical")
     line = []
     for name, (route, source, replaces) in KERNELS.items():
         by_config = {}

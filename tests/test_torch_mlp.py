@@ -77,3 +77,51 @@ def test_decoder_mlp_step_bf16_rounds_fc1_before_gelu():
     a = t(h) @ t(w1[0])  # f32 sum, never rounded
     unrounded = (F.gelu(a, approximate="tanh") @ t(w2[0])).bfloat16().float().numpy()
     assert np.abs(unrounded - want).max() > tol["atol"]
+
+
+# (batch rows, D) of every path that runs the MLP kernel: the golden dims
+# greedy and beam 3, the base.en transcription (beam 5), large-v3 b12,
+# medium.en b8 beam 5 and greedy, base.en b128; and 129 rows, past the
+# widest batch tile
+PLAN_SHAPES = [(1, 64), (6, 64), (5, 512), (12, 1280), (40, 1024), (8, 1024), (128, 512),
+               (129, 512)]
+
+
+@pytest.mark.parametrize("B,D", PLAN_SHAPES)
+def test_mlp_launch_plan_covers_every_output_once(B, D):
+    """The bf16 kernel's launch plan, fc1 and fc2: its tiles cover every
+    output (row, batch row) exactly once, its K splits cover the depth's
+    chunks exactly with none empty, a block's batch tile stays within the
+    kernel's widest (MAX_N8 n8 tiles) and wastes under 8 columns a tile, a
+    cluster within 8 blocks, and K is split only where the tiles number
+    fewer than TILES_ENOUGH, into splits SPLIT_CHUNKS chunks deep or more,
+    and into at least BLOCKS_AIM blocks where that depth allows."""
+    from whisper_rs_tpu_torch.ops.decoder_mlp_fused import (
+        BLOCKS_AIM, MAX_N8, MAX_SPLITS, SPLIT_CHUNKS, TILE_DEPTH, TILE_ROWS, TILES_ENOUGH,
+        mlp_launch_plan,
+    )
+
+    for plan, (rows, depth) in zip(mlp_launch_plan(B, D), ((4 * D, D), (D, 4 * D))):
+        assert (plan.rows, plan.depth, plan.batch) == (rows, depth, B)
+        assert 1 <= plan.nt <= MAX_N8 and 1 <= plan.splits <= MAX_SPLITS
+        covered = np.zeros((rows, B), np.int64)
+        for mt in range(plan.mtiles):
+            for nt in range(plan.ntiles):
+                r0, b0 = mt * TILE_ROWS, nt * 8 * plan.nt
+                covered[r0:r0 + TILE_ROWS, b0:b0 + 8 * plan.nt] += 1
+        assert (covered == 1).all()
+        assert (plan.mtiles - 1) * TILE_ROWS < rows <= plan.mtiles * TILE_ROWS
+        assert (plan.ntiles - 1) * 8 * plan.nt < B <= plan.ntiles * 8 * plan.nt
+        assert plan.ntiles * 8 * plan.nt - B < 8 * plan.ntiles
+        assert (plan.chunks - 1) * TILE_DEPTH < depth <= plan.chunks * TILE_DEPTH
+        splits = [range(s * plan.chunks // plan.splits, (s + 1) * plan.chunks // plan.splits)
+                  for s in range(plan.splits)]  # as the kernel takes them
+        assert all(len(r) > 0 for r in splits)
+        assert [c for r in splits for c in r] == list(range(plan.chunks))
+        tiles = plan.mtiles * plan.ntiles
+        if tiles >= TILES_ENOUGH:
+            assert plan.splits == 1
+        else:
+            deepest = max(1, min(MAX_SPLITS, plan.chunks // SPLIT_CHUNKS))
+            assert plan.splits == 1 or min(len(r) for r in splits) >= SPLIT_CHUNKS
+            assert tiles * plan.splits >= min(BLOCKS_AIM, tiles * deepest)
