@@ -31,7 +31,8 @@ Phases, in order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
-              source, all at once); the seconds are printed;
+              source, all at once); the seconds are printed, and each
+              kernel's registers and spills as ptxas reported them;
   3. kernels  each kernel wrapper at the shapes each path gives it, against
               its plain PyTorch version: at base.en b128 in f32 and bf16
               (mel: f32 only, 80 bins); at large-v3 b12 and medium.en b8
@@ -69,10 +70,12 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               and 3 rows an audio, the append and beam kernels, the MLP at D
               64; off the path, the fused and read-only steps and the int8
               branches); on the main path every kernel at base.en batch 1,
-              beam 5;
-              row 4 is also compared with n_valid < T; rows 4, 6 and 8 in
-              bf16 are called twice on the same inputs and must give
-              bit-identical outputs; row 8 is timed hot and cold in L2 (rotating
+              beam 5, and the mel kernel on the 95 s file's 4 chunks;
+              row 4 is also compared with n_valid < T; rows 1, 4, 5 (bf16
+              and int8), 6 and 8 in bf16 are called twice on the same
+              inputs and must give bit-identical outputs; row 5 is also
+              checked at 4 audios of 10 rows (medium.en beam 10), past one
+              chunk of rows; row 8 is timed hot and cold in L2 (rotating
               through n_text_layer weight sets, its library call the same
               way) and checked at 129 rows of base.en, past its widest
               batch tile;
@@ -97,7 +100,13 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               full width (greedy, INT8_GREEDY_CHECK_POS) and medium.en beam
               cut to 4 + 4 layers, the same checks at INT8_LOGIT_TOL, with
               the int8 values of each checked step's column that the two
-              paths rounded apart counted; the golden-dims transcription,
+              paths rounded apart counted; on that beam path, whose two
+              runs drift apart through such values, every ranking of the
+              kernel path is also held on its own state to the plain
+              step's (the same candidates in the same order unless a plain
+              gap there is below INT8_LOGIT_TOL), and candidates that
+              differ at the end pass only where all of them held; the
+              golden-dims transcription,
               f32, through the kernels and through the plain versions:
               TranscribeTask greedy (sample_len 16) over a 35 s file and
               DecodeTask beam 3, unprompted and prompted, each window's
@@ -190,12 +199,14 @@ from whisper_rs_tpu_torch.models import (
     quantize_params,
 )
 from whisper_rs_tpu_torch.ops import LAUNCHES, reset_launches
-from whisper_rs_tpu_torch.ops.build import build_all
+from whisper_rs_tpu_torch.ops.build import SOURCES, build_all, ptxas_report
 from whisper_rs_tpu_torch.ops.decode_attention import (
     beam_self_attention_step,
     beam_self_attention_step_plain,
     cross_attention_step,
     cross_attention_step_plain,
+    cross_kernel_smem,
+    cross_launch_plan,
     self_attention_append_step,
     self_attention_append_step_plain,
     self_attention_fused_step,
@@ -221,7 +232,14 @@ from whisper_rs_tpu_torch.ops.encoder_fused import (
     residual_ln,
     residual_ln_plain,
 )
-from whisper_rs_tpu_torch.ops.mel import log_mel_frontend, raw_log10_mel, raw_log10_mel_plain
+from whisper_rs_tpu_torch.ops.mel import fft_table as mel_fft_table
+from whisper_rs_tpu_torch.ops.mel import (
+    kernel_flops_per_frame,
+    log_mel_frontend,
+    mel_runs,
+    raw_log10_mel,
+    raw_log10_mel_plain,
+)
 
 MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, no TF32
@@ -383,12 +401,13 @@ def rotating(n_layer: int):
 
 
 def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph=True,
-                 checked=None, library_call=None):
+                 checked=None, library_call=None, plain_graph=None):
     """Compare the kernel with its plain version (or take ``checked``, the
     (max abs error, tolerance share) of a comparison made by the caller),
     then time the kernel, the plain version and the library call (None
     where no one PyTorch call computes the function; ``library_call`` says
-    what it is where it takes more than one call)."""
+    what it is where it takes more than one call); ``plain_graph`` (default
+    ``graph``) times the plain version as a CUDA graph or not."""
     tol = tolerance(name, dtype)
     if checked is None:
         got, want = kernel(), plain()
@@ -402,7 +421,7 @@ def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph
         "rtol": tol[1],
         "tol_share": share,
         "ms": timed_ms(kernel, reps, graph),
-        "plain_ms": timed_ms(plain, max(1, reps // 4), graph),
+        "plain_ms": timed_ms(plain, max(1, reps // 4), graph if plain_graph is None else plain_graph),
         "library_ms": None if library is None else timed_ms(library, reps, graph),
     }
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
@@ -433,26 +452,10 @@ def kernel_checks(dims, B: int, dtypes, group: int = 1) -> dict:
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    print(f"[kernels] log_mel ({n_mels} bins, f32)", flush=True)
-    audio = randn(B, N_SAMPLES, scale=0.1)
-    padded = reflect_pad(audio).contiguous()
-    window = torch.from_numpy(hann_window()).to(dev)
-    fb = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
-
-    def stft_mel():
-        spec = torch.stft(audio, N_FFT, HOP_LENGTH, window=window, return_complex=True)
-        return torch.log10(torch.clamp(fb @ spec[..., :-1].abs().square(), min=1e-10))
-
-    n_frames = N_SAMPLES // HOP_LENGTH
-    rows["log_mel"]["f32"] = check_kernel(
-        "log_mel", torch.float32,
-        lambda: raw_log10_mel(padded, n_mels), lambda: raw_log10_mel_plain(padded, n_mels),
-        stft_mel,
-        nbytes=padded.numel() * 4 + B * n_mels * n_frames * 4 + (2 * N_FFT + n_mels) * 201 * 4,
-        flops=B * n_frames * (2 * 2 * N_FFT * 201 + 2 * 201 * n_mels),
-        reps=10, graph=False,
-    )
-    del audio, padded
+    print(f"[kernels] log_mel ({n_mels} bins, f32, {B} windows)", flush=True)
+    padded = reflect_pad(randn(B, N_SAMPLES, scale=0.1)).contiguous()
+    rows["log_mel"]["f32"] = check_mel(padded, n_mels, padded.numel() * 4)
+    del padded
 
     for dtype in dtypes:
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -519,6 +522,44 @@ def kernel_checks(dims, B: int, dtypes, group: int = 1) -> dict:
     return rows
 
 
+def check_mel(rows, n_mels: int, in_bytes: int) -> dict:
+    """Row 1 on reflect-padded rows [B, 480400] (contiguous windows, or the
+    overlapping chunks of one file as a strided view; ``in_bytes`` the
+    distinct samples they hold) against its plain version; the library call
+    is torch.stft on the same rows (no centring: they are padded already),
+    the mel matmul and log10.  The bound counts the FFT kernel's own
+    operations (ops/mel.py::kernel_flops_per_frame); the direct DFT's
+    count, the bound of the direct-DFT kernel before it, is printed beside
+    it.  The kernel and the library call are timed as CUDA graphs where the
+    rows are few (under a millisecond), the plain version eagerly.  Two
+    calls bit-identical."""
+    dev = rows.device
+    B = rows.shape[0]
+    window = torch.from_numpy(hann_window()).to(dev)
+    fb = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
+
+    def stft_mel():
+        spec = torch.stft(rows, N_FFT, HOP_LENGTH, window=window, center=False,
+                          return_complex=True)
+        return torch.log10(torch.clamp(fb @ spec[..., :-1].abs().square(), min=1e-10))
+
+    frames = B * (N_SAMPLES // HOP_LENGTH)
+    table = mel_fft_table().nbytes + sum(a.nbytes for a in mel_runs(mel_filterbank(n_mels)))
+    row = check_kernel(
+        "log_mel", torch.float32, lambda: raw_log10_mel(rows, n_mels),
+        lambda: raw_log10_mel_plain(rows, n_mels), stft_mel,
+        nbytes=in_bytes + frames * n_mels * 4 + table,
+        flops=frames * kernel_flops_per_frame(n_mels), reps=10, graph=B <= 4,
+        plain_graph=False,  # it copies its constants to the card every call
+    )
+    direct = frames * (2 * 2 * N_FFT * (N_FFT // 2 + 1) + 2 * (N_FFT // 2 + 1) * n_mels)
+    row["direct_dft_bound_ms"] = direct / PEAK[torch.float32] * 1e3
+    print(f"    operations {frames * kernel_flops_per_frame(n_mels):.4g} (the direct DFT's "
+          f"{direct:.4g}, bound {row['direct_dft_bound_ms']:.4f} ms)", flush=True)
+    check_deterministic("log_mel", lambda: raw_log10_mel(rows, n_mels), row)
+    return row
+
+
 def check_cross(dims, A: int, G: int, dtype, randn, int8: bool = False) -> dict:
     """The cross kernel at the step shapes: pre-scaled q [A, G, H, 64] of
     unit-scale scores against unit-scale kv [L, A, H, 2, 64, 1500], last
@@ -557,7 +598,7 @@ def check_cross(dims, A: int, G: int, dtype, randn, int8: bool = False) -> dict:
                       tolerance(name, dtype))
     kv_bytes = A * H * 2 * dh * T * (1 if int8 else isz) + (2 * A * H * T * 4 if int8 else 0)
     nxt = rotating(L)
-    return check_kernel(
+    row = check_kernel(
         name, dtype,
         lambda: cross_attention_step(qx, kv, nxt(), **scales),
         lambda: cross_attention_step_plain(qx, kv, nxt(), **scales),
@@ -567,6 +608,16 @@ def check_cross(dims, A: int, G: int, dtype, randn, int8: bool = False) -> dict:
                       "F.scaled_dot_product_attention, two calls as one CUDA graph")
         if int8 else None,
     )
+    if dtype == torch.bfloat16:
+        check_deterministic(name + (" int8 K/V" if int8 else ""),
+                            lambda: cross_attention_step(qx, kv, layer, **scales), row)
+    plan = cross_launch_plan(A, G, H, T, dh, kv.element_size())
+    built = cross_kernel_smem(plan, G, dh, kv.element_size())
+    if built != plan.smem:
+        raise AssertionError(f"{name}: the plan counts {plan.smem} bytes of shared memory a "
+                             f"block, the built kernel {built}")
+    row["plan"] = plan._asdict()
+    return row
 
 
 def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = False) -> dict:
@@ -1160,22 +1211,45 @@ def selection_margins(logits, s, beam: int, eot: int) -> torch.Tensor:
     return gap[:, 0].nan_to_num(nan=float("inf"))
 
 
+def beam_ranking(logits, s, beam: int, eot: int):
+    """One beam step's ranking as ``decode_loop._beam_step`` makes it: per
+    audio, the candidates in score order through the beam-th unfinished one
+    (each coded source beam * V + token, -1 past it), and the smallest gap
+    between consecutive scores among them and the next one.  Two rankings
+    with equal codes continue the same beams with the same tokens, in the
+    same slots, and finish the same candidates in the same order."""
+    n_audio, V = logits.shape[0] // beam, logits.shape[-1]
+    cum = (s.sum_logprobs[:, None] + log_softmax(logits)).view(n_audio, beam, V)
+    top, tok = (t[..., : beam + 1] for t in decode_loop._sort_desc(cum))
+    score, order = decode_loop._sort_desc(top.reshape(n_audio, -1))
+    tok = tok.reshape(n_audio, -1).gather(1, order)
+    code = order // (beam + 1) * V + tok
+    last = ((tok != eot).cumsum(dim=-1) < beam).sum(dim=-1, keepdim=True)  # the beam-th unfinished
+    at = torch.arange(code.shape[1], device=code.device)
+    code = torch.where(at <= last, code, -1)
+    gaps = (score[:, :-1] - score[:, 1:]).nan_to_num(nan=float("inf"))
+    gap = torch.where(at[:-1] <= last, gaps, float("inf")).amin(dim=-1)
+    return code, gap
+
+
 def clone_cache(cache: KVCache) -> KVCache:
     """A copy of ``cache``, its int8 scales included."""
     return KVCache(*(None if t is None else t.clone()
                      for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
 
 
-def checking_step_logits(logits_fn, check_pos, diffs: list):
+def checking_step_logits(logits_fn, check_pos, diffs: list, plain: dict | None = None):
     """A stand-in for ``decode_loop._step_logits`` on the kernel path: at
     the positions ``check_pos`` it runs the plain step on a copy of the
     kernel path's own state (tokens, caches and their scales, the ancestor
     table), then the kernel step, and appends to ``diffs`` (pos, the max
     abs difference of their filtered logits, the int8 values of the
-    column the step wrote that the two rounded apart)."""
+    column the step wrote that the two rounded apart).  With ``plain`` it
+    does so at every position, and leaves the plain step's filtered logits
+    in ``plain["logits"]``."""
 
     def checking(model, tokens, pos, cross_kv, cache, *args, **kw):
-        if pos not in check_pos:
+        if pos not in check_pos and plain is None:
             return logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
         *head, kernels = args
         plain_cache = clone_cache(cache)
@@ -1184,12 +1258,15 @@ def checking_step_logits(logits_fn, check_pos, diffs: list):
         got = logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
         if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
             raise AssertionError(f"step at position {pos}: filtered-logit masks differ")
-        fin = torch.isfinite(want)
-        flips = 0
-        if cache.quantized:
-            flips = sum(int((a[:, :, :, pos - 1] != b[:, :, :, pos - 1]).sum())
-                        for a, b in ((cache.k, plain_cache.k), (cache.v, plain_cache.v)))
-        diffs.append((pos, (got[fin] - want[fin]).abs().max().item(), flips))
+        if pos in check_pos:
+            fin = torch.isfinite(want)
+            flips = 0
+            if cache.quantized:
+                flips = sum(int((a[:, :, :, pos - 1] != b[:, :, :, pos - 1]).sum())
+                            for a, b in ((cache.k, plain_cache.k), (cache.v, plain_cache.v)))
+            diffs.append((pos, (got[fin] - want[fin]).abs().max().item(), flips))
+        if plain is not None:
+            plain["logits"] = want
         return got
 
     return checking
@@ -1212,26 +1289,58 @@ def parity_beam(dims, label: str, beam: int, int8_kv: bool = False) -> None:
     BEAM_CHECK_POS plain against kernel on the kernel path's state;
     candidates equal, scores within 1e-4 + SCORE_RTOL |plain|, unless the
     plain path's selection margin of that audio fell below the logit
-    tolerance at some step; no-speech probabilities within 1e-5."""
+    tolerance at some step; no-speech probabilities within 1e-5.
+
+    With int8 K/V the two runs' states drift apart: a column that the two
+    paths compute a few ulps apart rounds apart in an int8 value now and
+    then (counted at the checked steps), and the scores walk up to a few
+    1e-3 apart (INT8_SCORE_RTOL), past selection margins far above the
+    logit tolerance.  So the kernel path's every ranking is also held, on
+    its own state, to the plain step's on a copy of that state (at every
+    incremental step; its first step, on the prefill's logits, to the plain
+    run's first): the same candidates in the same order unless the plain
+    ranking has a gap below the logit tolerance there.  Where that holds at
+    every step, candidates that differ at the end come from the drift, not
+    from a ranking the kernels got wrong."""
     tol, score_rtol = (INT8_LOGIT_TOL, INT8_SCORE_RTOL) if int8_kv else (1e-3, SCORE_RTOL)
     print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, prompted, beam {beam}"
           + (", int8 K/V" if int8_kv else ""), flush=True)
     model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
     cfg = filter_config(dims)
+    eot = cfg.token_id_eot
     rng, audio = parity_audio()
     initial, key_start, sample_begin, sot_idx = bench_prompts(rng, PARITY_WINDOWS, dims.n_text_ctx)
     sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
     mode = BeamSearchMode(beam_size=beam, patience=1.0)
-    margins = torch.full((PARITY_WINDOWS,), float("inf"), device=model.device)
-    n_close = torch.zeros(PARITY_WINDOWS, dtype=torch.long, device=model.device)
+    dev = model.device
+    margins = torch.full((PARITY_WINDOWS,), float("inf"), device=dev)
+    n_close = torch.zeros(PARITY_WINDOWS, dtype=torch.long, device=dev)
     step_fn, logits_fn = decode_loop._beam_step, decode_loop._step_logits
     step_diffs = []
+    # the kernel path's rankings against the plain step's on its state
+    plain = {} if int8_kv else None
+    first = {}  # each run's first ranking (codes, gaps), on the prefill's logits
+    n_ranked, n_near = 0, torch.zeros(PARITY_WINDOWS, dtype=torch.long, device=dev)
+    wrong = torch.zeros(PARITY_WINDOWS, dtype=torch.long, device=dev)
 
     def recording_step(logits, s, *args):
         # the plain path's selection margins, read from each step's inputs
         nonlocal margins, n_close
-        m = selection_margins(logits, s, beam, cfg.token_id_eot)
+        m = selection_margins(logits, s, beam, eot)
         margins, n_close = torch.minimum(margins, m), n_close + (m < tol)
+        first.setdefault(False, beam_ranking(logits, s, beam, eot))
+        return step_fn(logits, s, *args)
+
+    def ranking_step(logits, s, *args):
+        nonlocal n_ranked, n_near, wrong
+        want = plain.pop("logits", None)
+        if want is None:
+            first.setdefault(True, beam_ranking(logits, s, beam, eot))
+        else:
+            (got, _), (exp, gap) = (beam_ranking(x, s, beam, eot) for x in (logits, want))
+            near = gap < tol
+            n_ranked, n_near = n_ranked + 1, n_near + near
+            wrong = wrong + ((got != exp).any(dim=-1) & ~near)
         return step_fn(logits, s, *args)
 
     out = {}
@@ -1239,7 +1348,10 @@ def parity_beam(dims, label: str, beam: int, int8_kv: bool = False) -> None:
     for kernels in (True, False):
         mel = log_mel_frontend(audio, dims.n_mels, kernels=kernels)
         if kernels:
-            decode_loop._step_logits = checking_step_logits(logits_fn, BEAM_CHECK_POS, step_diffs)
+            decode_loop._step_logits = checking_step_logits(logits_fn, BEAM_CHECK_POS, step_diffs,
+                                                             plain)
+            if int8_kv:
+                decode_loop._beam_step = ranking_step
         else:
             decode_loop._beam_step = recording_step
         try:
@@ -1250,10 +1362,22 @@ def parity_beam(dims, label: str, beam: int, int8_kv: bool = False) -> None:
         finally:
             decode_loop._beam_step, decode_loop._step_logits = step_fn, logits_fn
         if kernels:
-            print(f"  kernel-path launches: {dict(LAUNCHES)} (with {len(step_diffs)} plain "
+            n_plain = n_ranked if int8_kv else len(step_diffs)
+            print(f"  kernel-path launches: {dict(LAUNCHES)} (with {n_plain} plain "
                   f"steps of the logits check, which launch no kernel)", flush=True)
     torch.cuda.synchronize()
     report_step_diffs("beam", step_diffs, tol, BEAM_CHECK_POS)
+    if int8_kv:
+        (got, _), (exp, gap) = first[True], first[False]
+        wrong = wrong + ((got != exp).any(dim=-1) & (gap >= tol))
+        print(f"  rankings of the kernel path, each on its own state against the plain step's: "
+              f"{n_ranked} steps and the first; plain gaps below {tol:g} at "
+              f"{n_near.tolist()} steps an audio; different where the gap was not: "
+              f"{wrong.tolist()}", flush=True)
+        if wrong.any():
+            raise AssertionError(f"beam rankings differ from the plain step's on the kernel "
+                                 f"path's state where its gap was at least {tol:g}: "
+                                 f"{wrong.tolist()} steps an audio")
 
     res_k, res_p = out[True], out[False]
     print(f"  steps: kernel path {res_k.steps}, plain path {res_p.steps}", flush=True)
@@ -1277,8 +1401,10 @@ def parity_beam(dims, label: str, beam: int, int8_kv: bool = False) -> None:
             if share > 1:
                 raise AssertionError(f"audio {a}: scores differ beyond the tolerance")
             continue
-        print(f"  audio {a}: candidates differ; {margin}", flush=True)
-        if m >= tol:
+        print(f"  audio {a}: candidates differ; {margin}"
+              + ("; every ranking of the kernel path agreed with the plain step's on its state"
+                 if int8_kv else ""), flush=True)
+        if m >= tol and not int8_kv:
             raise AssertionError(f"audio {a}: candidates differ with margin {m:.3e} >= {tol:g}")
     del model
     torch.cuda.empty_cache()
@@ -1724,6 +1850,24 @@ def kernel_checks_mlp_tiles(rows: dict) -> None:
                                                                    dtype, randn)
 
 
+# the cross kernel past one chunk of rows a head: medium.en beam 10 at 4
+# audios, two chunks of 8 and 2 rows; checked in the kernels phase only
+G10_LABEL = "medium.en b4 beam10 cross attention"
+
+
+def kernel_checks_g10(rows: dict) -> None:
+    """Row 5 at G = 10 (medium.en, 4 audios), bf16, into ``rows``."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    rows[G10_LABEL] = {name: {} for name in KERNELS}
+    print("[kernels] cross_attention_step (bf16, medium.en, 4 audios of 10 rows)", flush=True)
+    rows[G10_LABEL]["cross_attention_step"]["bf16"] = check_cross(
+        dims_for("medium.en"), 4, 10, torch.bfloat16, randn)
+
+
 def kernel_checks_transcribe(rows: dict) -> None:
     """The kernels of the transcription paths, into ``rows``: row 6 at the
     three SPLIT_SHAPES in f32 and bf16; on the golden-dims path the mel
@@ -1746,26 +1890,7 @@ def kernel_checks_transcribe(rows: dict) -> None:
 
     g = rows[GOLDEN_LABEL]
     print("[kernels] log_mel (f32, a 35 s file's two chunks, row pitch 480000)", flush=True)
-    n = 35 * 16_000
-    buf = torch.zeros(2 * N_SAMPLES, device=dev)
-    buf[:n] = randn(n, scale=0.1)
-    padded = reflect_pad(buf[None])[0]
-    chunks = padded.as_strided((2, N_SAMPLES + N_FFT), (N_SAMPLES, 1))
-    n_frames = N_SAMPLES // HOP_LENGTH
-    window = torch.from_numpy(hann_window()).to(dev)
-    fb = torch.from_numpy(mel_filterbank(80)).to(dev)
-
-    def stft_mel():  # the chunks are padded already: no centring
-        spec = torch.stft(chunks, N_FFT, HOP_LENGTH, window=window, center=False,
-                          return_complex=True)
-        return torch.log10(torch.clamp(fb @ spec[..., :-1].abs().square(), min=1e-10))
-
-    g["log_mel"]["f32"] = check_kernel(
-        "log_mel", torch.float32, lambda: raw_log10_mel(chunks, 80),
-        lambda: raw_log10_mel_plain(chunks, 80), stft_mel,
-        nbytes=padded.numel() * 4 + 2 * 80 * n_frames * 4 + (2 * N_FFT + 80) * 201 * 4,
-        flops=2 * n_frames * (2 * 2 * N_FFT * 201 + 2 * 201 * 80), reps=10, graph=False,
-    )
+    g["log_mel"]["f32"] = check_file_mel(35, randn)
     D = GOLDEN_DIMS.n_audio_state
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -1781,10 +1906,30 @@ def kernel_checks_transcribe(rows: dict) -> None:
             "residual_ln", dtype, lambda: residual_ln(x, d, s, b),
             lambda: residual_ln_plain(x, d, s, b), lambda: F.layer_norm(x + d, (D,), s, b, 1e-5),
             nbytes=4 * x.numel() * isz + 2 * D * isz, flops=9 * x.numel(), reps=20)
-    del buf, padded, chunks
     kernel_checks_golden_steps(rows, randn, gen)
     rows[TRANSCRIBE_LABEL] = kernel_checks(dims_for(TRANSCRIBE_MODEL), 1,
                                            (torch.float32, torch.bfloat16), group=5)
+    # the main path's mel is the whole file's chunks in one launch; the
+    # one-window check above stays beside it
+    one = rows[TRANSCRIBE_LABEL]["log_mel"]["f32"]
+    print(f"[kernels] log_mel (f32, the {TRANSCRIBE_SECONDS} s file's "
+          f"{-(-TRANSCRIBE_SECONDS // 30)} chunks, row pitch 480000)", flush=True)
+    row = rows[TRANSCRIBE_LABEL]["log_mel"]["f32"] = check_file_mel(TRANSCRIBE_SECONDS, randn)
+    row["one_window"] = {k: one[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "max_abs_err")}
+
+
+def check_file_mel(seconds: int, randn) -> dict:
+    """Row 1 on a seeded file of ``seconds`` as ``log_mel_file`` hands it to
+    the kernel: the file zero-padded to whole 30 s chunks, reflect-padded
+    once, its chunks overlapping rows of one buffer (a strided view)."""
+    n = seconds * 16_000
+    C = -(-n // N_SAMPLES)
+    buf = torch.zeros(C * N_SAMPLES, device="cuda")
+    buf[:n] = randn(n, scale=0.1)
+    padded = reflect_pad(buf[None])[0]
+    chunks = padded.as_strided((C, N_SAMPLES + N_FFT), (N_SAMPLES, 1))
+    return check_mel(chunks, 80, padded.numel() * 4)
 
 
 def kernel_checks_golden_steps(rows: dict, randn, gen) -> None:
@@ -2208,6 +2353,25 @@ KERNELS = {
 }
 
 
+def print_ptxas() -> None:
+    """ptxas's registers and spills of every kernel, from the build: each
+    instance of the two kernels this slice redesigned (rows 1 and 5), a
+    summary line for each other source."""
+    for source in SOURCES:
+        report = ptxas_report(source)
+        if not report:
+            print(f"[build] ptxas {source}: no report", flush=True)
+            continue
+        spills = [r for r in report if r[2] or r[3]]
+        print(f"[build] ptxas {source}: {len(report)} kernels, registers "
+              f"{min(r[1] for r in report)}-{max(r[1] for r in report)}, "
+              f"{len(spills)} with spills", flush=True)
+        if source in ("mel", "cross_attention"):
+            for kernel, regs, stores, loads, stack in report:
+                print(f"  {kernel[-64:]}: {regs} registers, spill stores {stores} B, spill "
+                      f"loads {loads} B, stack {stack} B", flush=True)
+
+
 def int8_label(m: str, b: int, beam: int) -> str:
     return f"{m} b{b} " + (f"beam{beam} int8 KV" if beam else "int8")
 
@@ -2228,6 +2392,7 @@ def main() -> int:
     built = build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall, per source "
           f"{ {k: round(v, 1) for k, v in built.items()} }", flush=True)
+    print_ptxas()
 
     def phase_done(phase: str, t0: float) -> None:
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2267,6 +2432,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_checks_mlp_tiles(rows)
     phase_done("kernels MLP batch tiles", t0)
+    t0 = time.perf_counter()
+    kernel_checks_g10(rows)
+    phase_done("kernels cross attention at G 10", t0)
 
     for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
@@ -2330,9 +2498,10 @@ def main() -> int:
                + [int8_label(*path[:3]) for path in INT8_PATHS]
                + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"]
                + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL,
-                                       MLP_TILES_LABEL])
+                                       MLP_TILES_LABEL, G10_LABEL])
     extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "library_call",
-                  "cold_ms", "library_cold_ms", "bit_identical")
+                  "cold_ms", "library_cold_ms", "bit_identical", "plan", "one_window",
+                  "direct_dft_bound_ms")
     line = []
     for name, (route, source, replaces) in KERNELS.items():
         by_config = {}

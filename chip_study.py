@@ -1,0 +1,193 @@
+"""Studies on one NVIDIA GPU that back choices and numbers in PERF.md.
+
+    python3 chip_study.py plans [PARENT [LABEL]]
+    python3 chip_study.py parity-seeds [TREE]
+
+``plans``: the cross kernel (row 5, ``csrc/cross_attention.cu``) at every
+path shape of ``chip_smoke.py`` (the golden dims' included) under every
+launch plan near the one ``cross_launch_plan`` picks (splits of the keys,
+rows a tile, ring depth), bf16 and int8 K/V, each launched through the
+wrapper's own binding, timed as ``chip_smoke.check_cross`` times it (a
+CUDA graph of 20 calls rotating through the layers) and held to its
+tolerance against the plain version.  The chosen plan is marked ``*``.
+With PARENT, a checkout of an earlier tree (``git archive``), the cross
+kernel of that tree is built from its source and timed in the same way
+beside them, where its C interface is the one without plan arguments
+(A, G, H, Tk, layer, dh, stream).  With LABEL, only the shapes whose
+label starts with it.
+
+``parity-seeds``: the int8 K/V beam parity of ``chip_smoke.py``
+(``parity_beam``, medium.en cut to 4 + 4 layers, f32) at the script's own
+audio seed and at three others, each reported pass or fail, run by the
+``chip_smoke.py`` of the checkout at TREE (default: this one).
+
+Exits nonzero, printing no result, where CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import importlib
+import itertools
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def parent_cross(parent: pathlib.Path):
+    """The bf16 and int8-bf16 entry points of PARENT's cross kernel, built
+    into build/study/ with this tree's nvcc flags."""
+    from whisper_rs_tpu_torch.ops import build
+
+    src = parent / "whisper_rs_tpu_torch" / "csrc" / "cross_attention.cu"
+    out = pathlib.Path(__file__).resolve().parent / "build" / "study" / "parent_cross.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bf16, int8 = lib.cross_attention_bf16, lib.cross_attention_int8_bf16
+    bf16.argtypes, int8.argtypes = [P] * 3 + [I] * 6 + [P], [P] * 5 + [I] * 6 + [P]
+    return bf16, int8
+
+
+def plans(cs, parent=None, only=None) -> None:
+    from whisper_rs_tpu_torch.config import dims_for
+    from whisper_rs_tpu_torch.models import quantize_kv
+    from whisper_rs_tpu_torch.ops.decode_attention import (
+        CROSS_MAX_STAGES,
+        SMEM_LIMIT,
+        CrossPlan,
+        _cross_launch,
+        _cross_smem,
+        cross_attention_step_plain,
+        cross_launch_plan,
+    )
+
+    old = parent_cross(pathlib.Path(parent).resolve()) if parent else None
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    # (label, dims, audios, rows an audio)
+    shapes = [("golden dims", cs.GOLDEN_DIMS, 1, 1), ("golden dims beam 3", cs.GOLDEN_DIMS, 2, 3),
+              ("transcription", dims_for("base.en"), 1, 5),
+              ("medium.en beam 5", dims_for("medium.en"), 8, 5),
+              ("base.en b128", dims_for("base.en"), 128, 1),
+              ("large-v3 b12", dims_for("large-v3"), 12, 1),
+              ("medium.en beam 10", dims_for("medium.en"), 4, 10)]
+    for label, dims, A, G in shapes:
+        if only and not label.startswith(only):
+            continue
+        L, H, dh, T = dims.n_text_layer, dims.n_text_head, dims.head_dim, dims.n_audio_ctx
+        for int8 in (False, True):
+            q = (torch.randn(A, G, H, dh, generator=gen, device="cuda") * dh**-0.5).bfloat16()
+            if int8:
+                planes, s = quantize_kv(torch.randn(L, A, H, 2, T, dh, generator=gen,
+                                                    device="cuda"))
+                kv = planes.transpose(-1, -2).contiguous()
+                s = s.permute(3, 0, 1, 2, 4).contiguous()
+                scales = {"k_scale": s[0], "v_scale": s[1]}
+                del planes
+            else:
+                kv = torch.randn(L, A, H, 2, dh, T, generator=gen, device="cuda").bfloat16()
+                scales = {}
+            isz = kv.element_size()
+            chosen = cross_launch_plan(A, G, H, T, dh, isz)
+            want = cross_attention_step_plain(q, kv, L - 1, **scales)
+            tol = cs.tolerance("cross_attention_step", torch.bfloat16)
+            out = torch.empty_like(q)
+            results = []
+            if old is not None:
+                layers = itertools.cycle(range(L))
+
+                def call_old():
+                    ptrs = (q, kv, s[0], s[1], out) if int8 else (q, kv, out)
+                    fn = old[1] if int8 else old[0]
+                    err = fn(*(t.data_ptr() for t in ptrs), A, G, H, T, next(layers), dh,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"parent cross kernel launch failed: {err}")
+
+                results.append(f"parent {cs.timed_ms(call_old, 20, graph=True) * 1e3:.1f}")
+            for splits in sorted({1, 2, 4, 8, chosen.splits}):
+                chunk = 4 * -(-(T // 4) // splits)
+                splits = -(-T // chunk)
+                for rows in (8, 16, 32, 64):
+                    for stages in sorted({min(3, 2 * dh // rows), min(CROSS_MAX_STAGES,
+                                                                      2 * dh // rows)}):
+                        smem = _cross_smem(dh, isz, G, chunk, rows, stages)
+                        if dh % rows or stages < 2 or smem > SMEM_LIMIT:
+                            continue
+                        plan = CrossPlan(splits, chunk, rows, stages, smem, T)
+                        layers = itertools.cycle(range(L))
+
+                        def call(layer=None, plan=plan):
+                            return _cross_launch(q, kv, out, next(layers) if layer is None
+                                                 else layer, plan, **scales)
+
+                        call(L - 1)
+                        cs.compare(f"{label} {plan}", (out.clone(),), (want,), tol)
+                        ms = cs.timed_ms(call, 20, graph=True)
+                        mark = "*" if plan == chosen else ""
+                        results.append(f"S{splits}/r{rows}/st{stages}{mark} {ms * 1e3:.1f}")
+            nbytes = A * H * 2 * dh * T * isz + (A * H * T * 8 if int8 else 0)
+            print(f"[plans] {label}{', int8 K/V' if int8 else ''} (A {A}, G {G}, H {H}, dh {dh}; "
+                  f"bound {nbytes / cs.MEM_BW * 1e6:.2f} us), us: " + " | ".join(results),
+                  flush=True)
+            del kv, want
+            torch.cuda.empty_cache()
+
+
+def parity_seeds(cs) -> None:
+    from whisper_rs_tpu_torch.config import dims_for
+
+    dims = dataclasses.replace(dims_for("medium.en"), n_audio_layer=4, n_text_layer=4)
+    own = cs.parity_audio
+    for seed in (None, 101, 202, 303):
+        if seed is not None:
+            def audio(seed=seed):
+                rng = np.random.default_rng(seed)
+                return rng, np.stack([
+                    rng.standard_normal(480_000).astype(np.float32) * np.float32(0.05 * (i + 1))
+                    for i in range(cs.PARITY_WINDOWS)])
+            cs.parity_audio = audio
+        else:
+            cs.parity_audio = own
+        what = "the script's seed" if seed is None else f"seed {seed}"
+        try:
+            cs.parity_beam(dims, f"medium.en 4 + 4 layers, {what}", 5, int8_kv=True)
+            print(f"[parity-seeds] {what}: pass", flush=True)
+        except AssertionError as e:
+            print(f"[parity-seeds] {what}: fail ({e})", flush=True)
+    cs.parity_audio = own
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_study: CUDA is not available", file=sys.stderr)
+        return 1
+    if len(sys.argv) < 2 or sys.argv[1] not in ("plans", "parity-seeds"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    arg = sys.argv[2] if len(sys.argv) > 2 else None
+    tree = pathlib.Path(__file__).resolve().parent
+    if sys.argv[1] == "parity-seeds" and arg:
+        tree = pathlib.Path(arg).resolve()
+    sys.path.insert(0, str(tree))
+    cs = importlib.import_module("chip_smoke")
+    from whisper_rs_tpu_torch.ops.build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[device] {cs.card_line()} | tree {cs.__file__}", flush=True)
+    build_all()
+    if sys.argv[1] == "plans":
+        plans(cs, arg, sys.argv[3] if len(sys.argv) > 3 else None)
+    else:
+        parity_seeds(cs)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,7 +19,7 @@ FORBIDDEN = {"jax", "jaxlib", "whisper_rs_tpu"}
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_study.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, ``build/torch_kernels/lib<name>-<digest>.so`` under the checkout,
 where the digest covers the source, the shared header and the flags, so an
 edited source is rebuilt and an unchanged one is reused.  ``build_all``
-starts one nvcc per source at once and waits for all of them.
+starts one nvcc per source at once and waits for all of them.  ptxas
+reports each kernel's registers, shared memory and spills (``-Xptxas -v``);
+the report is kept beside the library, and ``ptxas_report`` reads it.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, sizes as ``c_int`` (strides that may pass 2^31 as
@@ -19,6 +21,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -32,7 +35,7 @@ SOURCES = (
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -82,10 +85,34 @@ def build_all(names=SOURCES) -> dict:
         if proc.returncode != 0:
             failures.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+def ptxas_report(name: str) -> list:
+    """(kernel, registers, spill stores, spill loads, stack bytes) of every
+    kernel of source ``name`` as ptxas reported them when it was built
+    (mangled names); empty where the report is missing."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    rows, kernel, spills = [], None, (0, 0, 0)
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            spills = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append((kernel, int(m.group(1)), *spills))
+            kernel, spills = None, (0, 0, 0)
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

@@ -44,10 +44,14 @@ CrossKV``) at layer ``layer``.  Math, as in the Pallas kernel: f32 scores,
 no mask, ``w = e / sum(e)`` in f32, ``w`` cast to the K/V dtype, then
 ``w V`` accumulated in f32 and cast to the query dtype.  With int8 K/V and
 f32 scales ``[L, A, H, Tk]``: the scores times ``k_scale``, and ``w *
-v_scale`` kept in f32 in place of the cast.
+v_scale`` kept in f32 in place of the cast.  The kernel splits the keys
+of each (head, audio, chunk of 8 rows) over the blocks of one thread-block
+cluster; ``cross_launch_plan`` says how many.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -391,6 +395,110 @@ def beam_self_attention_step(
     return out
 
 
+# The cross kernel's tiling (csrc/cross_attention.cu): a block takes up to
+# CROSS_ROWS rows of one audio and head and one split of the keys, and
+# streams the split's K^T, then V^T, in tiles of rows of the split through
+# a ring of CROSS_STAGES tiles (fewer where the split has fewer tiles or
+# shared memory is short; the kernel takes up to CROSS_MAX_STAGES).  A tile
+# holds as many rows (a multiple of 8 that divides the head dim) as fit
+# CROSS_TILE_BYTES, CROSS_TILE_BYTES_FEW where the grid has at most one
+# block a SM, or CROSS_TILE_BYTES_MANY where it has more than two, which
+# keeps more blocks on each SM; unsplit, up to CROSS_WHOLE_ROWS rows in
+# CROSS_TILE_BYTES_FEW.  The splits of a (head, audio, chunk of
+# rows) are the blocks of one cluster, at most CROSS_MAX_SPLITS (the
+# portable cluster size).  Keys are split only where the heads alone give
+# fewer than CROSS_BLOCKS_AIM blocks (one a SM) and a head's K/V passes
+# CROSS_SPLIT_BYTES, into as few splits as reach the aim, none under
+# CROSS_MIN_KEYS keys: unsplit, a tile is one bulk copy, split, one a row,
+# and each copy costs the copy engine about the same whatever its size.
+# All of it measured on the H100 at the path shapes (`chip_study.py plans`,
+# PERF.md): a deeper ring or bigger tiles only cost blocks a SM, and a
+# second wave of blocks cost more than the splits' exchange gained.
+CROSS_ROWS = 8
+CROSS_TILE_BYTES = 26 * 1024
+CROSS_TILE_BYTES_FEW = 48 * 1024
+CROSS_TILE_BYTES_MANY = 12 * 1024
+CROSS_STAGES = 3
+CROSS_MAX_STAGES = 8
+CROSS_MAX_SPLITS = 8
+SMS = 132  # the H100's streaming multiprocessors
+CROSS_BLOCKS_AIM = SMS
+CROSS_SPLIT_BYTES = 128 * 1024
+CROSS_WHOLE_ROWS = 16
+CROSS_MIN_KEYS = 128
+SMEM_LIMIT = 227 * 1024  # shared memory a block can have on the H100
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class CrossPlan(NamedTuple):
+    """How the cross kernel launches: ``splits`` blocks (one cluster) a
+    (head, audio, chunk of rows), split s taking keys [s chunk, min(Tk,
+    (s + 1) chunk)); ``chunk`` is a multiple of 4 and no split is empty;
+    tiles of ``rows`` rows of K^T or V^T through a ring of ``stages``;
+    ``smem`` bytes of shared memory a block."""
+    splits: int
+    chunk: int
+    rows: int
+    stages: int
+    smem: int
+    Tk: int
+
+    def bounds(self) -> list:
+        return [(s * self.chunk, min(self.Tk, (s + 1) * self.chunk)) for s in range(self.splits)]
+
+
+def _row_pitch(chunk: int, itemsize: int) -> int:
+    """Bytes of a tile row: the split's keys and room for the 16-byte
+    aligned superset of them that is copied."""
+    return _cdiv(chunk * itemsize, 16) * 16 + 16
+
+
+def _cross_smem(head_dim: int, itemsize: int, G: int, chunk: int, rows: int,
+                stages: int) -> int:
+    """Shared memory of one block: the ring, the scores of its rows' split,
+    and its static arrays (q, the reductions, the statistics, the partial
+    output, the ring's barriers)."""
+    gm = CROSS_ROWS if G > 4 else (1 if G == 1 else (2 if G == 2 else 4))
+    static = 4 * gm * (2 * head_dim + 8 + 4)
+    return (stages * rows * _row_pitch(chunk, itemsize) + min(G, CROSS_ROWS) * chunk * 4 + static
+            + 8 * CROSS_MAX_STAGES)
+
+
+def cross_launch_plan(A: int, G: int, H: int, Tk: int, head_dim: int = 64,
+                      itemsize: int = 2) -> CrossPlan:
+    """The cross kernel's plan for A audios of G rows, H heads, Tk keys
+    (a multiple of 4) of ``itemsize`` bytes at ``head_dim``."""
+    blocks = H * A * _cdiv(G, CROSS_ROWS)
+    most = max(1, min(CROSS_MAX_SPLITS, Tk // CROSS_MIN_KEYS))
+    splits = 1
+    if blocks < CROSS_BLOCKS_AIM and 2 * head_dim * Tk * itemsize > CROSS_SPLIT_BYTES:
+        splits = min(most, _cdiv(CROSS_BLOCKS_AIM, blocks))
+    chunk = 4 * _cdiv(Tk // 4, splits)
+    pitch = _row_pitch(chunk, itemsize)
+    grid = blocks * _cdiv(Tk, chunk)
+    whole = chunk >= Tk  # one split: a tile is one bulk copy
+    tile = (CROSS_TILE_BYTES_FEW if whole or grid <= SMS else
+            CROSS_TILE_BYTES if grid <= 2 * SMS else CROSS_TILE_BYTES_MANY)
+    rows = max([r for r in range(8, (CROSS_WHOLE_ROWS if whole else head_dim) + 1, 8)
+                if head_dim % r == 0 and r * pitch <= tile] or [8])
+    stages = min(CROSS_STAGES, 2 * head_dim // rows)
+    while stages > 2 and _cross_smem(head_dim, itemsize, G, chunk, rows, stages) > SMEM_LIMIT:
+        stages -= 1
+    return CrossPlan(_cdiv(Tk, chunk), chunk, rows, stages,
+                     _cross_smem(head_dim, itemsize, G, chunk, rows, stages), Tk)
+
+
+def cross_kernel_smem(plan: CrossPlan, G: int, head_dim: int, itemsize: int) -> int:
+    """The shared memory a block takes at ``plan`` as the built kernel
+    counts it, its static arrays included (-1 for an instance that is not
+    built); ``plan.smem`` is held to it on the card."""
+    fn = kernel_function("cross_attention", "cross_smem_bytes", (I,) * 6)
+    return fn(head_dim, itemsize, G, plan.chunk, plan.rows, plan.stages)
+
+
 def _cross_scales(name, q, kv_all, k_scale, v_scale) -> bool:
     L, A, H, _, _, Tk = kv_all.shape
     return _check_scales(name, q, (kv_all,), k_scale, v_scale, (L, A, H, Tk))
@@ -415,14 +523,34 @@ def cross_attention_step_plain(
     return torch.einsum("aghk,ahdk->aghd", w, v_t).to(q.dtype)
 
 
+def _cross_launch(q, kv_all, out, layer: int, plan: CrossPlan, k_scale=None, v_scale=None):
+    """Launches the cross kernel at ``plan`` on tensors that
+    ``cross_attention_step`` has checked (int8 ``kv_all`` with its
+    scales), writing ``out``; raises if the launch fails."""
+    A, G, H, dh = q.shape
+    Tk = kv_all.shape[-1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    ints = (A, G, H, Tk, layer, dh, plan.splits, plan.chunk, plan.rows, plan.stages)
+    if k_scale is not None:
+        symbol = f"cross_attention_int8_{tag}"
+        ptrs = (q, kv_all, k_scale, v_scale, out)
+    else:
+        symbol = f"cross_attention_{tag}"
+        ptrs = (q, kv_all, out)
+    fn = kernel_function("cross_attention", symbol, (P,) * len(ptrs) + (I,) * len(ints) + (P,))
+    check("cross_attention", symbol, fn(*(t.data_ptr() for t in ptrs), *ints, stream))
+    return out
+
+
 def cross_attention_step(
     q: torch.Tensor, kv_all: torch.Tensor, layer: int, *, k_scale=None, v_scale=None
 ) -> torch.Tensor:
     """Cross-attention for one decode step at ``layer``: the kernel on the
     card (``cross_kernel_takes``: head dim 16 or 64, any G; any other shape
-    raises), the plain version on the CPU.  q [A, G, H, dh] pre-scaled; ``kv_all``
-    [L, A, H, 2, dh, Tk] in q's dtype, or int8 with f32 ``k_scale``/
-    ``v_scale`` [L, A, H, Tk]."""
+    raises) at ``cross_launch_plan``'s plan, the plain version on the CPU.
+    q [A, G, H, dh] pre-scaled; ``kv_all`` [L, A, H, 2, dh, Tk] in q's
+    dtype, or int8 with f32 ``k_scale``/``v_scale`` [L, A, H, Tk]."""
     name = "cross_attention_step"
     if not use_kernel(name, cross_kernel_takes(kv_all.shape[-2], kv_all.shape[-1]), q.device):
         return cross_attention_step_plain(q, kv_all, layer, k_scale=k_scale, v_scale=v_scale)
@@ -443,19 +571,8 @@ def cross_attention_step(
     for t in (q, kv_all, *((k_scale, v_scale) if scaled else ())):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: q, kv and scales must be contiguous, 16-byte aligned")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    if scaled:
-        symbol = f"cross_attention_int8_{tag}"
-        fn = kernel_function("cross_attention", symbol, (P, P, P, P, P, I, I, I, I, I, I, P))
-        err = fn(q.data_ptr(), kv_all.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                 out.data_ptr(), A, G, H, Tk, int(layer), dh, stream)
-    else:
-        symbol = f"cross_attention_{tag}"
-        fn = kernel_function("cross_attention", symbol, (P, P, P, I, I, I, I, I, I, P))
-        err = fn(q.data_ptr(), kv_all.data_ptr(), out.data_ptr(), A, G, H, Tk, int(layer), dh,
-                 stream)
-    check("cross_attention", symbol, err)
+    out = _cross_launch(q, kv_all, out=torch.empty_like(q), layer=int(layer),
+                        plan=cross_launch_plan(A, G, H, Tk, dh, kv_all.element_size()),
+                        k_scale=k_scale if scaled else None, v_scale=v_scale)
     LAUNCHES["cross_attention_step"] += 1
     return out

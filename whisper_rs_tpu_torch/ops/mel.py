@@ -8,11 +8,19 @@ padded file are a strided view) -> log10 mel [B, n_mels, 3000], before the
 dynamic-range floor.  The reflect padding and the ``max - 8`` floor and
 ``(x+4)/4`` scale stay plain PyTorch around it: per utterance for windows,
 over the whole file for ``log_mel_file``.
+
+The kernel runs a 400-point real FFT as a 200-point complex one, in f32,
+and a sparse mel projection.  What it computes with is made here, on the
+host, so the CPU tests can run the same plan: ``fft_table`` (the Hann
+window, the butterflies' constants and every stage's twiddles, computed in
+float64 and rounded to f32 once) and ``mel_runs`` (each filter of the
+filterbank as one run of contiguous bins and its weights).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +32,91 @@ from . import LAUNCHES
 from .build import I, P, check, kernel_function
 
 PADDED_LEN = N_SAMPLES + N_FFT  # 480400 samples after centred reflect padding
+
+# The kernel's FFT plan (csrc/mel.cu holds the same constants).  A frame's
+# 400 real samples x, windowed, are packed as M = 200 complex ones
+# z[m] = x[2m] + i x[2m + 1]; a Stockham FFT of radices FFT_RADICES, in that
+# order, gives Z = DFT_M(z) in natural order; the post-pass splits Z into
+# the 201 bins of the real DFT.  Stage s of radix R after a stride Ns (the
+# product of the radices before it) takes, for j in [0, M / R), the inputs
+# v[r] = in[j + r M / R], multiplies v[r] by exp(-2 pi i r k / (Ns R)) with
+# k = j % Ns, runs a DFT of size R on v and writes out[(j // Ns) Ns R + k +
+# r Ns] = V[r].
+FFT_M = N_FFT // 2
+FFT_RADICES = (8, 5, 5)
+# fft_table's layout in f32 words (complex values as (re, im) pairs):
+# the window; W8 = exp(-2 pi i / 8); cos(2 pi / 5), cos(4 pi / 5),
+# sin(2 pi / 5), sin(4 pi / 5); the twiddles of stages 2 and 3 at
+# [k (R - 1) + r - 1] for k < Ns, r in 1..R-1 (stage 1 has Ns = 1, no
+# twiddle); the post-pass's W400^k = exp(-2 pi i k / 400), k in 0..100.
+TABLE_WINDOW, TABLE_W8, TABLE_C5 = 0, N_FFT, N_FFT + 2
+TABLE_TW2 = TABLE_C5 + 4
+TABLE_TW3 = TABLE_TW2 + 2 * 8 * 4
+TABLE_POST = TABLE_TW3 + 2 * 40 * 4
+TABLE_LEN = TABLE_POST + 2 * (FFT_M // 2 + 1)
+MAX_MELS = 128  # the kernel's room for filters
+MAX_MEL_WEIGHTS = 512  # and for their nonzero weights
+
+
+def _cis(turns) -> np.ndarray:
+    """exp(-2 pi i turns) in float64, as (re, im) pairs rounded to f32."""
+    a = -2.0 * np.pi * np.asarray(turns, np.float64)
+    return np.stack([np.cos(a), np.sin(a)], -1).astype(np.float32)
+
+
+def stage_twiddles(radix: int, ns: int) -> np.ndarray:
+    """[ns, radix - 1, 2] f32: exp(-2 pi i r k / (ns radix)) for r >= 1."""
+    k, r = np.arange(ns)[:, None], np.arange(1, radix)[None, :]
+    return _cis(r * k / (ns * radix))
+
+
+@functools.lru_cache(maxsize=1)
+def fft_table() -> np.ndarray:
+    """[TABLE_LEN] f32, the constants of the kernel's FFT (layout above)."""
+    t = np.zeros(TABLE_LEN, np.float32)
+    t[TABLE_WINDOW:TABLE_W8] = hann_window(N_FFT)
+    t[TABLE_W8:TABLE_C5] = _cis(1 / 8)
+    ang = 2.0 * np.pi * np.array([1, 2]) / 5
+    t[TABLE_C5:TABLE_TW2] = np.concatenate([np.cos(ang), np.sin(ang)]).astype(np.float32)
+    t[TABLE_TW2:TABLE_TW3] = stage_twiddles(5, 8).ravel()
+    t[TABLE_TW3:TABLE_POST] = stage_twiddles(5, 40).ravel()
+    t[TABLE_POST:] = _cis(np.arange(FFT_M // 2 + 1) / N_FFT).ravel()
+    return t
+
+
+class MelRuns(NamedTuple):
+    """A filterbank as one run of contiguous bins a filter: ``runs`` [n_mels,
+    3] int32 (first bin, length, offset of its weights), ``weights`` f32,
+    the runs' weights one after another."""
+    runs: np.ndarray
+    weights: np.ndarray
+
+
+def mel_runs(fb: np.ndarray) -> MelRuns:
+    """The runs of filterbank ``fb`` [n_mels, 201]: each filter's nonzeros,
+    which must be contiguous bins (raises otherwise), in ascending order."""
+    runs, weights = [], []
+    offset = 0
+    for m, row in enumerate(fb):
+        nz = np.flatnonzero(row)
+        first = int(nz[0]) if nz.size else 0
+        if nz.size and nz[-1] - first + 1 != nz.size:
+            raise ValueError(f"mel_runs: filter {m}'s nonzero bins are not contiguous")
+        runs.append((first, nz.size, offset))
+        weights.append(row[nz])
+        offset += nz.size
+    return MelRuns(np.asarray(runs, np.int32).reshape(-1, 3),
+                   np.concatenate(weights).astype(np.float32))
+
+
+def kernel_flops_per_frame(n_mels: int) -> int:
+    """The f32 operations the kernel does a frame (a fused multiply-add
+    counts 2): the window (400 multiplies); the radix-8 stage, 25
+    butterflies of 56; the two radix-5 stages, 40 butterflies each of 24 for
+    the twiddles and 48 for the DFT; the real-split post-pass, 101 pairs of
+    22; the sparse projection, 2 a weight."""
+    weights = int(mel_runs(mel_filterbank(n_mels)).weights.size)
+    return N_FFT + 25 * 56 + 2 * 40 * (24 + 48) + (FFT_M // 2 + 1) * 22 + 2 * weights
 
 
 @functools.lru_cache(maxsize=4)
@@ -41,6 +134,16 @@ def basis_constants(n_mels: int) -> tuple:
 
 def _constants_on(device: torch.device, n_mels: int):
     return tuple(torch.from_numpy(c).to(device) for c in basis_constants(n_mels))
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_constants(device: torch.device, n_mels: int) -> tuple:
+    """(fft_table, runs, weights) of ``n_mels`` on ``device``, made once."""
+    runs = mel_runs(mel_filterbank(n_mels))
+    if n_mels > MAX_MELS or runs.weights.size > MAX_MEL_WEIGHTS:
+        raise ValueError(f"raw_log10_mel: the kernel holds at most {MAX_MELS} filters of "
+                         f"{MAX_MEL_WEIGHTS} weights in all, not {n_mels} of {runs.weights.size}")
+    return tuple(torch.from_numpy(a).to(device) for a in (fft_table(), runs.runs, runs.weights))
 
 
 def raw_log10_mel_plain(padded: torch.Tensor, n_mels: int) -> torch.Tensor:
@@ -69,12 +172,15 @@ def raw_log10_mel(padded: torch.Tensor, n_mels: int) -> torch.Tensor:
         )
     if padded.stride(1) != 1 or padded.stride(0) < 1:
         raise ValueError("raw_log10_mel: each row of padded audio must be contiguous")
-    wcos, wsin, fb = _constants_on(padded.device, n_mels)
+    if padded.data_ptr() % 16 or padded.stride(0) % 4:
+        raise ValueError("raw_log10_mel: rows must start 16-byte aligned (the kernel copies "
+                         "them in 16-byte pieces)")
+    table, runs, weights = _kernel_constants(padded.device, n_mels)
     B = padded.shape[0]
     out = torch.empty((B, n_mels, N_FRAMES), dtype=torch.float32, device=padded.device)
     fn = kernel_function("mel", "log_mel_f32", (P, P, P, P, P, I, I, I, P))
     err = fn(
-        padded.data_ptr(), wcos.data_ptr(), wsin.data_ptr(), fb.data_ptr(),
+        padded.data_ptr(), table.data_ptr(), runs.data_ptr(), weights.data_ptr(),
         out.data_ptr(), B, n_mels, padded.stride(0),
         torch.cuda.current_stream(padded.device).cuda_stream,
     )
