@@ -31,8 +31,10 @@ Phases, in order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
-              source, all at once); the seconds are printed, and each
-              kernel's registers and spills as ptxas reported them;
+              source, all at once); the seconds are printed, each
+              kernel's registers and spills as ptxas reported them, and
+              the whole-step kernel's tensor-core instructions in its
+              SASS (cuobjdump);
   3. kernels  each kernel wrapper at the shapes each path gives it, against
               its plain PyTorch version: at base.en b128 in f32 and bf16
               (mel: f32 only, 80 bins); at large-v3 b12 and medium.en b8
@@ -42,8 +44,9 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               greedy paths, the beam self-attention on the beam path; on
               the routes' path the fused self-attention, the cross kernel
               and the MLP at 8 rows, and the whole-step kernel (f32 at full
-              depth, bf16 at LAYER_BF16_DEPTH layers; beside its time the
-              layered step's as a CUDA graph).  Printed: max abs/rel error
+              depth, bf16 at LAYER_BF16_DEPTH layers, there also at 16 rows
+              and at 8 rows of one audio, and bit-identical call to call;
+              beside its time the layered step's as a CUDA graph).  Printed: max abs/rel error
               against the kernel's tolerance, kernel ms, plain ms, bound ms
               (the larger of bytes over 3.35 TB/s and operations over the
               peak rate of their type) and library ms (one PyTorch call for
@@ -199,7 +202,7 @@ from whisper_rs_tpu_torch.models import (
     quantize_params,
 )
 from whisper_rs_tpu_torch.ops import LAUNCHES, reset_launches
-from whisper_rs_tpu_torch.ops.build import SOURCES, build_all, ptxas_report
+from whisper_rs_tpu_torch.ops.build import SOURCES, _nvcc, build_all, library_path, ptxas_report
 from whisper_rs_tpu_torch.ops.decode_attention import (
     beam_self_attention_step,
     beam_self_attention_step_plain,
@@ -970,12 +973,30 @@ def layer_step(fn, weights, x, kv, caches, pos: int, ks, H: int, G: int, W: int)
     return out, kc[:, :, :, pos].clone(), vc[:, :, :, pos].clone()
 
 
+def layer_phase_bytes(dims, B: int, G: int, pos: int) -> list:
+    """Elements each of the whole-step kernel's eight phases must move in
+    one layer (PHASES): the weights of its projections, the visible window
+    of the self K/V (slots 0..pos of every row and head), the cross K/V."""
+    D, H = dims.n_text_state, dims.n_text_head
+    return [3 * D * D, 2 * B * H * (pos + 1) * 64, D * D, D * D,
+            B // G * H * 2 * 64 * dims.n_audio_ctx, D * D, 4 * D * D, 4 * D * D]
+
+
+# the whole-step kernel's checks against its plain version: (rows, rows an
+# audio, window, pos); the bf16 check adds B 16 (the second n8 tile of rows
+# and the widest split-K plan) and G 8 (the cross phase's widest instance)
+LAYER_CASES = ((None, 1, STEP_WINDOW, STEP_WINDOW - 1), (None, 1, 448, 400), (None, 2, 448, 400))
+LAYER_BF16_CASES = ((16, 2, 448, 400), (8, 8, 448, 400))
+
+
 def check_layer_step(dims, B: int, dtype, gen) -> dict:
     """The whole-decoder-step kernel against its plain version on seeded
     random decoders (``random_decoder``) and unit-scale inputs: in f32 at
     full depth, in bf16 at LAYER_BF16_DEPTH layers (see TOL_BF16); at W 256,
     pos 255 and W 448, pos 400 with key_start in 1..231, and once with
-    G = 2 (B / 2 audios of 2 rows) at W 448, pos 400.  Compared: x out and
+    G = 2 (B / 2 audios of 2 rows) at W 448, pos 400; in bf16 also at 16
+    rows (G 2) and at G 8 (one audio of 8 rows), both at W 448, pos 400
+    (LAYER_BF16_CASES), and two calls bit-identical.  Compared: x out and
     every K/V column written; every other cache slot unchanged.  Timed at
     full depth, W 256, pos 255, no key_start, with CUDA events around
     back-to-back launches (a cooperative launch is not captured in a
@@ -993,17 +1014,19 @@ def check_layer_step(dims, B: int, dtype, gen) -> dict:
     depth = L if dtype == torch.float32 else LAYER_BF16_DEPTH
     dec = random_decoder(dims, depth, dtype, gen, dev)
     weights = decoder_step_weights(dec.blocks)
-    ks = torch.arange(B, device=dev) * 37 % 231 + 1
-    worst = (0.0, 0.0)
-    for G, W, pos in ((1, STEP_WINDOW, STEP_WINDOW - 1), (1, n_ctx, 400), (2, n_ctx, 400)):
-        x, kv, kc, vc = layer_step_case(dims, depth, B, G, dtype, gen, dev)
+    worst, identical = (0.0, 0.0), {}
+    cases = LAYER_CASES + (LAYER_BF16_CASES if dtype == torch.bfloat16 else ())
+    for rows, G, W, pos in cases:
+        rows = rows or B
+        ks = torch.arange(rows, device=dev) * 37 % 231 + 1
+        x, kv, kc, vc = layer_step_case(dims, depth, rows, G, dtype, gen, dev)
         before = (kc.clone(), vc.clone())
         plain_caches = (kc.clone(), vc.clone())
         got = layer_step(decoder_step_fused, weights, x, kv, (kc, vc), pos, ks, H, G, W)
         want = layer_step(decoder_step_fused_plain, weights, x, kv, plain_caches, pos, ks, H, G,
                           W)
-        err = compare(f"{name} {tag} {depth} layers G {G} W {W} pos {pos} key_start 1..231 "
-                      f"(x, K and V columns)", got, want, tol)
+        err = compare(f"{name} {tag} {depth} layers B {rows} G {G} W {W} pos {pos} key_start "
+                      f"1..231 (x, K and V columns)", got, want, tol)
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
         for cache, old in zip((kc, vc), before):
             rest, old_rest = cache.clone(), old.clone()
@@ -1011,6 +1034,9 @@ def check_layer_step(dims, B: int, dtype, gen) -> dict:
             old_rest[:, :, :, pos] = 0
             if not torch.equal(rest, old_rest):
                 raise AssertionError(f"{name}: a cache slot other than pos changed")
+        if dtype == torch.bfloat16 and (rows, G, W) == (B, 1, STEP_WINDOW):
+            check_deterministic(name, lambda: decoder_step_fused(
+                x, weights, kv, kc, vc, pos, ks, n_head=H, group=G, window=W), identical)
         del x, kv, kc, vc, before, plain_caches
     print("  cache: only slot pos of each layer written", flush=True)
 
@@ -1041,6 +1067,7 @@ def check_layer_step(dims, B: int, dtype, gen) -> dict:
         None, nbytes=nbytes, flops=flops, reps=20, graph=False, checked=worst,
     )
     row["layered_step_ms"], row["layer_route_forward_ms"] = layered_ms, route_ms
+    row.update(identical)
     print(f"    layered step (step_kernel=\"append\", one TextDecoder.forward, CUDA graph) "
           f"{layered_ms:.4f} ms | layer route forward {route_ms:.4f} ms", flush=True)
 
@@ -1050,14 +1077,15 @@ def check_layer_step(dims, B: int, dtype, gen) -> dict:
     decoder_step_fused(x, weights, kv, kc, vc, pos, None, n_head=H, group=1, window=W,
                        clock=clock)
     torch.cuda.synchronize()
-    spans = (clock[1:] - clock[:-1]).view(L, 8).double().mean(dim=0) / 1e3  # us
-    phase_bytes = [3 * D * D, 2 * B * H * (pos + 1) * 64, D * D, D * D, kv[0].numel(), D * D,
-                   4 * D * D, 4 * D * D]
-    row["phase_us"] = dict(zip(PHASES, spans.tolist()))
+    spans = ((clock[1:] - clock[:-1]).view(L, 8).double().mean(dim=0) / 1e3).tolist()  # us
+    phase_bytes = [n * isz for n in layer_phase_bytes(dims, B, 1, pos)]
+    row["phase_us"] = dict(zip(PHASES, spans))
+    row["phase_bound_us"] = {ph: n / MEM_BW * 1e6 for ph, n in zip(PHASES, phase_bytes)}
+    row["phase_gbps"] = {ph: n / us / 1e3 for ph, us, n in zip(PHASES, spans, phase_bytes)}
     print(f"    phases, mean over {L} layers of one clocked launch "
           f"({(clock[-1] - clock[0]).item() / 1e6:.4f} ms in all): " + "; ".join(
-              f"{name} {us:.1f} us ({n * isz / us / 1e3:.0f} GB/s)"
-              for name, us, n in zip(PHASES, spans.tolist(), phase_bytes)), flush=True)
+              f"{ph} {us:.2f} us (bound {row['phase_bound_us'][ph]:.2f}; "
+              f"{row['phase_gbps'][ph]:.0f} GB/s)" for ph, us in zip(PHASES, spans)), flush=True)
     del dec, weights, x, kv, kc, vc
     torch.cuda.empty_cache()
     return row
@@ -2240,7 +2268,8 @@ OWN_KERNELS = {
     "mlp_fc1_gelu_kernel": "decoder_mlp_step (f32: fc1 + GELU)",
     "mlp_fc2_kernel": "decoder_mlp_step (f32: fc2)",
     "self_fused_kernel": "self_attention_fused_step",
-    "decoder_step_kernel": "decoder_step_fused",
+    "decoder_step_kernel": "decoder_step_fused (f32)",
+    "decoder_step_tc_kernel": "decoder_step_fused (bf16)",
     "self_step_kernel": "self_attention_step",
     "beam_self_int8_kernel": "beam_self_attention_step (int8)",
 }
@@ -2355,8 +2384,8 @@ KERNELS = {
 
 def print_ptxas() -> None:
     """ptxas's registers and spills of every kernel, from the build: each
-    instance of the two kernels this slice redesigned (rows 1 and 5), a
-    summary line for each other source."""
+    instance of the kernel this slice redesigned (row 12, bf16 and its f32
+    parity instance), a summary line for each other source."""
     for source in SOURCES:
         report = ptxas_report(source)
         if not report:
@@ -2366,10 +2395,37 @@ def print_ptxas() -> None:
         print(f"[build] ptxas {source}: {len(report)} kernels, registers "
               f"{min(r[1] for r in report)}-{max(r[1] for r in report)}, "
               f"{len(spills)} with spills", flush=True)
-        if source in ("mel", "cross_attention"):
+        if source == "decoder_layer":
             for kernel, regs, stores, loads, stack in report:
                 print(f"  {kernel[-64:]}: {regs} registers, spill stores {stores} B, spill "
                       f"loads {loads} B, stack {stack} B", flush=True)
+
+
+def print_sass_mma(source: str = "decoder_layer") -> None:
+    """The tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) of each
+    kernel of ``source``'s built library, from ``cuobjdump -sass`` beside
+    nvcc (not measured where it is missing)."""
+    import pathlib
+    import re
+
+    tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print(f"[build] sass {source}: cuobjdump not found, not measured", flush=True)
+        return
+    sass = subprocess.run([str(tool), "-sass", str(library_path(source))], capture_output=True,
+                          text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            counts[kernel] = [0, 0]
+        elif kernel and "HGMMA" in line:
+            counts[kernel][1] += 1
+        elif kernel and "HMMA" in line:
+            counts[kernel][0] += 1
+    for kernel, (hmma, hgmma) in counts.items():
+        print(f"[build] sass {source} {kernel[-64:]}: HMMA {hmma}, HGMMA {hgmma}", flush=True)
 
 
 def int8_label(m: str, b: int, beam: int) -> str:
@@ -2393,6 +2449,7 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s wall, per source "
           f"{ {k: round(v, 1) for k, v in built.items()} }", flush=True)
     print_ptxas()
+    print_sass_mma()
 
     def phase_done(phase: str, t0: float) -> None:
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2499,7 +2556,8 @@ def main() -> int:
                + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"]
                + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL,
                                        MLP_TILES_LABEL, G10_LABEL])
-    extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "library_call",
+    extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "phase_bound_us",
+                  "phase_gbps", "library_call",
                   "cold_ms", "library_cold_ms", "bit_identical", "plan", "one_window",
                   "direct_dft_bound_ms")
     line = []

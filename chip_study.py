@@ -2,6 +2,7 @@
 
     python3 chip_study.py plans [PARENT [LABEL]]
     python3 chip_study.py parity-seeds [TREE]
+    python3 chip_study.py layer [PARENT]
 
 ``plans``: the cross kernel (row 5, ``csrc/cross_attention.cu``) at every
 path shape of ``chip_smoke.py`` (the golden dims' included) under every
@@ -20,6 +21,19 @@ label starts with it.
 (``parity_beam``, medium.en cut to 4 + 4 layers, f32) at the script's own
 audio seed and at three others, each reported pass or fail, run by the
 ``chip_smoke.py`` of the checkout at TREE (default: this one).
+
+``layer``: the whole-step kernel (row 12, ``csrc/decoder_layer.cu``) in
+bf16 at medium.en b8, W 256, pos 255 and W 448, pos 400, and at large-v3
+b12, W 256, pos 255 (G 1, seeded random decoders, ``chip_smoke.
+random_decoder``): first held to its plain version at
+``chip_smoke.LAYER_BF16_DEPTH`` layers and called twice for the same bits,
+then timed at full depth (CUDA events around 20 back-to-back launches,
+each with its wrapper's allocations), with the mean time of each of its
+eight phases over the layers from one launch with its phase clock.  With
+PARENT, a checkout of an earlier tree, that tree's kernel is built from
+its source with this tree's nvcc flags and timed the same way in turns
+(parent, this, this, parent) through its own C interface (the one without
+a launch plan).
 
 Exits nonzero, printing no result, where CUDA is absent.
 """
@@ -53,6 +67,112 @@ def parent_cross(parent: pathlib.Path):
     bf16, int8 = lib.cross_attention_bf16, lib.cross_attention_int8_bf16
     bf16.argtypes, int8.argtypes = [P] * 3 + [I] * 6 + [P], [P] * 5 + [I] * 6 + [P]
     return bf16, int8
+
+
+def parent_layer(parent: pathlib.Path):
+    """The bf16 entry point of PARENT's whole-step kernel, built into
+    build/study/ with this tree's nvcc flags."""
+    from whisper_rs_tpu_torch.ops import build
+
+    src = parent / "whisper_rs_tpu_torch" / "csrc" / "decoder_layer.cu"
+    out = pathlib.Path(__file__).resolve().parent / "build" / "study" / "parent_layer.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).decoder_step_bf16
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 11 + [I] * 9 + [ctypes.c_float, P]
+    fn.restype = I
+    return fn
+
+
+def layer(cs, parent=None) -> None:
+    from whisper_rs_tpu_torch.config import dims_for
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import (
+        decoder_step_fused,
+        decoder_step_fused_plain,
+        decoder_step_weights,
+        layer_launch_plan,
+    )
+
+    old = parent_layer(pathlib.Path(parent).resolve()) if parent else None
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    name = "decoder_step_fused"
+    # (label, model, rows, window, pos)
+    shapes = [("medium.en b8 W 256", "medium.en", 8, 256, 255),
+              ("medium.en b8 W 448", "medium.en", 8, 448, 400),
+              ("large-v3 b12 W 256", "large-v3", 12, 256, 255)]
+    for label, model, B, W, pos in shapes:
+        dims = dims_for(model)
+        L, H, D = dims.n_text_layer, dims.n_text_head, dims.n_text_state
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = layer_launch_plan(B, D, blocks, 1, dims.n_audio_ctx, dims.n_text_ctx)
+        print(f"[layer] {label}: plan " + "; ".join(
+            f"{ph.name} {ph.slices}x{ph.width}" for ph in plan.phases)
+            + f"; ring {plan.stages} stages, cross ring {plan.cross_stages}", flush=True)
+        ks = torch.arange(B, device=dev) * 37 % 231 + 1
+        depth = cs.LAYER_BF16_DEPTH
+        dec = cs.random_decoder(dims, depth, torch.bfloat16, gen, dev)
+        weights = decoder_step_weights(dec.blocks)
+        x, kv, kc, vc = cs.layer_step_case(dims, depth, B, 1, torch.bfloat16, gen, dev)
+        got = cs.layer_step(decoder_step_fused, weights, x, kv, (kc.clone(), vc.clone()), pos, ks,
+                            H, 1, W)
+        want = cs.layer_step(decoder_step_fused_plain, weights, x, kv, (kc.clone(), vc.clone()),
+                             pos, ks, H, 1, W)
+        cs.compare(f"{name} {label}, {depth} layers", got, want, cs.tolerance(name, torch.bfloat16))
+        cs.check_deterministic(name, lambda: decoder_step_fused(
+            x, weights, kv, kc, vc, pos, ks, n_head=H, group=1, window=W), {})
+        del dec, weights, x, kv, kc, vc, got, want
+        torch.cuda.empty_cache()
+
+        dec = cs.random_decoder(dims, L, torch.bfloat16, gen, dev)
+        weights = decoder_step_weights(dec.blocks)
+        x, kv, kc, vc = cs.layer_step_case(dims, L, B, 1, torch.bfloat16, gen, dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def new(clock=None):
+            return decoder_step_fused(x, weights, kv, kc, vc, pos, None, n_head=H, group=1,
+                                      window=W, clock=clock)
+
+        def parent_call(clock=None):
+            out = x.clone()
+            q, att = torch.empty_like(x), torch.empty_like(x)
+            hid = torch.empty(B, 4 * D, dtype=x.dtype, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            err = old(weights.table.data_ptr(), kv.data_ptr(), None, out.data_ptr(),
+                      kc.data_ptr(), vc.data_ptr(), q.data_ptr(), att.data_ptr(), hid.data_ptr(),
+                      bar.data_ptr(), None if clock is None else clock.data_ptr(), B, D, H, L, 1,
+                      dims.n_audio_ctx, dims.n_text_ctx, pos, W, 64**-0.5, stream)
+            if err:
+                raise RuntimeError(f"parent whole-step kernel launch failed: {err}")
+            return out
+
+        if old is not None:
+            diff = (parent_call().float() - new().float()).abs().max().item()
+            print(f"  parent vs this kernel, full depth: max abs diff {diff:.3e}", flush=True)
+        kernels = [("this", new)] if old is None else [
+            ("parent", parent_call), ("this", new), ("this", new), ("parent", parent_call)]
+        times = {}
+        for who, fn in kernels:
+            times.setdefault(who, []).append(cs.timed_ms(fn, 20))
+        spans = {}
+        for who, fn in kernels[:2]:
+            clock = torch.zeros(8 * L + 1, dtype=torch.int64, device=dev)
+            fn(clock)
+            torch.cuda.synchronize()
+            spans[who] = ((clock[1:] - clock[:-1]).view(L, 8).double().mean(dim=0) / 1e3).tolist()
+        isz = 2
+        phase_bytes = cs.layer_phase_bytes(dims, B, 1, pos)
+        bounds = [n * isz / cs.MEM_BW * 1e6 for n in phase_bytes]
+        print(f"  ms at full depth ({L} layers), in turns: " + "; ".join(
+            f"{who} " + ", ".join(f"{t:.4f}" for t in ts) for who, ts in times.items()),
+            flush=True)
+        for who, us in spans.items():
+            print(f"  phases ({who}), mean us over {L} layers [bound us]: " + "; ".join(
+                f"{ph} {u:.2f} [{b:.2f}]" for ph, u, b in zip(cs.PHASES, us, bounds)), flush=True)
+        del dec, weights, x, kv, kc, vc
+        torch.cuda.empty_cache()
 
 
 def plans(cs, parent=None, only=None) -> None:
@@ -168,7 +288,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_study: CUDA is not available", file=sys.stderr)
         return 1
-    if len(sys.argv) < 2 or sys.argv[1] not in ("plans", "parity-seeds"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("plans", "parity-seeds", "layer"):
         print(__doc__, file=sys.stderr)
         return 2
     arg = sys.argv[2] if len(sys.argv) > 2 else None
@@ -184,6 +304,8 @@ def main() -> int:
     build_all()
     if sys.argv[1] == "plans":
         plans(cs, arg, sys.argv[3] if len(sys.argv) > 3 else None)
+    elif sys.argv[1] == "layer":
+        layer(cs, arg)
     else:
         parity_seeds(cs)
     return 0

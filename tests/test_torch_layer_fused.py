@@ -228,3 +228,123 @@ def test_decode_greedy_rejects_unknown_route(weights):
     with pytest.raises(ValueError, match="step_kernel"):
         decode_greedy(model, torch.zeros(1, 80, 3000), np.full((1, 1), SOT), 1, 0,
                       FilterConfig(**CFG_KW), GreedyMode(), 4, NO_SPEECH, step_kernel="fast")
+
+
+# ---- the bf16 kernel's launch plan (ops/decoder_layer_fused.py) -------------
+
+# (model, rows, rows an audio): the layer route's path, large-v3's and
+# base.en's greedy batches cut to the kernel's 16 rows, and 16 rows
+PLAN_SHAPES = {
+    "medium.en b8": ("medium.en", 8, 1),
+    "large-v3 b12": ("large-v3", 12, 1),
+    "base.en b16": ("base.en", 16, 1),
+    "medium.en b16 G2": ("medium.en", 16, 2),
+}
+H100_SMS = 132
+
+
+def _plan(case, blocks=H100_SMS):
+    from whisper_rs_tpu_torch.config import dims_for
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import layer_launch_plan
+
+    model, rows, group = PLAN_SHAPES[case]
+    dims = dims_for(model)
+    return dims, layer_launch_plan(rows, dims.n_text_state, blocks, group, dims.n_audio_ctx,
+                                   dims.n_text_ctx)
+
+
+@pytest.mark.parametrize("case", list(PLAN_SHAPES))
+def test_layer_plan_covers_every_feature_once_in_every_slice(case):
+    """Each projection's K-slices are exact and non-empty (ks x width = K,
+    widths on the mma's 16-deep steps), the blocks take the slices in
+    order, and within each slice every output feature is some block's,
+    exactly once."""
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import SLICE_STEP, TILE_FEATURES
+
+    dims, plan = _plan(case)
+    D = dims.n_text_state
+    want = {"qkv": (3 * D, D), "out": (D, D), "cross_q": (D, D), "cross_out": (D, D),
+            "fc1": (4 * D, D), "fc2": (D, 4 * D)}
+    assert [ph.name for ph in plan.phases] == list(want)
+    for ph in plan.phases:
+        assert (ph.features, ph.depth) == want[ph.name]
+        assert ph.slices * ph.width == ph.depth and ph.width > 0 and ph.width % SLICE_STEP == 0
+        assert len(ph.blocks) == H100_SMS
+        slices = [s for s, _, _ in ph.blocks]
+        assert slices == sorted(slices) and set(slices) == set(range(ph.slices))
+        for s in range(ph.slices):
+            covered = np.zeros(ph.features, int)
+            for slice_, t0, t1 in ph.blocks:
+                assert 0 <= t0 <= t1 <= ph.features // TILE_FEATURES
+                if slice_ == s:
+                    covered[t0 * TILE_FEATURES:t1 * TILE_FEATURES] += 1
+            assert (covered == 1).all(), (ph.name, s)
+
+
+@pytest.mark.parametrize("case", list(PLAN_SHAPES))
+def test_layer_plan_spreads_the_weights_over_every_block(case):
+    """Every block streams weights in every layer; in each projection the
+    blocks of a slice take runs of tiles that differ by one tile at most,
+    and the slices have blocks that differ by one at most."""
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import TILE_FEATURES
+
+    _, plan = _plan(case)
+    per_block = np.zeros(H100_SMS)
+    for ph in plan.phases:
+        cols = np.array([(t1 - t0) * ph.width for _, t0, t1 in ph.blocks])
+        assert cols.sum() == ph.features // TILE_FEATURES * ph.depth
+        sizes = np.bincount([s for s, _, _ in ph.blocks])
+        assert sizes.max() - sizes.min() <= 1, ph.name
+        for s in range(ph.slices):
+            tiles = [t1 - t0 for slice_, t0, t1 in ph.blocks if slice_ == s]
+            assert max(tiles) - min(tiles) <= 1, (ph.name, s)
+        per_block += cols
+    assert (per_block > 0).all()
+
+
+@pytest.mark.parametrize("case", list(PLAN_SHAPES))
+def test_layer_plan_fits_shared_memory(case):
+    """The plan's shared memory (the weight ring, then the largest phase's
+    region) stays within a block's, with the rings at least as deep as the
+    kernel needs, and its scratch holds the widest phase's partials."""
+    from whisper_rs_tpu_torch.ops import decoder_layer_fused as dlf
+
+    dims, plan = _plan(case)
+    _, rows, group = PLAN_SHAPES[case]
+    assert dlf.MIN_STAGES <= plan.stages <= dlf.MAX_STAGES
+    assert dlf.MIN_CROSS_STAGES <= plan.cross_stages <= dlf.MAX_CROSS_STAGES
+    assert plan.act_pitch % 32 == 16  # staged rows on distinct banks for ldmatrix
+    widest = max(ph.width for ph in plan.phases)
+    tiles = max(t1 - t0 for ph in plan.phases for _, t0, t1 in ph.blocks)
+    assert tiles <= dlf.MAX_TILES
+    region = dlf._region_bytes(rows, dims.n_text_state, widest, tiles, group, dims.n_audio_ctx,
+                               dims.n_text_ctx, plan.cross_stages)
+    assert plan.smem == plan.stages * dlf.STAGE_BYTES + region <= dlf.SMEM_LIMIT
+    assert dlf.layer_kernel_takes(rows, group, 64, dims.n_audio_ctx, dims.n_text_ctx,
+                                  dims.n_text_state, 2)
+    for ph in plan.phases:
+        assert ph.features * ph.slices * rows <= plan.partial_floats
+        assert ph.features // dlf.TILE_FEATURES * ph.slices <= plan.flags
+
+
+def test_layer_plan_split_sums_match_the_plain_product():
+    """The kernel's split-K arithmetic, emulated: each slice's f32 sum, then
+    the slices added in order, rounded once, agrees with the plain
+    version's product to within one bf16 ulp of each output, at the
+    medium.en b16 plan's fc2 (two slices of 2048) and the large-v3 b12
+    plan's (five of 1024)."""
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import _dot
+
+    rng = np.random.default_rng(5)
+    for case, index in (("medium.en b16 G2", 5), ("large-v3 b12", 5)):
+        ph = _plan(case)[1].phases[index]
+        assert ph.slices > 1
+        a = torch.from_numpy(rng.standard_normal((8, ph.depth)).astype(np.float32)).bfloat16()
+        w = torch.from_numpy((rng.standard_normal((ph.features, ph.depth)) * ph.depth**-0.5)
+                             .astype(np.float32)).bfloat16()
+        total = torch.zeros(8, ph.features)
+        for s in range(ph.slices):
+            cols = slice(s * ph.width, (s + 1) * ph.width)
+            total = total + a[:, cols].float() @ w[:, cols].float().T
+        got, want = total.bfloat16().float(), _dot(a, w).float()
+        assert ((got - want).abs() <= 2**-7 * want.abs() + 1e-6).all(), ph.name

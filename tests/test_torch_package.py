@@ -279,6 +279,36 @@ def test_route_predicates(case, takes):
     assert calls[case]() is takes
 
 
+def _layer_takes_before(rows, group, head_dim, Tk, n_ctx, d_model, itemsize):
+    """The whole-step kernel's predicate before its bf16 redesign: the
+    largest of the staged rows [B, 4D], the cross scores and the self
+    scores within 220 KiB."""
+    smem = max(rows * 4 * d_model * itemsize, group * Tk * 4, n_ctx * 4)
+    return (head_dim == 64 and rows <= 16 and group in (1, 2, 4, 8) and Tk % 4 == 0
+            and smem <= 220 * 1024)
+
+
+def test_layer_kernel_takes_every_registry_shape_it_took_before():
+    """Every registry model's step of 1-16 rows in groups of 1, 2, 4 or 8,
+    f32 or bf16, at n_audio_ctx keys and n_text_ctx slots, that the
+    predicate took before the bf16 redesign, it takes now: no step that
+    ran in one launch falls back to the append route."""
+    from whisper_rs_tpu_torch.config import MODEL_REGISTRY
+    from whisper_rs_tpu_torch.ops.decoder_layer_fused import layer_kernel_takes
+
+    taken = 0
+    for dims in MODEL_REGISTRY.values():
+        for rows in range(1, 17):
+            for group in (g for g in (1, 2, 4, 8) if rows % g == 0):
+                for itemsize in (2, 4):
+                    shape = (rows, group, dims.head_dim, dims.n_audio_ctx, dims.n_text_ctx,
+                             dims.n_text_state, itemsize)
+                    if _layer_takes_before(*shape):
+                        taken += 1
+                        assert layer_kernel_takes(*shape), shape
+    assert taken > 500
+
+
 def test_layer_route_takes_the_append_route_where_the_kernel_refuses(monkeypatch):
     """A layer-route step at the golden dims (head dim 16, D 64) off the
     CPU: counted once under "decoder_step_fused:append", then every layer
@@ -505,6 +535,33 @@ def _layer_step_outputs(chip_smoke, fault=None):
     right = run()
     if fault == "masks_from_key_start_plus_1":
         return right, run(ks=ks + 1)
+    if fault in SPLIT_K_FAULTS:
+        # the bf16 kernel's split-K merge with a fault, in every layer: each
+        # K-slice's f32 partial of the product, summed in slice order with
+        # one slice dropped or one added twice, then rounded
+        which, drop, twice = SPLIT_K_FAULTS[fault]
+        ph = dlf.layer_launch_plan(16, dims.n_text_state, 132, 2, dims.n_audio_ctx,
+                                   dims.n_text_ctx).phases[dlf.PROJECTIONS.index(which)]
+        assert ph.slices > 1
+        col = dlf.WEIGHT_NAMES.index("mlp.2.weight")
+        targets = {id(layer[col]) for layer in weights.layers}
+        real_dot = dlf._dot
+
+        def split_dot(a, w):
+            if id(w) not in targets:
+                return real_dot(a, w)
+            parts = [a[:, s * ph.width:(s + 1) * ph.width].float()
+                     @ w[:, s * ph.width:(s + 1) * ph.width].float().T for s in range(ph.slices)]
+            total = torch.zeros_like(parts[0])
+            for s, part in enumerate(parts):
+                total = total + part * ((s != drop) + (s == twice))
+            return total.to(a.dtype)
+
+        dlf._dot = split_dot
+        try:
+            return right, run()
+        finally:
+            dlf._dot = real_dot
     if fault == "skips_layer_1_cross_attention":  # its out-projection and bias to 0
         layers = [list(layer) for layer in weights.layers]
         wco = dlf.WEIGHT_NAMES.index("cross_attn.out.weight")
@@ -519,10 +576,21 @@ def _layer_step_outputs(chip_smoke, fault=None):
         dlf._dot = real_dot
 
 
-@pytest.mark.parametrize("fault", ["skips_layer_1_cross_attention", "masks_from_key_start_plus_1"])
+# faults of a split-K merge: (projection, slice dropped, slice added twice)
+SPLIT_K_FAULTS = {
+    "drops_one_fc2_k_slice": ("fc2", 1, None),
+    "drops_the_owners_fc2_k_slice": ("fc2", 0, None),
+    "adds_an_fc2_partial_twice": ("fc2", None, 1),
+}
+
+
+@pytest.mark.parametrize("fault", ["skips_layer_1_cross_attention", "masks_from_key_start_plus_1",
+                                   *SPLIT_K_FAULTS])
 def test_chip_smoke_bf16_tolerance_rejects_faulty_layer_step(chip_smoke, fault):
     """The whole-step kernel's bf16 tolerance at 4 layers fails a step that
-    skips one layer's cross-attention or masks from key_start + 1."""
+    skips one layer's cross-attention or masks from key_start + 1, and a
+    split-K merge of fc2 (the bf16 kernel's plan at 16 rows: two K-slices)
+    that drops a slice's partial, either one, or adds one twice."""
     right, wrong = _layer_step_outputs(chip_smoke, fault)
     name = "decoder_step_fused"
     with pytest.raises(AssertionError, match="disagrees"):

@@ -27,6 +27,15 @@ packed the weights into one [L, 2, n, 8n] stream because one wide DMA ran
 full rate, and the copy would take 705 MB more device memory at medium.en
 bf16 and a copy pass per decode.
 
+In bf16 the kernel streams each projection's weights on the tensor cores
+by a static plan, ``layer_launch_plan``: each projection is cut into tiles
+of 8 output features and ``ks`` K-slices, and each block of the grid
+takes one slice of a run of tiles, so that every block streams about the
+same weight bytes in each phase; the slices' f32 partials are summed in
+slice order by the block of slice 0.  The plan also lays out the block's
+shared memory (the weight ring, the staged rows, the cross ring).  The f32
+instance, the parity variant, needs no plan.
+
 ``layer_kernel_takes`` is the kernel's routing predicate, in the place of
 the TPU's VMEM gate (``layer_fused_ok``): where it refuses a shape, the
 decoder runs that step through the append route instead, as the JAX loop
@@ -38,6 +47,8 @@ predicate refuses, and never falls back to the plain version.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +62,42 @@ HEAD_DIM = 64  # the whole-step kernel's only head dim
 MAX_ROWS = 16  # rows a launch takes (one warp a row in the LayerNorms)
 GROUPS = (1, 2, 4, 8)  # rows an audio in the cross-attention
 SMEM_LIMIT = 220 * 1024  # dynamic shared memory a block may take, bytes
+
+# The bf16 kernel's layout (csrc/decoder_layer.cu).  A weight tile is 8
+# output features (the mma's N; the rows of x are its M); a ring stage
+# holds 512 columns of its 8 rows, each row padded by 16 bytes; the
+# consumers are 8 warps, whose f32 tiles [16, 8] are summed in shared
+# memory (two sets, used in turns) into the block's tile sums (at most
+# MAX_TILES tiles a block a phase).  A block stages the activations' K-slice
+# for 8 rows (16 above 8), at most STAGED_BYTES of them (K-slices are
+# multiples of 16 columns, the mma's depth), and a LayerNorm phase's scale
+# and offset (LN_BYTES) and input rows [B, D], D <= MAX_WIDTH.  A K-slicing
+# is scored by the ring chunks of its busiest block, and a split by
+# MERGE_CHUNKS more: the merge's round trips through L2 cost about as much
+# as streaming that many chunks (measured on the H100, PERF.md); among the
+# scores within FEWER_SLICES of the best, the fewest slices.
+# The cross ring's stages are 8 rows of a [64, Tk] plane.  The weight ring
+# takes what the largest phase leaves, MIN_STAGES at least; the cross ring
+# is as deep as leaves WANT_STAGES weight stages, up to MAX_CROSS_STAGES.
+TILE_FEATURES = 8
+STAGE_COLS = 512
+STAGE_BYTES = TILE_FEATURES * (2 * STAGE_COLS + 16)
+CONSUMER_WARPS = 8
+TILE_SUM_BYTES = 16 * TILE_FEATURES * 4
+RED_BYTES = CONSUMER_WARPS * TILE_SUM_BYTES
+MAX_TILES = 16
+MERGE_CHUNKS = 4
+FEWER_SLICES = 1.07
+SLICE_STEP = 16
+STAGED_BYTES = 64 * 1024
+MAX_SLICES = 16
+MAX_WIDTH = 2048
+LN_BYTES = 2 * MAX_WIDTH * 2
+CROSS_ROWS = 8
+MIN_STAGES, WANT_STAGES, MAX_STAGES = 4, 12, 16
+MIN_CROSS_STAGES, MAX_CROSS_STAGES = 2, 4
+# the six projections of a layer, in the kernel's order
+PROJECTIONS = ("qkv", "out", "cross_q", "cross_out", "fc1", "fc2")
 
 # per layer, in the column order of the kernel's table (csrc/decoder_layer.cu)
 WEIGHT_NAMES = (
@@ -97,19 +144,149 @@ def decoder_step_weights(blocks) -> DecoderStepWeights:
     return DecoderStepWeights(tuple(layers), table)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class PhasePlan(NamedTuple):
+    """One projection of the bf16 kernel: ``features`` outputs (N) of depth
+    ``depth`` (K), cut into N / 8 tiles and ``slices`` K-slices of
+    ``width`` columns; ``blocks[j]`` = (slice, t0, t1): block j takes
+    columns slice * width .. + width of tiles t0 .. t1 - 1.  The blocks of
+    slice s are a run, and among them the tiles [0, N / 8) are split in
+    runs, so each slice covers every tile once."""
+    name: str
+    features: int
+    depth: int
+    slices: int
+    width: int
+    blocks: tuple
+
+
+class LayerPlan(NamedTuple):
+    """The bf16 kernel's launch: the six projections' plans, the weight
+    ring's stages, the cross ring's, the staged rows' pitch (bytes), the
+    dynamic shared memory, and the sizes of the split-K partials (floats)
+    and their flags."""
+    phases: tuple
+    stages: int
+    cross_stages: int
+    act_pitch: int
+    smem: int
+    partial_floats: int
+    flags: int
+
+
+def _staged_rows(rows: int) -> int:
+    return 8 if rows <= 8 else 16
+
+
+def _slice_cols_max(rows: int) -> int:
+    """The widest K-slice whose staged rows fit STAGED_BYTES."""
+    return STAGED_BYTES // (2 * _staged_rows(rows))
+
+
+def _phase_plan(name: str, N: int, K: int, blocks: int, rows: int) -> PhasePlan:
+    """The fewest K-slices whose score (the busiest block's ring chunks,
+    tiles a block times chunks a slice, and MERGE_CHUNKS for a split) is
+    within FEWER_SLICES of the least, each slice a multiple of SLICE_STEP
+    and its staged rows within STAGED_BYTES, every slice given blocks of
+    its own, at most MAX_TILES tiles a block."""
+    T = N // TILE_FEATURES
+    options = []
+    for ks in range(1, min(MAX_SLICES, blocks) + 1):
+        if K % (SLICE_STEP * ks) or K // ks > _slice_cols_max(rows):
+            continue
+        groups = [blocks * (s + 1) // ks - blocks * s // ks for s in range(ks)]
+        tiles = _cdiv(T, min(groups))
+        if tiles <= MAX_TILES:
+            score = tiles * _cdiv(K // ks, STAGE_COLS) + (MERGE_CHUNKS if ks > 1 else 0)
+            options.append((score, ks, groups))
+    if not options:
+        raise ValueError(f"layer_launch_plan: no K-slices of {K} fit {blocks} blocks")
+    least = min(o[0] for o in options)
+    _, ks, groups = next(o for o in options if o[0] <= FEWER_SLICES * least)
+    # runs of ceil(i T / m): where the tiles are fewer than the blocks, the
+    # last blocks of a slice idle and block 0 (the phase clock's) works
+    assign = tuple((s, _cdiv(i * T, m), _cdiv((i + 1) * T, m)) for s, m in enumerate(groups)
+                   for i in range(m))
+    return PhasePlan(name, N, K, ks, K // ks, assign)
+
+
+def _region_bytes(rows: int, width: int, widest: int, tiles: int, group: int, Tk: int,
+                  n_ctx: int, cross_stages: int) -> int:
+    """The shared memory after the weight ring: the largest of the staged
+    rows (``widest`` columns) with the warps' two sets of f32 tiles, the
+    LayerNorm's scale and offset, its input rows [B, D] and the block's
+    ``tiles`` tile sums, the self scores [n_ctx] f32 with a head's V rows
+    [n_ctx, 64] bf16, and the cross ring with the cross scores [G, Tk]
+    f32."""
+    act = (_staged_rows(rows) * (2 * widest + 16) + 2 * RED_BYTES + LN_BYTES + rows * width * 2
+           + tiles * TILE_SUM_BYTES)
+    cross = cross_stages * CROSS_ROWS * Tk * 2 + group * Tk * 4
+    return max(act, 16 * _cdiv(n_ctx, 4) + 128 * n_ctx, cross)
+
+
+@functools.lru_cache(maxsize=None)
+def layer_launch_plan(rows: int, d_model: int, blocks: int, group: int, Tk: int,
+                      n_ctx: int) -> LayerPlan:
+    """The bf16 kernel's plan for a step of ``rows`` rows at width
+    ``d_model`` on a grid of ``blocks`` (one a SM)."""
+    D = d_model
+    shapes = ((3 * D, D), (D, D), (D, D), (D, D), (4 * D, D), (D, 4 * D))
+    phases = tuple(_phase_plan(name, N, K, blocks, rows)
+                   for name, (N, K) in zip(PROJECTIONS, shapes))
+    widest = max(ph.width for ph in phases)
+    tiles = max(t1 - t0 for ph in phases for _, t0, t1 in ph.blocks)
+    cross_stages = MIN_CROSS_STAGES
+    for c in range(MAX_CROSS_STAGES, MIN_CROSS_STAGES, -1):
+        if (SMEM_LIMIT - _region_bytes(rows, D, widest, tiles, group, Tk, n_ctx, c)
+                >= WANT_STAGES * STAGE_BYTES):
+            cross_stages = c
+            break
+    region = _region_bytes(rows, D, widest, tiles, group, Tk, n_ctx, cross_stages)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - region) // STAGE_BYTES)
+    if stages < MIN_STAGES:
+        raise ValueError(f"layer_launch_plan: {region} bytes leave no room for the weight ring")
+    return LayerPlan(
+        phases, stages, cross_stages, 2 * widest + 16, stages * STAGE_BYTES + region,
+        max(ph.features * ph.slices for ph in phases) * rows,
+        max(ph.features // TILE_FEATURES * ph.slices for ph in phases),
+    )
+
+
 def _smem_bytes(rows: int, d_model: int, itemsize: int, group: int, Tk: int, n_ctx: int) -> int:
-    """The kernel's dynamic shared memory: the largest of the staged rows
-    [B, 4D], the cross scores [G, Tk] f32 and the self scores [n_ctx] f32."""
-    return max(rows * 4 * d_model * itemsize, group * Tk * 4, n_ctx * 4)
+    """The kernel's dynamic shared memory at its least.  f32: the largest of
+    the staged rows [B, 4D], the cross scores [G, Tk] f32 and the self
+    scores [n_ctx] f32.  bf16: MIN_STAGES of the weight ring and the
+    largest phase's region at the widest K-slice, the most tiles a block
+    and the shallowest cross ring (a plan takes no more)."""
+    if itemsize == 4:
+        return max(rows * 4 * d_model * itemsize, group * Tk * 4, n_ctx * 4)
+    return MIN_STAGES * STAGE_BYTES + _region_bytes(
+        rows, d_model, _slice_cols_max(rows), MAX_TILES, group, Tk, n_ctx, MIN_CROSS_STAGES)
 
 
 def layer_kernel_takes(rows: int, group: int, head_dim: int, Tk: int, n_ctx: int,
                        d_model: int, itemsize: int) -> bool:
     """Whether the whole-step kernel takes a step of ``rows`` rows in groups
     of ``group``: head dim 64, at most 16 rows, groups of 1, 2, 4 or 8,
-    Tk % 4 = 0, and its shared memory within a block's."""
+    Tk % 4 = 0, its shared memory within a block's, and in bf16 a width of
+    at most MAX_WIDTH."""
     return (head_dim == HEAD_DIM and rows <= MAX_ROWS and group in GROUPS and Tk % 4 == 0
+            and (itemsize == 4 or d_model <= MAX_WIDTH)
             and _smem_bytes(rows, d_model, itemsize, group, Tk, n_ctx) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(rows: int, d_model: int, group: int, Tk: int, n_ctx: int, device):
+    """The plan for the device's SMs and its int32 table on the device:
+    [6][2] (slices, width), then [6][blocks][3] (slice, t0, t1)."""
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = layer_launch_plan(rows, d_model, blocks, group, Tk, n_ctx)
+    table = [v for ph in plan.phases for v in (ph.slices, ph.width)]
+    table += [v for ph in plan.phases for block in ph.blocks for v in block]
+    return blocks, plan, torch.tensor(table, dtype=torch.int32, device=device)
 
 
 def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -215,7 +392,8 @@ def decoder_step_fused(
     if not layer_kernel_takes(B, group, dh, Tk, n_ctx, D, x.element_size()):
         raise ValueError(
             f"{name}: the kernel takes head dim {HEAD_DIM}, at most {MAX_ROWS} rows, groups of "
-            f"{GROUPS}, Tk % 4 == 0 and {SMEM_LIMIT} bytes of shared memory a block; got dh "
+            f"{GROUPS}, Tk % 4 == 0, bf16 widths up to {MAX_WIDTH} and {SMEM_LIMIT} bytes of "
+            f"shared memory a block; got D {D}, dh "
             f"{dh}, {B} rows, group {group}, Tk {Tk}, "
             f"{_smem_bytes(B, D, x.element_size(), group, Tk, n_ctx)} bytes"
         )
@@ -240,20 +418,29 @@ def decoder_step_fused(
     q = torch.empty_like(x)
     att = torch.empty_like(x)
     hid = torch.empty((B, 4 * D), dtype=x.dtype, device=x.device)
-    bar = torch.zeros(1, dtype=torch.int32, device=x.device)
-    symbol = "decoder_step_bf16" if x.dtype == torch.bfloat16 else "decoder_step_f32"
-    fn = kernel_function(
-        "decoder_layer", symbol,
-        (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
-    )
-    err = fn(
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (
         weights.table.data_ptr(), cross_kv.data_ptr(),
         None if key_start is None else key_start.data_ptr(), out.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), q.data_ptr(), att.data_ptr(), hid.data_ptr(),
-        bar.data_ptr(), None if clock is None else clock.data_ptr(),
-        B, D, H, L, int(group), Tk, n_ctx, int(pos), int(window),
-        dh**-0.5, torch.cuda.current_stream(x.device).cuda_stream,
     )
+    shape = (B, D, H, L, int(group), Tk, n_ctx, int(pos), int(window), dh**-0.5)
+    if x.dtype == torch.bfloat16:
+        blocks, plan, table = _device_plan(B, D, int(group), Tk, n_ctx, x.device)
+        bar = torch.zeros(1 + plan.flags, dtype=torch.int32, device=x.device)  # and the flags
+        part = torch.empty(plan.partial_floats, dtype=torch.float32, device=x.device)
+        symbol = "decoder_step_bf16"
+        fn = kernel_function("decoder_layer", symbol,
+                             (P,) * 13 + (I,) * 9 + (F,) + (I,) * 5 + (P,))
+        err = fn(*args, bar.data_ptr(), None if clock is None else clock.data_ptr(),
+                 part.data_ptr(), table.data_ptr(), *shape, blocks, plan.stages,
+                 plan.cross_stages, plan.act_pitch, plan.smem, stream)
+    else:
+        bar = torch.zeros(1, dtype=torch.int32, device=x.device)
+        symbol = "decoder_step_f32"
+        fn = kernel_function("decoder_layer", symbol, (P,) * 11 + (I,) * 9 + (F, P))
+        err = fn(*args, bar.data_ptr(), None if clock is None else clock.data_ptr(), *shape,
+                 stream)
     check("decoder_layer", symbol, err)
     LAUNCHES["decoder_step_fused"] += 1
     return out
