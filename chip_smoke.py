@@ -32,7 +32,8 @@ Phases, in order; any mismatch raises and the script exits nonzero:
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
               source, all at once); the seconds are printed, each
-              kernel's registers and spills as ptxas reported them, and
+              kernel's registers and spills as ptxas reported them (each
+              instance of rows 7, 9 and 12, a summary for the rest), and
               the whole-step kernel's tensor-core instructions in its
               SASS (cuobjdump);
   3. kernels  each kernel wrapper at the shapes each path gives it, against
@@ -74,9 +75,12 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               64; off the path, the fused and read-only steps and the int8
               branches); on the main path every kernel at base.en batch 1,
               beam 5, and the mel kernel on the 95 s file's 4 chunks;
-              row 4 is also compared with n_valid < T; rows 1, 4, 5 (bf16
-              and int8), 6 and 8 in bf16 are called twice on the same
-              inputs and must give bit-identical outputs; row 5 is also
+              row 4 is also compared with n_valid < T; rows 7 and 9 (and
+              9's int8 branch) also with one row's (audio's) key_start
+              past pos, an empty window, and their launch plan is kept;
+              rows 1, 4, 5 (bf16 and int8), 6, 7, 8 and 9 (bf16 and int8)
+              in bf16 are called twice on the same inputs and must give
+              bit-identical outputs; row 5 is also
               checked at 4 audios of 10 rows (medium.en beam 10), past one
               chunk of rows; row 8 is timed hot and cold in L2 (rotating
               through n_text_layer weight sets, its library call the same
@@ -216,6 +220,7 @@ from whisper_rs_tpu_torch.ops.decode_attention import (
     self_attention_fused_step_plain,
     self_attention_step,
     self_attention_step_plain,
+    step_launch_plan,
 )
 from whisper_rs_tpu_torch.ops.decoder_layer_fused import (
     decoder_step_fused,
@@ -668,6 +673,10 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
     ks_nonzero = torch.arange(B, device=dev) * 37 % ks_top + 1
     checks = ((STEP_WINDOW, STEP_WINDOW - 1, ks_nonzero if fused else None),
               (n_ctx, 400, ks_nonzero))
+    if not fused:  # row 0's key_start past pos: its window (its audio's) is empty
+        ks_empty = ks_nonzero.clone()
+        ks_empty[0] = 401
+        checks += ((n_ctx, 400, ks_empty),)
 
     def run(fn, caches, pos, ks, W, at=layer):
         return fn(q, *new, *caches, at, pos, ks, *extra, window=W)
@@ -680,9 +689,9 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
         plain_caches = (k_all.clone(), v_all.clone())
         got = run(kernel, (k_all, v_all), pos, ks, W)
         want = run(plain, plain_caches, pos, ks, W)
-        err = compare(f"{name} {tag} W {W} pos {pos}"
-                      f"{f' key_start 1..{ks_top}' if ks is not None else ''}", (got,), (want,),
-                      tol)
+        what = "" if ks is None else (f" key_start 1..{ks_top}" if ks.max() <= ks_top else
+                                      " row 0's key_start past pos (empty window)")
+        err = compare(f"{name} {tag} W {W} pos {pos}{what}", (got,), (want,), tol)
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
         for cache, old, plain_cache in zip((k_all, v_all), before, plain_caches):
             cache_rest, old_rest = cache.clone(), old.clone()
@@ -725,7 +734,7 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
               f"ancestors, of {B * n} (row, slot) reads", flush=True)
     vectors = 2 if fused else 6  # q in, out; and k_new, v_new in, the column out
     nxt = rotating(L)
-    return check_kernel(
+    row = check_kernel(
         name, dtype,
         lambda: run(kernel, (k_all, v_all), pos, None, W, nxt()),
         lambda: run(plain, (k_all, v_all), pos, None, W, nxt()),
@@ -733,6 +742,12 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
         nbytes=(2 * kv_rows * H * dh + vectors * B * H * dh) * isz + table,
         flops=4 * B * H * n * dh, reps=50, checked=worst,
     )
+    if not fused:  # rows 7 and 9: the redesigned body
+        row["plan"] = step_launch_plan(B, H, n, W, dh, isz, beam=G > 1)._asdict()
+        if dtype == torch.bfloat16:
+            check_deterministic(name, lambda: run(kernel, (k_all, v_all), pos, ks_nonzero, W),
+                                row)
+    return row
 
 
 def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) -> dict:
@@ -781,9 +796,15 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
     tag = f"{dtag}, {'int8' if int8 else dtag} cache"
     worst = (0.0, 0.0)
     before = planes.clone()
-    for W, pos in ((STEP_WINDOW, STEP_WINDOW - 1), (n_ctx, 400)):
-        err = compare(f"{name} {tag} W {W} pos {pos} key_start 1..231",
-                      (run(kernel, pos, ks, W),), (run(plain, pos, ks, W),), tol)
+    checks = [(STEP_WINDOW, STEP_WINDOW - 1, ks, " key_start 1..231"),
+              (n_ctx, 400, ks, " key_start 1..231")]
+    if G > 1:  # row 9: its audio 0's key_start past pos, an empty window
+        ks_empty = ks.clone()
+        ks_empty[0] = 401
+        checks.append((n_ctx, 400, ks_empty, " audio 0's key_start past pos (empty window)"))
+    for W, pos, k, what in checks:
+        err = compare(f"{name} {tag} W {W} pos {pos}{what}",
+                      (run(kernel, pos, k, W),), (run(plain, pos, k, W),), tol)
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
     if not torch.equal(planes, before):
         raise AssertionError(f"{name}: the read-only step changed the cache")
@@ -817,7 +838,7 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
               f"ancestors, of {B * n} (row, slot) reads", flush=True)
     row_bytes = 2 * H * dh * (1 if int8 else isz) + (2 * H * 4 if int8 else 0)  # K, V (scales)
     nxt = rotating(L)
-    return check_kernel(
+    row = check_kernel(
         name, dtype, lambda: run(kernel, pos, None, W, nxt()),
         lambda: run(plain, pos, None, W, nxt()), lambda: library(nxt()),
         nbytes=kv_rows * row_bytes + 2 * B * H * dh * isz + table, flops=4 * B * H * n * dh,
@@ -828,6 +849,11 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
             "the gather of the ancestors' K/V rows and of their scales, the dequantising "
             "multiply and F.scaled_dot_product_attention, four calls as one CUDA graph"),
     )
+    if G > 1:  # row 9's int8 branch: the redesigned body
+        row["plan"] = step_launch_plan(B, H, n, W, dh, 1, beam=True)._asdict()
+        if dtype == torch.bfloat16:
+            check_deterministic(f"{name} (int8 cache)", lambda: run(kernel, pos, ks, W), row)
+    return row
 
 
 def kernel_checks_int8(rows: dict) -> None:
@@ -2384,8 +2410,9 @@ KERNELS = {
 
 def print_ptxas() -> None:
     """ptxas's registers and spills of every kernel, from the build: each
-    instance of the kernel this slice redesigned (row 12, bf16 and its f32
-    parity instance), a summary line for each other source."""
+    instance of the redesigned kernels (row 12, bf16 and its f32 parity
+    instance; rows 7 and 9, the window body), a summary line for each
+    source."""
     for source in SOURCES:
         report = ptxas_report(source)
         if not report:
@@ -2395,8 +2422,9 @@ def print_ptxas() -> None:
         print(f"[build] ptxas {source}: {len(report)} kernels, registers "
               f"{min(r[1] for r in report)}-{max(r[1] for r in report)}, "
               f"{len(spills)} with spills", flush=True)
-        if source == "decoder_layer":
-            for kernel, regs, stores, loads, stack in report:
+        for kernel, regs, stores, loads, stack in report:
+            if source == "decoder_layer" or (source == "self_attention" and any(
+                    k in kernel for k in ("self_append_kernel", "beam_self"))):
                 print(f"  {kernel[-64:]}: {regs} registers, spill stores {stores} B, spill "
                       f"loads {loads} B, stack {stack} B", flush=True)
 

@@ -3,6 +3,8 @@
     python3 chip_study.py plans [PARENT [LABEL]]
     python3 chip_study.py parity-seeds [TREE]
     python3 chip_study.py layer [PARENT]
+    python3 chip_study.py step [PARENT]
+    python3 chip_study.py transcribe PARENT
 
 ``plans``: the cross kernel (row 5, ``csrc/cross_attention.cu``) at every
 path shape of ``chip_smoke.py`` (the golden dims' included) under every
@@ -34,6 +36,33 @@ PARENT, a checkout of an earlier tree, that tree's kernel is built from
 its source with this tree's nvcc flags and timed the same way in turns
 (parent, this, this, parent) through its own C interface (the one without
 a launch plan).
+
+``step``: the append (row 7) and beam (row 9, bf16 and int8 K/V) kernels
+(``csrc/self_attention.cu``, ``attend_window``) in bf16 at every path shape
+of ``chip_smoke.py`` (the transcription and the golden dims included),
+with ``chip_smoke``'s inputs: first held to the plain version at W 256,
+pos 255, at W 448, pos 400 with a key_start, and with one row's key_start
+past pos (the empty window), and called twice for the same bits; then
+timed as ``chip_smoke`` times them (a CUDA graph of 50 calls rotating
+through the layers, so each finds its K/V cold in L2) at W 256, pos 255,
+under the plan ``step_launch_plan`` picks (marked ``*``) and at the other
+thread counts a block, beside the floor of such a graph (one torch add on
+one element).  With PARENT, a checkout of an earlier tree, its kernels are
+built from their source with this tree's nvcc flags and timed the same way
+in turns (parent, this, this, parent) through their C interface without a
+plan.  At the beam shapes the chosen plan is also timed with every row of
+an audio on one ancestor row and with every row on its own, beside the
+random ancestors: how the time follows the distinct rows read.  The
+registers and spills of the two kernels' instances come first, from the
+build.
+
+``transcribe``: the main transcription path of ``chip_smoke.py``
+(``transcribe_main_path``: base.en, beam 5, the seeded 95 s file, f32
+against the plain versions, then bf16 timed and profiled) of PARENT, a
+checkout of an earlier tree, and of this tree in turns (parent, this,
+this, parent), each in a process of its own started in its tree, on one
+card: its audio-s/s and idle share apart from the rest of a
+``chip_smoke.py`` run.
 
 Exits nonzero, printing no result, where CUDA is absent.
 """
@@ -260,6 +289,189 @@ def plans(cs, parent=None, only=None) -> None:
             torch.cuda.empty_cache()
 
 
+def parent_step(parent: pathlib.Path) -> dict:
+    """The bf16 append, beam and int8-bf16 beam entry points of PARENT's
+    self-attention source, built into build/study/ with this tree's nvcc
+    flags (their C interface takes no plan)."""
+    from whisper_rs_tpu_torch.ops import build
+
+    src = parent / "whisper_rs_tpu_torch" / "csrc" / "self_attention.cu"
+    out = pathlib.Path(__file__).resolve().parent / "build" / "study" / "parent_self.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {"append": lib.self_attention_append_bf16, "beam": lib.beam_self_attention_bf16,
+           "int8": lib.beam_self_attention_int8_bf16}
+    fns["append"].argtypes = [P] * 7 + [I] * 7 + [P]
+    for key in ("beam", "int8"):
+        fns[key].argtypes = [P] * 7 + [I, P] + [I] * 7 + [P]
+    for fn in fns.values():
+        fn.restype = I
+    return fns
+
+
+# (label, model or None for the golden dims, audios, rows an audio, int8 K/V)
+STEP_SHAPES = [
+    ("base.en b128", "base.en", 128, 1, False),
+    ("large-v3 b12", "large-v3", 12, 1, False),
+    ("golden dims", None, 1, 1, False),
+    ("medium.en beam 5", "medium.en", 8, 5, False),
+    ("medium.en beam 5, int8 K/V", "medium.en", 8, 5, True),
+    ("transcription", "base.en", 1, 5, False),
+    ("golden dims beam 3", None, 2, 3, False),
+    ("golden dims beam 3, int8 K/V", None, 2, 3, True),
+]
+
+
+def step(cs, parent=None) -> None:
+    from whisper_rs_tpu_torch.config import dims_for
+    from whisper_rs_tpu_torch.models import quantize_kv
+    from whisper_rs_tpu_torch.ops.build import ptxas_report
+    from whisper_rs_tpu_torch.ops.decode_attention import (
+        StepPlan,
+        _window_launch,
+        beam_self_attention_step,
+        beam_self_attention_step_plain,
+        self_attention_append_step,
+        self_attention_append_step_plain,
+        step_launch_plan,
+    )
+
+    old = parent_step(pathlib.Path(parent).resolve()) if parent else None
+    for kernel, regs, stores, loads, _ in ptxas_report("self_attention"):
+        if any(k in kernel for k in ("self_append_kernel", "beam_self")):
+            print(f"[step] ptxas {kernel[-60:]}: {regs} registers, spill stores {stores} B, "
+                  f"spill loads {loads} B", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    one = torch.zeros(1, device=dev)
+    print(f"[step] the graph's floor: one torch add on one element, "
+          f"{cs.timed_ms(lambda: one.add_(1), 50, graph=True) * 1e3:.2f} us", flush=True)
+    for label, model, A, G, int8 in STEP_SHAPES:
+        dims = cs.GOLDEN_DIMS if model is None else dims_for(model)
+        L, H, dh, n_ctx = dims.n_text_layer, dims.n_text_head, dims.head_dim, dims.n_text_ctx
+        B, beam = A * G, G > 1
+        name = "beam_self_attention_step" if beam else "self_attention_append_step"
+        kernel = beam_self_attention_step if beam else self_attention_append_step
+        plain = beam_self_attention_step_plain if beam else self_attention_append_step_plain
+        q = (torch.randn(B, H, dh, generator=gen, device=dev) * dh**-0.5).bfloat16()
+        if int8:
+            planes, s = quantize_kv(torch.randn(2, L, B, H, n_ctx, dh, generator=gen, device=dev))
+            k_all, v_all = planes[0], planes[1]
+            new, scales = (None, None), {"k_scale": s[0], "v_scale": s[1]}
+        else:
+            k_all, v_all = (torch.randn(L, B, H, n_ctx, dh, generator=gen, device=dev).bfloat16()
+                            for _ in range(2))
+            new = tuple(torch.randn(B, H, dh, generator=gen, device=dev).bfloat16()
+                        for _ in range(2))
+            scales = {}
+        rows = torch.arange(B, device=dev)
+        ancs = {}
+        if beam:
+            anc = torch.randint(0, G, (B, n_ctx), generator=gen, device=dev, dtype=torch.int32)
+            ancs = {"random": anc, "one row an audio": torch.zeros_like(anc),
+                    "own rows": (rows % G).to(torch.int32)[:, None].expand(B, n_ctx).contiguous()}
+            for a in ancs.values():
+                a[:, [255, 400]] = (rows % G).to(torch.int32)[:, None]
+        extra = (ancs["random"], G) if beam else ()
+
+        def run(fn, pos, ks, W, at=L - 1, extra=extra):
+            return fn(q, *new, k_all, v_all, at, pos, ks, *extra, window=W, **scales)
+
+        ks = rows * 37 % 231 + 1
+        empty = ks.clone()
+        empty[0] = 401  # past pos: row 0 (its audio, for the beam) attends uniformly
+        tol = cs.tolerance(name, torch.bfloat16)
+        for W, pos, k in ((256, 255, None), (448, 400, ks), (448, 400, empty)):
+            what = f"{label} W {W} pos {pos}" + ("" if k is None else
+                                                 " empty window" if k is empty else " key_start")
+            cs.compare(f"{name} {what}", (run(kernel, pos, k, W),),
+                       (run(plain, pos, k, W),), tol)
+        cs.check_deterministic(name, lambda: run(kernel, 255, ks, 256), {})
+
+        W, pos = 256, 255
+        chosen = step_launch_plan(B, H, pos + 1, W, dh, k_all.element_size(), beam)
+        out = torch.empty_like(q)
+        nxt = cs.rotating(L)
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (the capture's)
+
+        def call(plan, anc=extra[0] if beam else None, layer=None):
+            return _window_launch(q, *new, k_all, v_all, nxt() if layer is None else layer, pos,
+                                  W, None, anc, G, plan, out, scales.get("k_scale"),
+                                  scales.get("v_scale"))
+
+        plans = {chosen} | {StepPlan(threads, chosen.smem) for threads in (64, 96, 128, 192, 256)}
+        results = []
+        if old is not None:
+            fn = old["int8" if int8 else ("beam" if beam else "append")]
+
+            def call_old(layer=None):
+                if int8:
+                    ptrs = (q, k_all, v_all, scales["k_scale"], scales["v_scale"], None,
+                            extra[0])
+                else:
+                    ptrs = (q, *new, k_all, v_all, None) + ((extra[0],) if beam else ())
+                ptrs = [None if t is None else t.data_ptr() for t in ptrs]
+                tail = (B, H, n_ctx, nxt() if layer is None else layer, pos, W, dh, stream())
+                err = fn(*ptrs, G, out.data_ptr(), *tail) if beam else fn(*ptrs, out.data_ptr(),
+                                                                          *tail)
+                if err:
+                    raise RuntimeError(f"parent {name} launch failed: {err}")
+
+            call(chosen, layer=L - 1)
+            want = out.clone()
+            call_old(L - 1)
+            print(f"  parent vs this kernel: max abs diff "
+                  f"{(out.float() - want.float()).abs().max().item():.3e}", flush=True)
+            turns = [("parent", call_old), ("this", lambda: call(chosen)),
+                     ("this", lambda: call(chosen)), ("parent", call_old)]
+            results.append("in turns " + ", ".join(
+                f"{who} {cs.timed_ms(fn, 50, graph=True) * 1e3:.2f}" for who, fn in turns))
+        for plan in sorted(plans):
+            ms = cs.timed_ms(lambda plan=plan: call(plan), 50, graph=True)
+            mark = "*" if plan == chosen else ""
+            results.append(f"t{plan.threads}{mark} {ms * 1e3:.2f}")
+        n = pos + 1
+        ids = torch.arange(n, device=dev)
+        first = rows // G * G
+        for key, anc in ancs.items():
+            kv_rows = torch.unique((first[:, None] + anc[:, :n].long()) * n + ids).numel()
+            ms = cs.timed_ms(lambda anc=anc: call(chosen, anc), 50, graph=True)
+            results.append(f"{key} ancestors ({kv_rows / (B * n):.2f} of reads distinct) "
+                           f"{ms * 1e3:.2f}")
+        kv_rows = B * n if not beam else torch.unique(
+            (first[:, None] + ancs["random"][:, :n].long()) * n + ids).numel()
+        row_bytes = 2 * H * dh * k_all.element_size() + (2 * H * 4 if int8 else 0)
+        nbytes = kv_rows * row_bytes + (2 if int8 else 6) * B * H * dh * 2 + (B * n * 4 if beam
+                                                                              else 0)
+        print(f"[step] {label} (B {B}, G {G}, H {H}, dh {dh}; bound "
+              f"{nbytes / cs.MEM_BW * 1e6:.2f} us), us: " + " | ".join(results), flush=True)
+        del k_all, v_all
+        torch.cuda.empty_cache()
+
+
+def transcribe(parent) -> None:
+    trees = {"parent": pathlib.Path(parent).resolve(),
+             "this": pathlib.Path(__file__).resolve().parent}
+    code = ("import sys; sys.path.insert(0, '.'); import torch; import chip_smoke as cs; "
+            "from whisper_rs_tpu_torch.ops.build import build_all; build_all(); "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; cs.transcribe_main_path()")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[device] {card}", flush=True)
+    for who in ("parent", "this", "this", "parent"):
+        run = subprocess.run([sys.executable, "-c", code], cwd=trees[who], capture_output=True,
+                             text=True)
+        if run.returncode:
+            raise RuntimeError(f"{who}'s transcription path failed:\n{run.stderr[-2000:]}")
+        lines = [line.strip() for line in run.stdout.splitlines()
+                 if "bf16: 4 windows" in line or "idle share" in line]
+        print(f"[transcribe] {who}: " + " | ".join(lines), flush=True)
+
+
 def parity_seeds(cs) -> None:
     from whisper_rs_tpu_torch.config import dims_for
 
@@ -288,10 +500,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_study: CUDA is not available", file=sys.stderr)
         return 1
-    if len(sys.argv) < 2 or sys.argv[1] not in ("plans", "parity-seeds", "layer"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("plans", "parity-seeds", "layer", "step",
+                                                 "transcribe"):
         print(__doc__, file=sys.stderr)
         return 2
     arg = sys.argv[2] if len(sys.argv) > 2 else None
+    if sys.argv[1] == "transcribe":
+        if not arg:
+            print(__doc__, file=sys.stderr)
+            return 2
+        transcribe(arg)
+        return 0
     tree = pathlib.Path(__file__).resolve().parent
     if sys.argv[1] == "parity-seeds" and arg:
         tree = pathlib.Path(arg).resolve()
@@ -306,6 +525,8 @@ def main() -> int:
         plans(cs, arg, sys.argv[3] if len(sys.argv) > 3 else None)
     elif sys.argv[1] == "layer":
         layer(cs, arg)
+    elif sys.argv[1] == "step":
+        step(cs, arg)
     else:
         parity_seeds(cs)
     return 0

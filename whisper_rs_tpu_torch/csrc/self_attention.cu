@@ -49,23 +49,46 @@
 // 700 W power limit), for 4 FLOP per element pair; an int8 cache halves
 // that and adds 8 bytes of scales a slot (35.7 MB at base.en b128, W 256,
 // pos 255: 10.6 us); the beam kernels add the ancestor table's 4 bytes per
-// visible slot.
+// visible slot, and the rows of one audio that share an ancestor at a slot
+// share its K/V row, which the bound counts once.
 //
-// Design: one block of 8 warps per (head, row).  The append and beam blocks
-// first write their own (b, h) column, which no other block reads: at slot
-// pos every row's ancestor is itself (the decode loop sets that column of
-// the table to the identity before the step), so the block uses the fresh
-// k and v from the inputs for slot pos rather than re-reading it; the
-// read-only blocks read slot pos from the cache.  Only slots lo..pos are
-// read: masked slots have weight exactly 0 in f32 (exp of NEG - max
-// underflows), so skipping them changes nothing.  A group of lanes reads
-// one key row with 16-byte loads (at dh 64: 4 lanes in int8, 8 in bf16, 16
-// in f32; at dh 16 a quarter of that, so a warp takes 4 times the rows);
-// the scores go to shared memory, the block takes max and sum, and the
-// same lane groups then walk V with the weights, reduced across groups and
-// warps in a fixed order (deterministic, no atomics).  Simple first: two
-// passes over the rows, no cp.async prefetch of V under the softmax.  The
-// head dim is a template parameter, instantiated at 64 (every registry
+// Design of the read-only greedy steps (fused, step: attend_step): one
+// block of 8 warps per (head, row), which reads slots lo..pos of the cache.
+// Only slots lo..pos are read: masked slots have weight exactly 0 in f32
+// (exp of NEG - max underflows), so skipping them changes nothing.  A group
+// of lanes reads one key row with 16-byte loads (at dh 64: 4 lanes in int8,
+// 8 in bf16, 16 in f32; at dh 16 a quarter of that, so a warp takes 4 times
+// the rows); the scores go to shared memory, the block takes max and sum,
+// and the same lane groups then walk V with the weights, reduced across
+// groups and warps in a fixed order (deterministic, no atomics).  Two
+// passes over the rows, each a chain of dependent round trips.
+//
+// Design of the append and beam steps (attend_window), redesigned for
+// Hopper: no chain of round trips and no barrier before the merge.  One
+// block (2 to 8 warps, the host's plan: ops/decode_attention.py::
+// step_launch_plan) per (head, row).  A lane group reads a key row, 16
+// bytes a lane (int8: 8, so that every lane holds 8 values but f32's 4);
+// lane group g takes the visible slots lo + g, lo + g + groups, ..., in
+// batches of UNROLL rows, and each batch's K and V reads (int8: and their
+// scales, through the same ancestor) go out straight into registers two
+// batches ahead of its scores, so a lane group has up to 2 UNROLL rows in
+// flight and no warp waits for another.  The beam block first reads its
+// row's ancestors over the window into shared memory, in one round beside
+// key_start and q; it then issues every gather from there (the beam rows of
+// one audio each read their ancestors' rows: an audio's rows in one block,
+// reading each shared row once, measured slower on the H100, PERF.md).  The
+// append and beam blocks take slot pos from k_new and v_new and write them
+// to the cache; no block reads slot pos from the cache (at slot pos every
+// row's ancestor is itself: the decode loop sets that column of the table
+// to the identity before the step).  Each lane group keeps a running f32
+// max and sum (an online softmax): a batch's scores, their max, the
+// rescale of the sum and of acc, then e V (int8: e times the slot's V
+// scale, in f32) added to acc; no slot is read twice.  The lane groups'
+// parts (max, sum, acc[dh]) merge across the warp by shuffles, then across
+// the warps in order: no atomics, so a call is bit-identical to the next.
+// The output is acc / sum.
+//
+// The head dim is a template parameter, instantiated at 64 (every registry
 // model) and 16 (the golden test dims); the entry points take dh and refuse
 // any other.
 #include <type_traits>
@@ -107,6 +130,39 @@ __device__ __forceinline__ void load16(const int8_t* p, float (&x)[16]) {
     const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int i = 0; i < 16; ++i) x[i] = static_cast<float>(v[i]);
+}
+
+// A lane's bytes of a cache row, loaded raw, as floats: 16 bytes of f32 or
+// bf16; 8 of int8, through the integer pipe (b + 128 as the low mantissa
+// bits of 2^23, less 2^23 + 128), not the quarter-rate int-to-float
+// conversion.
+__device__ __forceinline__ void raw_to_float(const int4 raw, float (&x)[4]) {
+    x[0] = __int_as_float(raw.x);
+    x[1] = __int_as_float(raw.y);
+    x[2] = __int_as_float(raw.z);
+    x[3] = __int_as_float(raw.w);
+}
+
+__device__ __forceinline__ void raw_to_float(const int4 raw, float (&x)[8]) {
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        x[2 * i] = f.x;
+        x[2 * i + 1] = f.y;
+    }
+}
+
+__device__ __forceinline__ void raw_to_float(const int2 raw, float (&x)[8]) {
+    const uint32_t w[2] = {(uint32_t)raw.x, (uint32_t)raw.y};
+    const float bias = 8388736.f;  // 2^23 + 128
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            x[4 * i + k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + k)) - bias;
+    }
 }
 
 // N elements of T as floats, in 16-byte loads.
@@ -268,16 +324,221 @@ __device__ __forceinline__ void attend_step(
     }
 }
 
-// ws: [n] scores, then weights, of slots lo..hi, in dynamic shared memory
+// ---- the append and beam steps: attend_window -----------------------------
+
+constexpr int UNROLL = 4;  // rows of a lane group's batch
+
+// The bytes a lane reads of a cache row: 16, or 8 of int8, so that a lane
+// holds 8 values (f32: 4) and a batch stays in registers.
+template <typename C>
+struct Lane {
+    static constexpr int BYTES = std::is_same<C, int8_t>::value ? 8 : 16;
+    static constexpr int N = BYTES / sizeof(C);
+    using Raw = std::conditional_t<BYTES == 16, int4, int2>;
+};
+
+// A lane's batch: its bytes of K and of V of UNROLL rows, raw (int8: and
+// the rows' scales).
+template <typename C>
+struct Batch {
+    static constexpr bool INT8 = std::is_same<C, int8_t>::value;
+    typename Lane<C>::Raw k[UNROLL], v[UNROLL];
+    float ks[INT8 ? UNROLL : 1], vs[INT8 ? UNROLL : 1];
+};
+
+// exp(m - mx) for a part whose max is m, 0 for a part with no rows (m -inf).
+__device__ __forceinline__ float rescale(float m, float mx) {
+    return m == -INFINITY ? 0.f : __expf(m - mx);
+}
+
+// The append and beam steps for (head blockIdx.x, row blockIdx.y) at head
+// dim DH.  T, C, anc, G, WRITE as for attend_step (int8 C only read-only).
+// Lane group grp of the block's ng takes the visible slots lo + grp + t ng,
+// t = 0, 1, ..., in batches of UNROLL; each batch's reads go out two
+// batches ahead of its scores, straight into registers, so no barrier
+// holds a warp.  A beam block first reads its row's ancestors over the
+// window into (dynamic) shared memory.  The lane groups' parts merge over
+// the warp by shuffles, then over the warps in order.
+template <int DH, typename T, typename C, bool WRITE, bool BEAM>
+__device__ __forceinline__ void attend_window(
+    const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
+    C* __restrict__ kc, C* __restrict__ vc, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const long long* __restrict__ key_start,
+    const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H, int n_ctx,
+    int layer, int pos, int W) {
+    constexpr bool INT8 = std::is_same<C, int8_t>::value;
+    static_assert(!WRITE || std::is_same<C, T>::value, "the column is written in the cache dtype");
+    constexpr int VEC = Lane<C>::N;   // cache elements a lane reads of a row
+    constexpr int LPR = DH / VEC;     // lanes a row
+    constexpr int KPW = 32 / LPR;     // lane groups a warp
+    using Raw = typename Lane<C>::Raw;
+    static_assert(DH % VEC == 0 && 32 % LPR == 0, "whole loads, whole rows a warp");
+    extern __shared__ int ancs[];  // [W] (beam)
+    __shared__ float wacc[WARPS][DH];
+    __shared__ float wm[WARPS], wl[WARPS];
+
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int nt = blockDim.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int ng = nt / LPR;  // lane groups of the block
+    const int grp = warp * KPW + lane / LPR, seg = lane % LPR;
+    const size_t row = (size_t)b * H + h;
+    const size_t row_stride = (size_t)H * n_ctx * DH;  // between batch rows
+    const size_t head = (size_t)layer * B * row_stride + (size_t)h * n_ctx * DH;
+    const size_t scale_head = ((size_t)layer * B * H + h) * n_ctx;
+    const int first = BEAM ? b / G * G : b;  // the audio's first row (beam)
+    const C* kn = WRITE ? reinterpret_cast<const C*>(knew) + row * DH : nullptr;
+    const C* vn = WRITE ? reinterpret_cast<const C*>(vnew) + row * DH : nullptr;
+
+    // one round: key_start, q, the ancestors
+    const long long ks = key_start ? key_start[first] : 0;
+    float qx[VEC];
+    load_n(q + row * DH + seg * VEC, qx);
+    if (BEAM) {
+        for (int j = tid; j < W; j += nt) ancs[j] = anc[(size_t)b * n_ctx + j];
+        __syncthreads();
+    }
+
+    int lo = ks > 0 ? (ks > pos ? pos + 1 : (int)ks) : 0;
+    int hi = pos;
+    // every slot masked (key_start past pos): all scores are NEG, so the
+    // softmax is uniform over the W slots, as in the plain version; no K is read
+    const bool empty = lo > hi;
+    if (empty) {
+        lo = 0;
+        hi = W - 1;
+    }
+    const int n = hi - lo + 1;
+
+    // this block's own column, read by no block of this launch
+    if (WRITE && tid < DH) {
+        kc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = kn[tid];
+        vc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = vn[tid];
+    }
+
+    // the batch of rows t0, .. of this lane group (slot pos from the fresh
+    // column; a row past the window reads its last, weighted 0)
+    auto load = [&](int t0, Batch<C>& bt) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const int j = lo + min(grp + (t0 + u) * ng, n - 1);
+            const size_t r = BEAM ? first + ancs[j] : b;
+            const size_t at = head + r * row_stride + (size_t)j * DH + seg * VEC;
+            const bool fresh = WRITE && j == pos;
+            bt.k[u] = empty ? Raw{} : __ldcg(reinterpret_cast<const Raw*>(fresh ? kn + seg * VEC
+                                                                             : kc + at));
+            bt.v[u] = __ldcg(reinterpret_cast<const Raw*>(fresh ? vn + seg * VEC : vc + at));
+            if (INT8) {
+                const size_t sat = scale_head + r * H * n_ctx + j;
+                bt.ks[u] = empty ? 0.f : __ldcg(ksc + sat);
+                bt.vs[u] = __ldcg(vsc + sat);
+            }
+        }
+    };
+
+    // this lane group's running max, sum and f32 sum of e V
+    float m = -INFINITY, l = 0.f, acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    // the scores of a batch and its rows' e V, with the rescale
+    auto consume = [&](int t0, const Batch<C>& bt) {
+        float s[UNROLL];
+        bool valid[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            valid[u] = grp + (t0 + u) * ng < n;
+            float kx[VEC];
+            raw_to_float(bt.k[u], kx);
+            float part = 0.f;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) part = fmaf(qx[e], kx[e], part);
+            s[u] = part;
+        }
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) {
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+        }
+        float mn = m;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            s[u] = !valid[u] ? -INFINITY : empty ? 0.f : INT8 ? s[u] * bt.ks[u] : s[u];
+            mn = fmaxf(mn, s[u]);
+        }
+        const float a = m == mn ? 1.f : __expf(m - mn);  // the rescale
+        l *= a;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] *= a;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const float ex = valid[u] ? __expf(s[u] - mn) : 0.f;
+            l += ex;
+            const float w = INT8 ? ex * bt.vs[u] : ex;
+            float vx[VEC];
+            raw_to_float(bt.v[u], vx);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] = fmaf(w, vx[e], acc[e]);
+        }
+        m = mn;
+    };
+    // rows a lane group, the same for every lane (the shuffles need them all)
+    const int rows = (n + ng - 1) / ng;
+    Batch<C> b0, b1;
+    load(0, b0);
+    if (rows > UNROLL) load(UNROLL, b1);
+    for (int t0 = 0; t0 < rows; t0 += 2 * UNROLL) {
+        consume(t0, b0);
+        if (t0 + 2 * UNROLL < rows) load(t0 + 2 * UNROLL, b0);
+        if (t0 + UNROLL < rows) {
+            consume(t0 + UNROLL, b1);
+            if (t0 + 3 * UNROLL < rows) load(t0 + 3 * UNROLL, b1);
+        }
+    }
+
+    // the lane groups of the warp: their max, then each part rescaled to it
+    // and summed
+    float mx = m;
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float f = rescale(m, mx);
+    l *= f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] *= f;
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    }
+    if (lane < LPR) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) wacc[warp][seg * VEC + e] = acc[e];
+        if (lane == 0) {
+            wm[warp] = mx;
+            wl[warp] = l;
+        }
+    }
+    __syncthreads();
+    // the warps in order
+    if (tid < DH) {
+        float bm = -INFINITY, bl = 0.f, ba = 0.f;
+        for (int w = 0; w < nt / 32; ++w) bm = fmaxf(bm, wm[w]);
+        for (int w = 0; w < nt / 32; ++w) {
+            const float fw = rescale(wm[w], bm);
+            bl += wl[w] * fw;
+            ba += wacc[w][tid] * fw;
+        }
+        out[row * DH + tid] = from_float<T>(ba / bl);
+    }
+}
+
 template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                    const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
                    const long long* __restrict__ key_start, T* __restrict__ out,
                    int B, int H, int n_ctx, int layer, int pos, int W) {
-    extern __shared__ float ws[];
-    attend_step<DH, T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, nullptr, 1, out,
-                            B, H, n_ctx, layer, pos, W, ws);
+    attend_window<DH, T, T, true, false>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start,
+                                         nullptr, 1, out, B, H, n_ctx, layer, pos, W);
 }
 
 template <int DH, typename T>
@@ -286,11 +547,24 @@ beam_self_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                  const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
                  const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
                  T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
-    extern __shared__ float ws[];
-    attend_step<DH, T, T, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, anc, G, out, B,
-                            H, n_ctx, layer, pos, W, ws);
+    attend_window<DH, T, T, true, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, anc,
+                                        G, out, B, H, n_ctx, layer, pos, W);
 }
 
+template <int DH, typename T>
+__global__ void __launch_bounds__(THREADS)
+beam_self_int8_kernel(const T* __restrict__ q, int8_t* __restrict__ kc,
+                      int8_t* __restrict__ vc, const float* __restrict__ ksc,
+                      const float* __restrict__ vsc, const long long* __restrict__ key_start,
+                      const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H,
+                      int n_ctx, int layer, int pos, int W) {
+    attend_window<DH, T, int8_t, false, true>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start,
+                                              anc, G, out, B, H, n_ctx, layer, pos, W);
+}
+
+// ---- the read-only greedy steps: attend_step --------------------------------
+
+// ws: [n] scores, then weights, of slots lo..hi, in dynamic shared memory
 template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 self_fused_kernel(const T* __restrict__ q, T* __restrict__ kc, T* __restrict__ vc,
@@ -310,18 +584,6 @@ self_step_kernel(const T* __restrict__ q, C* __restrict__ kc, C* __restrict__ vc
     extern __shared__ float ws[];
     attend_step<DH, T, C, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, nullptr, 1, out,
                              B, H, n_ctx, layer, pos, W, ws);
-}
-
-template <int DH, typename T>
-__global__ void __launch_bounds__(THREADS)
-beam_self_int8_kernel(const T* __restrict__ q, int8_t* __restrict__ kc,
-                      int8_t* __restrict__ vc, const float* __restrict__ ksc,
-                      const float* __restrict__ vsc, const long long* __restrict__ key_start,
-                      const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H,
-                      int n_ctx, int layer, int pos, int W) {
-    extern __shared__ float ws[];
-    attend_step<DH, T, int8_t, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, anc, G, out,
-                                  B, H, n_ctx, layer, pos, W, ws);
 }
 
 // Launch ``kernel`` on the grid (H, B) with W floats of dynamic shared
@@ -347,29 +609,47 @@ int by_head_dim(int dh, F&& f) {
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Launch a window kernel on the grid (H, B) with `threads` a block (the
+// plan of ops/decode_attention.py::step_launch_plan: 64..THREADS, whole
+// warps) and, for the beam, W ints of dynamic shared memory, after checking
+// 0 <= pos < W <= min(n_ctx, MAX_WINDOW) and that B is whole groups of G.
+template <typename... Params, typename... Args>
+int launch_window(void (*kernel)(Params...), bool beam, int B, int H, int n_ctx, int pos,
+                  int window, int G, int threads, void* stream, Args... args) {
+    if (window < 1 || window > MAX_WINDOW || window > n_ctx || pos < 0 || pos >= window ||
+        G < 1 || B % G || threads < 64 || threads > THREADS || threads % 32)
+        return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<dim3(H, B), threads, beam ? (size_t)window * sizeof(int) : 0,
+             static_cast<cudaStream_t>(stream)>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int append(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
            const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
-           int window, int dh, void* stream) {
+           int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
-        return launch(self_append_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, 1,
-                      stream, static_cast<const T*>(q), static_cast<const T*>(knew),
-                      static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
-                      static_cast<const long long*>(key_start), static_cast<T*>(out), B, H,
-                      n_ctx, layer, pos, window);
+        return launch_window(self_append_kernel<decltype(D)::value, T>, false, B, H, n_ctx, pos,
+                             window, 1, threads, stream, static_cast<const T*>(q),
+                             static_cast<const T*>(knew), static_cast<const T*>(vnew),
+                             static_cast<T*>(kc), static_cast<T*>(vc),
+                             static_cast<const long long*>(key_start), static_cast<T*>(out), B,
+                             H, n_ctx, layer, pos, window);
     });
 }
 
 template <typename T>
 int beam(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
          const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
-         int layer, int pos, int window, int dh, void* stream) {
+         int layer, int pos, int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
-        return launch(beam_self_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, G,
-                      stream, static_cast<const T*>(q), static_cast<const T*>(knew),
-                      static_cast<const T*>(vnew), static_cast<T*>(kc), static_cast<T*>(vc),
-                      static_cast<const long long*>(key_start), static_cast<const int*>(anc), G,
-                      static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
+        return launch_window(beam_self_kernel<decltype(D)::value, T>, true, B, H, n_ctx, pos,
+                             window, G, threads, stream, static_cast<const T*>(q),
+                             static_cast<const T*>(knew), static_cast<const T*>(vnew),
+                             static_cast<T*>(kc), static_cast<T*>(vc),
+                             static_cast<const long long*>(key_start),
+                             static_cast<const int*>(anc), G, static_cast<T*>(out), B, H, n_ctx,
+                             layer, pos, window);
     });
 }
 
@@ -400,14 +680,15 @@ int step(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
 template <typename T>
 int beam_int8(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
               const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
-              int layer, int pos, int window, int dh, void* stream) {
+              int layer, int pos, int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
-        return launch(beam_self_int8_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, G,
-                      stream, static_cast<const T*>(q), static_cast<int8_t*>(kc),
-                      static_cast<int8_t*>(vc), static_cast<const float*>(ksc),
-                      static_cast<const float*>(vsc), static_cast<const long long*>(key_start),
-                      static_cast<const int*>(anc), G, static_cast<T*>(out), B, H, n_ctx, layer,
-                      pos, window);
+        return launch_window(beam_self_int8_kernel<decltype(D)::value, T>, true, B, H, n_ctx,
+                             pos, window, G, threads, stream, static_cast<const T*>(q),
+                             static_cast<int8_t*>(kc), static_cast<int8_t*>(vc),
+                             static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+                             static_cast<const long long*>(key_start),
+                             static_cast<const int*>(anc), G, static_cast<T*>(out), B, H, n_ctx,
+                             layer, pos, window);
     });
 }
 
@@ -416,21 +697,23 @@ int beam_int8(const void* q, void* kc, void* vc, const void* ksc, const void* vs
 // q, knew, vnew, out: [B, H, dh]; kc, vc: [L, B, H, n_ctx, dh]; dh 16 or 64;
 // key_start: [B] int64 or null (zeros); all contiguous and 16-byte aligned;
 // the caches are written at slot pos of layer in place.
-// 0 <= pos < window <= n_ctx.
+// 0 <= pos < window <= n_ctx.  threads: a block's, the launch plan of
+// ops/decode_attention.py::step_launch_plan (64..256, whole warps; any other
+// is refused).
 extern "C" int self_attention_append_bf16(const void* q, const void* knew, const void* vnew,
                                           void* kc, void* vc, const void* key_start, void* out,
                                           int B, int H, int n_ctx, int layer, int pos,
-                                          int window, int dh, void* stream) {
+                                          int window, int dh, int threads, void* stream) {
     return append<bf16>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
-                        dh, stream);
+                        dh, threads, stream);
 }
 
 extern "C" int self_attention_append_f32(const void* q, const void* knew, const void* vnew,
                                          void* kc, void* vc, const void* key_start, void* out,
                                          int B, int H, int n_ctx, int layer, int pos,
-                                         int window, int dh, void* stream) {
+                                         int window, int dh, int threads, void* stream) {
     return append<float>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
-                         dh, stream);
+                         dh, threads, stream);
 }
 
 // As the append entry points, plus anc: [B, n_ctx] int32, beam-local
@@ -439,18 +722,18 @@ extern "C" int beam_self_attention_bf16(const void* q, const void* knew, const v
                                         void* kc, void* vc, const void* key_start,
                                         const void* anc, int G, void* out, int B, int H,
                                         int n_ctx, int layer, int pos, int window, int dh,
-                                        void* stream) {
+                                        int threads, void* stream) {
     return beam<bf16>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                      window, dh, stream);
+                      window, dh, threads, stream);
 }
 
 extern "C" int beam_self_attention_f32(const void* q, const void* knew, const void* vnew,
                                        void* kc, void* vc, const void* key_start,
                                        const void* anc, int G, void* out, int B, int H,
                                        int n_ctx, int layer, int pos, int window, int dh,
-                                       void* stream) {
+                                       int threads, void* stream) {
     return beam<float>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                       window, dh, stream);
+                       window, dh, threads, stream);
 }
 
 // The append entry points without k_new/v_new: slot pos of both caches was
@@ -497,16 +780,16 @@ extern "C" int beam_self_attention_int8_bf16(const void* q, void* kc, void* vc, 
                                              const void* vsc, const void* key_start,
                                              const void* anc, int G, void* out, int B, int H,
                                              int n_ctx, int layer, int pos, int window, int dh,
-                                             void* stream) {
+                                             int threads, void* stream) {
     return beam_int8<bf16>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                           window, dh, stream);
+                           window, dh, threads, stream);
 }
 
 extern "C" int beam_self_attention_int8_f32(const void* q, void* kc, void* vc, const void* ksc,
                                             const void* vsc, const void* key_start,
                                             const void* anc, int G, void* out, int B, int H,
                                             int n_ctx, int layer, int pos, int window, int dh,
-                                            void* stream) {
+                                            int threads, void* stream) {
     return beam_int8<float>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
-                            window, dh, stream);
+                            window, dh, threads, stream);
 }

@@ -9,6 +9,13 @@ Math, as in the Pallas kernel: f32 scores of the pre-scaled q, masked slots
 at the finite NEG, ``w = e / sum(e)`` kept in f32 (never rounded to the
 cache dtype), ``w V`` accumulated in f32 and cast to the query dtype.
 
+The kernel takes a running max and sum (an online softmax), adds ``e V``
+and divides by ``sum(e)`` once: the same function, rounded apart from the
+plain version within the tolerance it is held to.  A block takes one (row,
+head); its warps, from 2 to 8, are the plan of ``step_launch_plan``, which
+keeps the grid in one wave and gives each lane group of the kernel enough
+slots to read ahead (``StepPlan``).
+
 ``beam_self_attention_step`` (the same source, the same body): one beam
 step's self-attention with the ancestors resolved at read time.  Rows are
 beams of A audios in groups of G (``b = a G + g``); slot j of row b is read
@@ -19,14 +26,14 @@ Over an int8 cache it only reads: the caller has written the quantised
 column and its scales (``models.whisper.KVCache.write``), and the scales of
 slot j come from the same row as its K/V, the ancestor's.
 
-``self_attention_step`` (the same source, the same body): the greedy step
-over a cache whose slot ``pos`` the caller has written, read only.  The
+``self_attention_step`` (the same source, the read-only body): the greedy
+step over a cache whose slot ``pos`` the caller has written, read only.  The
 cache is int8 with f32 per-position scales ``[L, B, H, n_ctx]``, or in the
 query dtype without them.  Int8 math, as in the Pallas kernel: the f32 dot
 of q with the int8 K row times ``k_scale`` before the mask, ``w = e /
 sum(e)`` in f32, ``w * v_scale`` kept in f32, the f32 sum of ``w V``.
 
-``self_attention_fused_step`` (the same source, the same body): the
+``self_attention_fused_step`` (the same source, the read-only body): the
 append step with the write left out.  The caller has written this step's
 K/V column at slot ``pos`` already (as XLA does before the TPU kernel);
 the kernel reads slots ``key_start[b] <= j <= pos`` and writes only its
@@ -211,18 +218,36 @@ def self_attention_append_step(
         raise ValueError(f"{name}: an int8 cache takes self_attention_step")
     _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
-    out = torch.empty_like(q)
-    symbol = "self_attention_append_bf16" if q.dtype == torch.bfloat16 else "self_attention_append_f32"
-    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                                    P))
-    err = fn(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-        None if key_start is None else key_start.data_ptr(), out.data_ptr(),
-        B, H, n_ctx, int(layer), int(pos), int(window), dh,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check("self_attention", symbol, err)
+    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
+    out = _window_launch(q, k_new, v_new, k_all, v_all, int(layer), int(pos), int(window),
+                         key_start, None, 1, plan, torch.empty_like(q))
     LAUNCHES["self_attention_append_step"] += 1
+    return out
+
+
+def _window_launch(q, k_new, v_new, k_all, v_all, layer: int, pos: int, window: int, key_start,
+                   anc_local, group: int, plan: "StepPlan", out, k_scale=None, v_scale=None):
+    """Launches the append kernel (``anc_local`` None) or the beam kernel
+    (int8 with ``k_scale``/``v_scale``, k_new and v_new None) at ``plan``
+    on tensors that the wrappers have checked, writing ``out``; raises if
+    the launch fails."""
+    L, B, H, n_ctx, dh = k_all.shape
+    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    ints = (B, H, n_ctx, layer, pos, window, dh, plan.threads)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if anc_local is None:
+        symbol = f"self_attention_append_{tag}"
+        args = [ptr(t) for t in (q, k_new, v_new, k_all, v_all, key_start, out)]
+        types = (P,) * 7 + (I,) * len(ints) + (P,)
+    else:
+        int8 = k_scale is not None
+        symbol = f"beam_self_attention{'_int8' if int8 else ''}_{tag}"
+        planes = (k_all, v_all, k_scale, v_scale) if int8 else (k_new, v_new, k_all, v_all)
+        args = [ptr(t) for t in (q, *planes, key_start, anc_local)] + [group, out.data_ptr()]
+        types = (P,) * 7 + (I, P) + (I,) * len(ints) + (P,)
+    fn = kernel_function("self_attention", symbol, types)
+    check("self_attention", symbol,
+          fn(*args, *ints, torch.cuda.current_stream(q.device).cuda_stream))
     return out
 
 
@@ -368,29 +393,11 @@ def beam_self_attention_step(
     if anc_local.dtype != torch.int32:
         raise ValueError(f"{name}: anc_local must be int32")
     L, B, H, n_ctx, dh = k_all.shape
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ks_ptr = None if key_start is None else key_start.data_ptr()
-    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    if scaled:
-        symbol = f"beam_self_attention_int8_{tag}"
-        fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I,
-                                                        I, I, P))
-        err = fn(
-            q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), ks_ptr, anc_local.data_ptr(), int(group), out.data_ptr(), B, H,
-            n_ctx, int(layer), int(pos), int(window), dh, stream,
-        )
-    else:
-        symbol = f"beam_self_attention_{tag}"
-        fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, P, I, I, I, I, I,
-                                                        I, I, P))
-        err = fn(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-            ks_ptr, anc_local.data_ptr(), int(group), out.data_ptr(), B, H, n_ctx, int(layer),
-            int(pos), int(window), dh, stream,
-        )
-    check("self_attention", symbol, err)
+    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size(),
+                            beam=True)
+    out = _window_launch(q, k_new, v_new, k_all, v_all, int(layer), int(pos), int(window),
+                         key_start, anc_local, int(group), plan, torch.empty_like(q),
+                         k_scale if scaled else None, v_scale)
     LAUNCHES["beam_self_attention_step"] += 1
     return out
 
@@ -489,6 +496,58 @@ def cross_launch_plan(A: int, G: int, H: int, Tk: int, head_dim: int = 64,
         stages -= 1
     return CrossPlan(_cdiv(Tk, chunk), chunk, rows, stages,
                      _cross_smem(head_dim, itemsize, G, chunk, rows, stages), Tk)
+
+
+# The append and beam kernels' plan (csrc/self_attention.cu, attend_window):
+# a block takes one (row, head).  A key row is read by `lanes` lanes (16
+# bytes each, int8 8), a lane group; lane group g of the block's takes the
+# visible slots lo + g, lo + g + groups, ..., in batches of STEP_UNROLL,
+# each read two batches ahead of its scores.  A block has as many warps,
+# a power of two from STEP_MIN_WARPS to STEP_MAX_WARPS, as keep the grid
+# within STEP_WARPS_PER_SM warps an SM (one wave at the kernels'
+# registers) and give each lane group STEP_GROUP_ROWS slots or more, a
+# batch.  All of it measured on the H100 at the path shapes (`chip_study.py
+# step`, PERF.md): where the blocks are many, 2 warps a block beat 4 and 8
+# by keeping the grid in one wave; at the golden dims 4 beat 2; splitting
+# the slots of a (row, head) over a cluster was never faster.
+STEP_UNROLL = 4
+STEP_MIN_WARPS = 2
+STEP_MAX_WARPS = 8
+STEP_WARPS_PER_SM = 16
+STEP_GROUP_ROWS = STEP_UNROLL
+
+
+def step_lanes(head_dim: int, itemsize: int) -> int:
+    """Lanes that read one key row of the step kernels: 16 bytes each (int8:
+    8)."""
+    return head_dim * itemsize // (8 if itemsize == 1 else 16)
+
+
+class StepPlan(NamedTuple):
+    """How the append and beam kernels launch: a block of ``threads`` a
+    (row, head), with ``smem`` bytes of shared memory."""
+    threads: int
+    smem: int
+
+    def group_slots(self, lo: int, hi: int, lanes: int) -> list:
+        """The slots of lo..hi each lane group reads (a key row ``lanes``
+        lanes), in the kernel's order."""
+        groups = self.threads // lanes
+        return [list(range(lo + g, hi + 1, groups)) for g in range(groups)]
+
+
+def step_launch_plan(B: int, H: int, n: int, window: int, head_dim: int = 64,
+                     itemsize: int = 2, beam: bool = False) -> StepPlan:
+    """The append (``beam`` False) or beam kernel's plan for B rows, H heads
+    and ``n`` visible slots (pos + 1) of a ``window``, at ``head_dim`` over
+    a cache of ``itemsize`` bytes: the warps of a block, and its shared
+    memory (the beam row's ancestors over the window, and the warps'
+    partials)."""
+    warps = min(STEP_MAX_WARPS, STEP_WARPS_PER_SM * SMS // (B * H),
+                step_lanes(head_dim, itemsize) * n // (32 * STEP_GROUP_ROWS))
+    warps = 1 << (max(warps, STEP_MIN_WARPS).bit_length() - 1)
+    smem = (4 * window if beam else 0) + 4 * STEP_MAX_WARPS * (head_dim + 2)
+    return StepPlan(32 * warps, smem)
 
 
 def cross_kernel_smem(plan: CrossPlan, G: int, head_dim: int, itemsize: int) -> int:
