@@ -33,7 +33,7 @@ Phases, in order; any mismatch raises and the script exits nonzero:
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
               source, all at once); the seconds are printed, each
               kernel's registers and spills as ptxas reported them (each
-              instance of rows 7, 9 and 12, a summary for the rest), and
+              instance of rows 7, 9-12, a summary for the rest), and
               the whole-step kernel's tensor-core instructions in its
               SASS (cuobjdump);
   3. kernels  each kernel wrapper at the shapes each path gives it, against
@@ -59,7 +59,10 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               time.  The beam path also times its per-step candidate
               ranking (a stable sort over the vocab).  The int8 paths: row 10
               with int8 scales and over a bf16 cache at base.en b128 and
-              large-v3 b12, the cross kernel's int8 branch at both int8
+              large-v3 b12, over the int8 cache also with its column write
+              (k_new, v_new: the int8 column and scales it writes must
+              equal quantize_kv's exactly; timed so, beside its read-only
+              call and the torch column write), the cross kernel's int8 branch at both int8
               paths' shapes (G = 1 and 5), the beam kernel's int8 read at
               the beam shapes; their library call is the dequantising
               multiply and SDPA as one CUDA graph (the beam's after a
@@ -75,12 +78,12 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               64; off the path, the fused and read-only steps and the int8
               branches); on the main path every kernel at base.en batch 1,
               beam 5, and the mel kernel on the 95 s file's 4 chunks;
-              row 4 is also compared with n_valid < T; rows 7 and 9 (and
-              9's int8 branch) also with one row's (audio's) key_start
-              past pos, an empty window, and their launch plan is kept;
-              rows 1, 4, 5 (bf16 and int8), 6, 7, 8 and 9 (bf16 and int8)
-              in bf16 are called twice on the same inputs and must give
-              bit-identical outputs; row 5 is also
+              row 4 is also compared with n_valid < T; rows 7, 9 (and
+              9's int8 branch), 10 and 11 also with one row's (audio's)
+              key_start past pos, an empty window, and their launch plan
+              is kept; rows 1, 4, 5 (bf16 and int8), 6, 7, 8, 9 (bf16 and
+              int8), 10 (both caches) and 11 in bf16 are called twice on
+              the same inputs and must give bit-identical outputs; row 5 is also
               checked at 4 audios of 10 rows (medium.en beam 10), past one
               chunk of rows; row 8 is timed hot and cold in L2 (rotating
               through n_text_layer weight sets, its library call the same
@@ -638,10 +641,11 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
     pos = 255 and at W = 448, pos = 400 with a non-zero key_start (in
     1..299 for the append kernel; in 1..231, the prefill's range, for the
     fused kernel at both, and varied within each audio for the beam kernel,
-    so that masking by the row's own fails), against the plain version, and
-    both caches: slot pos equals k_new and v_new, and no other slot changed
-    (the fused kernel changes none).  Timed at W = 256, pos = 255, rotating
-    through the layers."""
+    so that masking by the row's own fails) and with row 0's key_start past
+    pos (its audio's window empty), against the plain version, and both
+    caches: slot pos equals k_new and v_new, and no other slot changed (the
+    fused kernel changes none).  Timed at W = 256, pos = 255, rotating
+    through the layers; in bf16 two calls must give the same bits."""
     H, dh, L, n_ctx = dims.n_text_head, dims.head_dim, dims.n_text_layer, dims.n_text_ctx
     B = A * G
     dev = torch.device("cuda")
@@ -671,12 +675,10 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
         anc[:, [STEP_WINDOW - 1, 400]] = (torch.arange(B, device=dev) % G).to(torch.int32)[:, None]
         extra, ks_top = (anc, G), 231
     ks_nonzero = torch.arange(B, device=dev) * 37 % ks_top + 1
+    ks_empty = ks_nonzero.clone()  # row 0's key_start past pos: its window (its audio's) is empty
+    ks_empty[0] = 401
     checks = ((STEP_WINDOW, STEP_WINDOW - 1, ks_nonzero if fused else None),
-              (n_ctx, 400, ks_nonzero))
-    if not fused:  # row 0's key_start past pos: its window (its audio's) is empty
-        ks_empty = ks_nonzero.clone()
-        ks_empty[0] = 401
-        checks += ((n_ctx, 400, ks_empty),)
+              (n_ctx, 400, ks_nonzero), (n_ctx, 400, ks_empty))
 
     def run(fn, caches, pos, ks, W, at=layer):
         return fn(q, *new, *caches, at, pos, ks, *extra, window=W)
@@ -742,11 +744,9 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
         nbytes=(2 * kv_rows * H * dh + vectors * B * H * dh) * isz + table,
         flops=4 * B * H * n * dh, reps=50, checked=worst,
     )
-    if not fused:  # rows 7 and 9: the redesigned body
-        row["plan"] = step_launch_plan(B, H, n, W, dh, isz, beam=G > 1)._asdict()
-        if dtype == torch.bfloat16:
-            check_deterministic(name, lambda: run(kernel, (k_all, v_all), pos, ks_nonzero, W),
-                                row)
+    row["plan"] = step_launch_plan(B, H, n, W, dh, isz, beam=G > 1)._asdict()
+    if dtype == torch.bfloat16:
+        check_deterministic(name, lambda: run(kernel, (k_all, v_all), pos, ks_nonzero, W), row)
     return row
 
 
@@ -757,12 +757,20 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
     per position (``quantize_kv``, K and V from one tensor so that one
     multiply dequantises both in the library call) or, for row 10 without
     ``int8``, in q's dtype; the beam's random ancestors as in
-    check_step_attention.  Checked at W 256, pos 255 and at W 448, pos 400,
-    key_start in 1..231 (varied within each audio for the beam), against
-    the plain version; the caches stay unchanged.  Timed at W 256, pos 255,
-    without key_start, rotating through the layers; the library call is the
-    dequantising multiply and SDPA as one CUDA graph (the beam's after a
-    gather of the ancestors' rows and scales)."""
+    check_step_attention.  Checked at W 256, pos 255, at W 448, pos 400,
+    key_start in 1..231 (varied within each audio for the beam), and with
+    row 0's (its audio's) key_start past pos, an empty window, against the
+    plain version; the read-only calls leave the caches unchanged.  Row 10
+    over an int8 cache is also checked the way the greedy path calls it,
+    with this step's k_new and v_new [A, H, 64] (q's dtype): its written
+    int8 column and scales must equal ``quantize_kv`` of them exactly, and
+    nothing else may change.  Timed at W 256, pos 255, without key_start,
+    rotating through the layers (row 10 over an int8 cache with its column
+    write, the path's call; the read-only call beside it); the library call
+    is the dequantising multiply and SDPA as one CUDA graph (the beam's
+    after a gather of the ancestors' rows and scales; row 10's after the
+    torch column write, quantize_kv and four slice writes, which is also
+    timed alone).  In bf16 two calls must give the same bits."""
     H, dh, L, n_ctx = dims.n_text_head, dims.head_dim, dims.n_text_layer, dims.n_text_ctx
     B = A * G
     dev = torch.device("cuda")
@@ -771,44 +779,66 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
     q = randn(B, H, dh, dtype=dtype, scale=dh**-0.5)
     if int8:
         planes, s = quantize_kv(randn(2, L, B, H, n_ctx, dh))
-        scales = {"k_scale": s[0], "v_scale": s[1]}
     else:
-        planes, s, scales = randn(2, L, B, H, n_ctx, dh, dtype=dtype), None, {}
-    k_all, v_all = planes[0], planes[1]
+        planes, s = randn(2, L, B, H, n_ctx, dh, dtype=dtype), None
     first = torch.arange(B, device=dev) // G * G
+    write = int8 and G == 1  # row 10 with its column write, the greedy path's call
     if G == 1:
-        name, kernel, plain, new, extra = (
-            "self_attention_step", self_attention_step, self_attention_step_plain, (), ())
+        name, kernel, plain, extra = (
+            "self_attention_step", self_attention_step, self_attention_step_plain, ())
+        new = {"k_new": randn(B, H, dh, dtype=dtype),
+               "v_new": randn(B, H, dh, dtype=dtype)} if write else {}
     else:
-        name, kernel, plain, new = (
-            "beam_self_attention_step", beam_self_attention_step, beam_self_attention_step_plain,
-            (None, None))
+        name, kernel, plain = (
+            "beam_self_attention_step", beam_self_attention_step, beam_self_attention_step_plain)
         anc = torch.randint(0, G, (B, n_ctx), generator=gen, device=dev, dtype=torch.int32)
         anc[:, [STEP_WINDOW - 1, 400]] = (torch.arange(B, device=dev) % G).to(torch.int32)[:, None]
-        extra = (anc, G)
+        extra, new = (anc, G), {}
     ks = torch.arange(B, device=dev) * 37 % 231 + 1
+    ks_empty = ks.clone()
+    ks_empty[0] = 401
 
-    def run(fn, pos, ks, W, at=layer):
-        return fn(q, *new, k_all, v_all, at, pos, ks, *extra, window=W, **scales)
+    def run(fn, pos, ks, W, at=layer, caches=(planes, s), writes=False):
+        p, sc = caches
+        scales = {"k_scale": sc[0], "v_scale": sc[1]} if int8 else {}
+        args = (q, None, None) if G > 1 else (q,)
+        return fn(*args, p[0], p[1], at, pos, ks, *extra, window=W, **scales,
+                  **(new if writes else {}))
 
     tol = tolerance(name, dtype)
     dtag = str(dtype).split(".")[-1]
     tag = f"{dtag}, {'int8' if int8 else dtag} cache"
     worst = (0.0, 0.0)
-    before = planes.clone()
+    before = (planes.clone(), None if s is None else s.clone())
     checks = [(STEP_WINDOW, STEP_WINDOW - 1, ks, " key_start 1..231"),
-              (n_ctx, 400, ks, " key_start 1..231")]
-    if G > 1:  # row 9: its audio 0's key_start past pos, an empty window
-        ks_empty = ks.clone()
-        ks_empty[0] = 401
-        checks.append((n_ctx, 400, ks_empty, " audio 0's key_start past pos (empty window)"))
+              (n_ctx, 400, ks, " key_start 1..231"),
+              (n_ctx, 400, ks_empty, " row 0's (audio 0's) key_start past pos (empty window)")]
     for W, pos, k, what in checks:
         err = compare(f"{name} {tag} W {W} pos {pos}{what}",
                       (run(kernel, pos, k, W),), (run(plain, pos, k, W),), tol)
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
-    if not torch.equal(planes, before):
+    if not torch.equal(planes, before[0]) or (int8 and not torch.equal(s, before[1])):
         raise AssertionError(f"{name}: the read-only step changed the cache")
-    print("  cache: unchanged", flush=True)
+    print("  cache: unchanged by the read-only calls", flush=True)
+    if write:
+        want_k, want_v = quantize_kv(new["k_new"]), quantize_kv(new["v_new"])
+        for W, pos, k, what in checks:
+            got_c = (before[0].clone(), before[1].clone())
+            want_c = (before[0].clone(), before[1].clone())
+            err = compare(f"{name} {tag} with its column write, W {W} pos {pos}{what}",
+                          (run(kernel, pos, k, W, caches=got_c, writes=True),),
+                          (run(plain, pos, k, W, caches=want_c, writes=True),), tol)
+            worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+            (k8, v8), (k_s, v_s) = got_c[0][:, layer, :, :, pos], got_c[1][:, layer, :, :, pos]
+            if not (torch.equal(k8, want_k[0]) and torch.equal(v8, want_v[0])
+                    and torch.equal(k_s, want_k[1]) and torch.equal(v_s, want_v[1])):
+                raise AssertionError(f"{name}: the written int8 column or its scales differ from "
+                                     "quantize_kv's")
+            if not (torch.equal(got_c[0], want_c[0]) and torch.equal(got_c[1], want_c[1])):
+                raise AssertionError(f"{name}: a cache slot changed that should not")
+            del got_c, want_c
+        print("  column write: the int8 column and scales at slot pos equal quantize_kv's "
+              "exactly; no other slot changed", flush=True)
     del before
 
     W, pos = STEP_WINDOW, STEP_WINDOW - 1
@@ -817,8 +847,14 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
     deq = torch.empty(2, B, H, W, dh, dtype=dtype, device=dev)
     src = first[:, None] + anc[:, :W].long() if G > 1 else None
 
+    def column_write(at):  # KVCache.write of one step's column
+        for plane, new_x in enumerate((new["k_new"], new["v_new"])):
+            planes[plane, at, :, :, pos], s[plane, at, :, :, pos] = quantize_kv(new_x)
+
     def library(at):  # one multiply dequantises K and V of the window, then SDPA
         if G == 1:
+            if write:
+                column_write(at)
             window = planes[:, at, :, :, :W]
             kv = torch.mul(window, s[:, at, :, :, :W, None], out=deq) if int8 else window
         else:  # the gather of the ancestors' rows and scales first
@@ -837,22 +873,31 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
         print(f"  bound: {kv_rows} distinct (source row, slot) pairs of this run's "
               f"ancestors, of {B * n} (row, slot) reads", flush=True)
     row_bytes = 2 * H * dh * (1 if int8 else isz) + (2 * H * 4 if int8 else 0)  # K, V (scales)
+    # q in, out; with the write also k_new, v_new in (slot pos's K/V and
+    # scales counted once, as written)
+    vectors = 4 if write else 2
     nxt = rotating(L)
     row = check_kernel(
-        name, dtype, lambda: run(kernel, pos, None, W, nxt()),
-        lambda: run(plain, pos, None, W, nxt()), lambda: library(nxt()),
-        nbytes=kv_rows * row_bytes + 2 * B * H * dh * isz + table, flops=4 * B * H * n * dh,
-        reps=50, checked=worst,
+        name, dtype, lambda: run(kernel, pos, None, W, nxt(), writes=write),
+        lambda: run(plain, pos, None, W, nxt(), writes=write), lambda: library(nxt()),
+        nbytes=kv_rows * row_bytes + vectors * B * H * dh * isz + table,
+        flops=4 * B * H * n * dh, reps=50, checked=worst,
         library_call=None if not int8 else (
-            "the dequantising multiply of the window's K and V (one torch.mul) and "
-            "F.scaled_dot_product_attention, two calls as one CUDA graph" if G == 1 else
+            "the torch column write (quantize_kv of k_new and v_new, four slice writes), the "
+            "dequantising multiply of the window's K and V (one torch.mul) and "
+            "F.scaled_dot_product_attention, as one CUDA graph" if G == 1 else
             "the gather of the ancestors' K/V rows and of their scales, the dequantising "
             "multiply and F.scaled_dot_product_attention, four calls as one CUDA graph"),
     )
-    if G > 1:  # row 9's int8 branch: the redesigned body
-        row["plan"] = step_launch_plan(B, H, n, W, dh, 1, beam=True)._asdict()
-        if dtype == torch.bfloat16:
-            check_deterministic(f"{name} (int8 cache)", lambda: run(kernel, pos, ks, W), row)
+    if write:
+        row["read_only_ms"] = timed_ms(lambda: run(kernel, pos, None, W, nxt()), 50, graph=True)
+        row["column_write_ms"] = timed_ms(lambda: column_write(nxt()), 50, graph=True)
+        print(f"    the kernel read only (the caller's column) {row['read_only_ms']:.4f} ms | "
+              f"the torch column write alone {row['column_write_ms']:.4f} ms", flush=True)
+    row["plan"] = step_launch_plan(B, H, n, W, dh, 1 if int8 else isz, beam=G > 1)._asdict()
+    if dtype == torch.bfloat16:
+        check_deterministic(f"{name} ({'int8' if int8 else 'bf16'} cache)",
+                            lambda: run(kernel, pos, ks, W, writes=write), row)
     return row
 
 
@@ -2411,8 +2456,8 @@ KERNELS = {
 def print_ptxas() -> None:
     """ptxas's registers and spills of every kernel, from the build: each
     instance of the redesigned kernels (row 12, bf16 and its f32 parity
-    instance; rows 7 and 9, the window body), a summary line for each
-    source."""
+    instance; rows 7, 9, 10 and 11, the window body), a summary line for
+    each source."""
     for source in SOURCES:
         report = ptxas_report(source)
         if not report:
@@ -2423,8 +2468,7 @@ def print_ptxas() -> None:
               f"{min(r[1] for r in report)}-{max(r[1] for r in report)}, "
               f"{len(spills)} with spills", flush=True)
         for kernel, regs, stores, loads, stack in report:
-            if source == "decoder_layer" or (source == "self_attention" and any(
-                    k in kernel for k in ("self_append_kernel", "beam_self"))):
+            if source in ("decoder_layer", "self_attention"):
                 print(f"  {kernel[-64:]}: {regs} registers, spill stores {stores} B, spill "
                       f"loads {loads} B, stack {stack} B", flush=True)
 
@@ -2585,7 +2629,7 @@ def main() -> int:
                + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL,
                                        MLP_TILES_LABEL, G10_LABEL])
     extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "phase_bound_us",
-                  "phase_gbps", "library_call",
+                  "phase_gbps", "library_call", "read_only_ms", "column_write_ms",
                   "cold_ms", "library_cold_ms", "bit_identical", "plan", "one_window",
                   "direct_dft_bound_ms")
     line = []

@@ -3,7 +3,7 @@
     python3 chip_study.py plans [PARENT [LABEL]]
     python3 chip_study.py parity-seeds [TREE]
     python3 chip_study.py layer [PARENT]
-    python3 chip_study.py step [PARENT]
+    python3 chip_study.py step [PARENT [LABEL]]
     python3 chip_study.py transcribe PARENT
 
 ``plans``: the cross kernel (row 5, ``csrc/cross_attention.cu``) at every
@@ -37,24 +37,29 @@ its source with this tree's nvcc flags and timed the same way in turns
 (parent, this, this, parent) through its own C interface (the one without
 a launch plan).
 
-``step``: the append (row 7) and beam (row 9, bf16 and int8 K/V) kernels
-(``csrc/self_attention.cu``, ``attend_window``) in bf16 at every path shape
-of ``chip_smoke.py`` (the transcription and the golden dims included),
-with ``chip_smoke``'s inputs: first held to the plain version at W 256,
-pos 255, at W 448, pos 400 with a key_start, and with one row's key_start
-past pos (the empty window), and called twice for the same bits; then
-timed as ``chip_smoke`` times them (a CUDA graph of 50 calls rotating
-through the layers, so each finds its K/V cold in L2) at W 256, pos 255,
-under the plan ``step_launch_plan`` picks (marked ``*``) and at the other
-thread counts a block, beside the floor of such a graph (one torch add on
-one element).  With PARENT, a checkout of an earlier tree, its kernels are
-built from their source with this tree's nvcc flags and timed the same way
-in turns (parent, this, this, parent) through their C interface without a
-plan.  At the beam shapes the chosen plan is also timed with every row of
-an audio on one ancestor row and with every row on its own, beside the
-random ancestors: how the time follows the distinct rows read.  The
-registers and spills of the two kernels' instances come first, from the
-build.
+``step``: the step self-attention kernels (``csrc/self_attention.cu``,
+one body, ``attend_window``): the append (row 7), beam (row 9, bf16 and
+int8 K/V), fused (row 11) and read-only (row 10, over an int8 cache with
+its column write, and over a bf16 cache) kernels in bf16 at every path
+shape of ``chip_smoke.py`` (the transcription and the golden dims
+included), with ``chip_smoke``'s inputs: first held to the plain version at
+W 256, pos 255, at W 448, pos 400 with a key_start, and with one row's
+key_start past pos (the empty window), and called twice for the same
+bits; then timed as ``chip_smoke`` times them (a CUDA graph of 50 calls
+rotating through the layers, so each finds its K/V cold in L2) at W 256,
+pos 255, under the plan ``step_launch_plan`` picks (marked ``*``) and at
+the other thread counts a block, beside the floor of such a graph (one
+torch add on one element).  With PARENT (``-`` for none), a checkout of the
+tree before rows 10 and 11 moved to this body, its kernels are built from
+their source with this tree's nvcc flags and timed the same way in turns
+(parent, this, this, parent) through their C interface; row 10 over an
+int8 cache is compared as the greedy path runs it (there the parent's
+path is the torch column write, then its read-only kernel) and read only.
+At the beam shapes the chosen plan is also timed with every row of an
+audio on one ancestor row and with every row on its own, beside the
+random ancestors: how the time follows the distinct rows read.  With
+LABEL, only the shapes whose label starts with it.  The registers and
+spills of every instance come first, from the build.
 
 ``transcribe``: the main transcription path of ``chip_smoke.py``
 (``transcribe_main_path``: base.en, beam 5, the seeded 95 s file, f32
@@ -290,9 +295,11 @@ def plans(cs, parent=None, only=None) -> None:
 
 
 def parent_step(parent: pathlib.Path) -> dict:
-    """The bf16 append, beam and int8-bf16 beam entry points of PARENT's
-    self-attention source, built into build/study/ with this tree's nvcc
-    flags (their C interface takes no plan)."""
+    """PARENT's bf16 step entry points, built from its self-attention source
+    into build/study/ with this tree's nvcc flags, with their C interface
+    as a tree has it whose rows 10 and 11 do not yet run the window body:
+    the append, beam and int8 beam entry points take a plan (threads), the
+    fused and read-only ones neither a plan nor a column."""
     from whisper_rs_tpu_torch.ops import build
 
     src = parent / "whisper_rs_tpu_torch" / "csrc" / "self_attention.cu"
@@ -303,70 +310,96 @@ def parent_step(parent: pathlib.Path) -> dict:
     lib = ctypes.CDLL(str(out))
     P, I = ctypes.c_void_p, ctypes.c_int
     fns = {"append": lib.self_attention_append_bf16, "beam": lib.beam_self_attention_bf16,
-           "int8": lib.beam_self_attention_int8_bf16}
-    fns["append"].argtypes = [P] * 7 + [I] * 7 + [P]
-    for key in ("beam", "int8"):
-        fns[key].argtypes = [P] * 7 + [I, P] + [I] * 7 + [P]
+           "beam int8": lib.beam_self_attention_int8_bf16, "fused": lib.self_attention_fused_bf16,
+           "step": lib.self_attention_step_bf16}
+    fns["append"].argtypes = [P] * 7 + [I] * 8 + [P]
+    for key in ("beam", "beam int8"):
+        fns[key].argtypes = [P] * 7 + [I, P] + [I] * 8 + [P]
+    fns["fused"].argtypes = [P] * 5 + [I] * 7 + [P]
+    fns["step"].argtypes = [P] * 7 + [I] * 7 + [P]
     for fn in fns.values():
         fn.restype = I
     return fns
 
 
-# (label, model or None for the golden dims, audios, rows an audio, int8 K/V)
+# (label, model or None for the golden dims, audios, rows an audio, the
+# kernel: append (row 7), beam (row 9), fused (row 11) or step (row 10),
+# int8 K/V)
 STEP_SHAPES = [
-    ("base.en b128", "base.en", 128, 1, False),
-    ("large-v3 b12", "large-v3", 12, 1, False),
-    ("golden dims", None, 1, 1, False),
-    ("medium.en beam 5", "medium.en", 8, 5, False),
-    ("medium.en beam 5, int8 K/V", "medium.en", 8, 5, True),
-    ("transcription", "base.en", 1, 5, False),
-    ("golden dims beam 3", None, 2, 3, False),
-    ("golden dims beam 3, int8 K/V", None, 2, 3, True),
+    ("base.en b128", "base.en", 128, 1, "append", False),
+    ("large-v3 b12", "large-v3", 12, 1, "append", False),
+    ("golden dims", None, 1, 1, "append", False),
+    ("medium.en beam 5", "medium.en", 8, 5, "beam", False),
+    ("medium.en beam 5, int8 K/V", "medium.en", 8, 5, "beam", True),
+    ("transcription", "base.en", 1, 5, "beam", False),
+    ("golden dims beam 3", None, 2, 3, "beam", False),
+    ("golden dims beam 3, int8 K/V", None, 2, 3, "beam", True),
+    ("row 11, medium.en b8 ctx", "medium.en", 8, 1, "fused", False),
+    ("row 11, golden dims", None, 1, 1, "fused", False),
+    ("row 10, base.en b128 int8", "base.en", 128, 1, "step", True),
+    ("row 10, large-v3 b12 int8", "large-v3", 12, 1, "step", True),
+    ("row 10, golden dims int8", None, 1, 1, "step", True),
+    ("row 10, base.en b128 bf16 cache", "base.en", 128, 1, "step", False),
 ]
 
 
-def step(cs, parent=None) -> None:
+def step(cs, parent=None, only=None) -> None:
     from whisper_rs_tpu_torch.config import dims_for
-    from whisper_rs_tpu_torch.models import quantize_kv
     from whisper_rs_tpu_torch.ops.build import ptxas_report
     from whisper_rs_tpu_torch.ops.decode_attention import (
         StepPlan,
         _window_launch,
         beam_self_attention_step,
         beam_self_attention_step_plain,
+        quantize_kv,
         self_attention_append_step,
         self_attention_append_step_plain,
+        self_attention_fused_step,
+        self_attention_fused_step_plain,
+        self_attention_step,
+        self_attention_step_plain,
         step_launch_plan,
     )
 
+    wrappers = {
+        "append": ("self_attention_append_step", self_attention_append_step,
+                   self_attention_append_step_plain),
+        "beam": ("beam_self_attention_step", beam_self_attention_step,
+                 beam_self_attention_step_plain),
+        "fused": ("self_attention_fused_step", self_attention_fused_step,
+                  self_attention_fused_step_plain),
+        "step": ("self_attention_step", self_attention_step, self_attention_step_plain),
+    }
     old = parent_step(pathlib.Path(parent).resolve()) if parent else None
     for kernel, regs, stores, loads, _ in ptxas_report("self_attention"):
-        if any(k in kernel for k in ("self_append_kernel", "beam_self")):
-            print(f"[step] ptxas {kernel[-60:]}: {regs} registers, spill stores {stores} B, "
-                  f"spill loads {loads} B", flush=True)
+        print(f"[step] ptxas {kernel[-60:]}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     one = torch.zeros(1, device=dev)
     print(f"[step] the graph's floor: one torch add on one element, "
           f"{cs.timed_ms(lambda: one.add_(1), 50, graph=True) * 1e3:.2f} us", flush=True)
-    for label, model, A, G, int8 in STEP_SHAPES:
+    for label, model, A, G, kind, int8 in STEP_SHAPES:
+        if only and not label.startswith(only):
+            continue
         dims = cs.GOLDEN_DIMS if model is None else dims_for(model)
         L, H, dh, n_ctx = dims.n_text_layer, dims.n_text_head, dims.head_dim, dims.n_text_ctx
-        B, beam = A * G, G > 1
-        name = "beam_self_attention_step" if beam else "self_attention_append_step"
-        kernel = beam_self_attention_step if beam else self_attention_append_step
-        plain = beam_self_attention_step_plain if beam else self_attention_append_step_plain
+        B, beam = A * G, kind == "beam"
+        name, kernel, plain = wrappers[kind]
         q = (torch.randn(B, H, dh, generator=gen, device=dev) * dh**-0.5).bfloat16()
         if int8:
             planes, s = quantize_kv(torch.randn(2, L, B, H, n_ctx, dh, generator=gen, device=dev))
             k_all, v_all = planes[0], planes[1]
-            new, scales = (None, None), {"k_scale": s[0], "v_scale": s[1]}
+            scales = {"k_scale": s[0], "v_scale": s[1]}
         else:
             k_all, v_all = (torch.randn(L, B, H, n_ctx, dh, generator=gen, device=dev).bfloat16()
                             for _ in range(2))
-            new = tuple(torch.randn(B, H, dh, generator=gen, device=dev).bfloat16()
-                        for _ in range(2))
             scales = {}
+        fresh = tuple(torch.randn(B, H, dh, generator=gen, device=dev).bfloat16()
+                      for _ in range(2))
+        # the path's call takes this step's column: the append and beam
+        # kernels over a bf16 cache, row 10 over an int8 one
+        writes = kind in ("append", "beam") and not int8 or kind == "step" and int8
         rows = torch.arange(B, device=dev)
         ancs = {}
         if beam:
@@ -378,7 +411,11 @@ def step(cs, parent=None) -> None:
         extra = (ancs["random"], G) if beam else ()
 
         def run(fn, pos, ks, W, at=L - 1, extra=extra):
-            return fn(q, *new, k_all, v_all, at, pos, ks, *extra, window=W, **scales)
+            if kind in ("append", "beam"):
+                new = fresh if writes else (None, None)
+                return fn(q, *new, k_all, v_all, at, pos, ks, *extra, window=W, **scales)
+            column = {"k_new": fresh[0], "v_new": fresh[1]} if writes else {}
+            return fn(q, k_all, v_all, at, pos, ks, window=W, **scales, **column)
 
         ks = rows * 37 % 231 + 1
         empty = ks.clone()
@@ -396,27 +433,40 @@ def step(cs, parent=None) -> None:
         out = torch.empty_like(q)
         nxt = cs.rotating(L)
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (the capture's)
+        entry = {"append": "self_attention_append", "fused": "self_attention_fused",
+                 "step": "self_attention_step",
+                 "beam": "beam_self_attention_int8" if int8 else "beam_self_attention"}[kind]
 
-        def call(plan, anc=extra[0] if beam else None, layer=None):
-            return _window_launch(q, *new, k_all, v_all, nxt() if layer is None else layer, pos,
-                                  W, None, anc, G, plan, out, scales.get("k_scale"),
-                                  scales.get("v_scale"))
+        def call(plan, anc=extra[0] if beam else None, layer=None, column=writes):
+            new = fresh if column else (None, None)
+            return _window_launch(entry, plan, nxt() if layer is None else layer, pos, W, G,
+                                  q=q, k_new=new[0], v_new=new[1], k_all=k_all, v_all=v_all,
+                                  key_start=None, anc_local=anc, out=out, **scales)
 
         plans = {chosen} | {StepPlan(threads, chosen.smem) for threads in (64, 96, 128, 192, 256)}
         results = []
         if old is not None:
-            fn = old["int8" if int8 else ("beam" if beam else "append")]
+            fn = old["beam int8" if beam and int8 else kind]
 
-            def call_old(layer=None):
-                if int8:
+            def call_old(layer=None, column=writes):
+                at = nxt() if layer is None else layer
+                if kind == "step" and column:  # the torch column write of the parent's path
+                    for plane, x in enumerate(fresh):
+                        planes[plane, at, :, :, pos], s[plane, at, :, :, pos] = quantize_kv(x)
+                ptrs = {"append": (q, *fresh, k_all, v_all, None, out),
+                        "beam": (q, *fresh, k_all, v_all, None, extra[0] if beam else None),
+                        "fused": (q, k_all, v_all, None, out),
+                        "step": (q, k_all, v_all, scales.get("k_scale"), scales.get("v_scale"),
+                                 None, out)}[kind]
+                if beam and int8:
                     ptrs = (q, k_all, v_all, scales["k_scale"], scales["v_scale"], None,
                             extra[0])
-                else:
-                    ptrs = (q, *new, k_all, v_all, None) + ((extra[0],) if beam else ())
                 ptrs = [None if t is None else t.data_ptr() for t in ptrs]
-                tail = (B, H, n_ctx, nxt() if layer is None else layer, pos, W, dh, stream())
-                err = fn(*ptrs, G, out.data_ptr(), *tail) if beam else fn(*ptrs, out.data_ptr(),
-                                                                          *tail)
+                sizes = (B, H, n_ctx, at, pos, W, dh)
+                if kind in ("append", "beam"):
+                    sizes += (chosen.threads,)
+                err = (fn(*ptrs, G, out.data_ptr(), *sizes, stream()) if beam
+                       else fn(*ptrs, *sizes, stream()))
                 if err:
                     raise RuntimeError(f"parent {name} launch failed: {err}")
 
@@ -427,8 +477,16 @@ def step(cs, parent=None) -> None:
                   f"{(out.float() - want.float()).abs().max().item():.3e}", flush=True)
             turns = [("parent", call_old), ("this", lambda: call(chosen)),
                      ("this", lambda: call(chosen)), ("parent", call_old)]
-            results.append("in turns " + ", ".join(
+            results.append(("in turns (the parent's path: the torch column write, then its "
+                            "kernel) " if kind == "step" and writes else "in turns ") + ", ".join(
                 f"{who} {cs.timed_ms(fn, 50, graph=True) * 1e3:.2f}" for who, fn in turns))
+            if kind == "step" and writes:
+                turns = [("parent", lambda: call_old(column=False)),
+                         ("this", lambda: call(chosen, column=False)),
+                         ("this", lambda: call(chosen, column=False)),
+                         ("parent", lambda: call_old(column=False))]
+                results.append("read only, in turns " + ", ".join(
+                    f"{who} {cs.timed_ms(fn, 50, graph=True) * 1e3:.2f}" for who, fn in turns))
         for plan in sorted(plans):
             ms = cs.timed_ms(lambda plan=plan: call(plan), 50, graph=True)
             mark = "*" if plan == chosen else ""
@@ -444,11 +502,15 @@ def step(cs, parent=None) -> None:
         kv_rows = B * n if not beam else torch.unique(
             (first[:, None] + ancs["random"][:, :n].long()) * n + ids).numel()
         row_bytes = 2 * H * dh * k_all.element_size() + (2 * H * 4 if int8 else 0)
-        nbytes = kv_rows * row_bytes + (2 if int8 else 6) * B * H * dh * 2 + (B * n * 4 if beam
-                                                                              else 0)
+        # q in, out; k_new, v_new in where the call writes its column, and
+        # (bf16) the column out beside the rows read
+        vectors = 2 + (2 if writes else 0) + (2 if writes and not int8 else 0)
+        nbytes = kv_rows * row_bytes + vectors * B * H * dh * 2 + (B * n * 4 if beam else 0)
         print(f"[step] {label} (B {B}, G {G}, H {H}, dh {dh}; bound "
               f"{nbytes / cs.MEM_BW * 1e6:.2f} us), us: " + " | ".join(results), flush=True)
         del k_all, v_all
+        if int8:
+            del planes, s
         torch.cuda.empty_cache()
 
 
@@ -526,7 +588,7 @@ def main() -> int:
     elif sys.argv[1] == "layer":
         layer(cs, arg)
     elif sys.argv[1] == "step":
-        step(cs, arg)
+        step(cs, None if arg == "-" else arg, sys.argv[3] if len(sys.argv) > 3 else None)
     else:
         parity_seeds(cs)
     return 0

@@ -12,14 +12,19 @@ versions there):
   * row 10 (``self_attention_step``), the int8 branch of row 5
     (``cross_attention_step``) and of row 9 (``beam_self_attention_step``)
     against the Pallas kernels in interpret mode, within 1e-5, the port's
-    ctx-major K transposed for JAX;
+    ctx-major K transposed for JAX; row 10 with this step's k_new/v_new
+    against the JAX int8 step (``_quantize_kv``, ``dynamic_update_slice``
+    of the column and scales, then the Pallas kernel): the written int8
+    column and scales bit-equal, the output within 1e-5;
   * one int8 decoder step's logits, and ``decode_greedy`` and
     ``decode_beam`` with ``quantize_kv=True``, against the JAX package with
     its Pallas kernels interpreted (``WHISPER_PALLAS_DECODE=interpret``);
-  * the routes that refuse int8, and the wrappers an int8 step calls."""
+  * the routes that refuse int8, the wrappers an int8 step calls, and the
+    int8 greedy step's column left to row 10 (no ``KVCache.write``)."""
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 import pytest
 import torch
@@ -217,6 +222,73 @@ def test_self_attention_step_matches_pallas(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(kt.numpy(), k)  # read only
     np.testing.assert_array_equal(vt.numpy(), v)
+
+
+WRITE_CASES = {
+    "w256_key_start": dict(B=4, H=4, dh=64, pos=255, W=256, ks=[0, 3, 231, 17]),
+    "w448_key_start": dict(B=2, H=2, dh=64, pos=400, W=448, ks=[1, 231]),
+    "w448_empty_window": dict(B=2, H=2, dh=64, pos=400, W=448, ks=[401, 5]),
+    "dh16_w128": dict(B=3, H=4, dh=16, pos=100, W=128, ks=None),
+}
+
+
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+def test_self_attention_step_column_write_matches_jax(case):
+    """Row 10 given this step's k_new/v_new over an int8 cache, as the
+    greedy step calls it, against the JAX int8 step (models/whisper.py):
+    ``_quantize_kv`` of the column, ``dynamic_update_slice`` of it (K
+    transposed) and of its scales, then the Pallas ``self_attention_step``
+    interpreted.  The caches and scales afterwards bit-equal, the output
+    within 1e-5; a row whose key_start is past pos still writes its column."""
+    c = WRITE_CASES[case]
+    rng = np.random.default_rng(len(case) + 40)
+    L, B, H, n_ctx, dh, layer, pos = 2, c["B"], c["H"], 448, c["dh"], 1, c["pos"]
+    q = (rng.standard_normal((B, H, dh)) * dh**-0.5).astype(np.float32)
+    (k, k_s), (v, v_s) = (_int8_planes(rng, (L, B, H, n_ctx, dh)) for _ in range(2))
+    k_new, v_new = (rng.standard_normal((B, H, dh)).astype(np.float32) for _ in range(2))
+    ks = None if c["ks"] is None else np.asarray(c["ks"])
+
+    jk, jk_s = jax_whisper._quantize_kv(jnp.asarray(k_new)[:, :, None])  # [B, H, 1, dh], [.., 1]
+    jv, jv_s = jax_whisper._quantize_kv(jnp.asarray(v_new)[:, :, None])
+    at = (layer, 0, 0, pos, 0)
+    k_t = lax.dynamic_update_slice(jnp.asarray(np.swapaxes(k, -1, -2)), jk.swapaxes(-1, -2)[None],
+                                   (layer, 0, 0, 0, pos))
+    v_j = lax.dynamic_update_slice(jnp.asarray(v), jv[None], at)
+    ks_j = lax.dynamic_update_slice(jnp.asarray(k_s[..., None]), jk_s[None], at)
+    vs_j = lax.dynamic_update_slice(jnp.asarray(v_s[..., None]), jv_s[None], at)
+    want = jax_self_step(
+        jnp.asarray(q), k_t, v_j, jnp.int32(layer), jnp.int32(pos),
+        None if ks is None else jnp.asarray(ks, jnp.int32), window=c["W"], k_scale=ks_j,
+        v_scale=vs_j, interpret=True,
+    )
+
+    kt, vt, kst, vst = (torch.from_numpy(a.copy()) for a in (k, v, k_s, v_s))
+    got = self_attention_step(
+        torch.from_numpy(q), kt, vt, layer, pos, None if ks is None else torch.from_numpy(ks),
+        window=c["W"], k_scale=kst, v_scale=vst, k_new=torch.from_numpy(k_new),
+        v_new=torch.from_numpy(v_new),
+    )
+    np.testing.assert_array_equal(kt.numpy(), np.swapaxes(np.asarray(k_t), -1, -2))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(v_j))
+    np.testing.assert_array_equal(kst.numpy(), np.asarray(ks_j)[..., 0])
+    np.testing.assert_array_equal(vst.numpy(), np.asarray(vs_j)[..., 0])
+    assert not np.array_equal(kt.numpy()[layer, :, :, pos], k[layer, :, :, pos])  # written
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_self_attention_step_refuses_a_misplaced_column():
+    """k_new and v_new go together, and only with an int8 cache (a cache in
+    q's dtype takes its column through the append step)."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 64)).astype(np.float32))
+    (k, k_s), (v, v_s) = (_int8_planes(rng, (1, 2, 4, 448, 64)) for _ in range(2))
+    int8 = dict(k_scale=torch.from_numpy(k_s), v_scale=torch.from_numpy(v_s))
+    planes = (torch.from_numpy(k), torch.from_numpy(v))
+    with pytest.raises(ValueError, match="go together"):
+        self_attention_step(q, *planes, 0, 3, window=8, k_new=q, **int8)
+    floats = torch.zeros(1, 2, 4, 448, 64)
+    with pytest.raises(ValueError, match="int8 cache"):
+        self_attention_step(q, floats, floats.clone(), 0, 3, window=8, k_new=q, v_new=q)
 
 
 @pytest.mark.parametrize("G", [1, 5])
@@ -430,3 +502,30 @@ def test_int8_steps_call_their_wrappers(weights, counted, path):
     want.update({k: L * steps * n for k, n in step_calls.items()})
     want["cross_attention_step"] = L * (steps + 1)  # and the one-token prefill
     assert counted == want
+
+
+def test_int8_greedy_step_leaves_its_column_to_row_10(weights, monkeypatch):
+    """On the int8 greedy path torch writes the cache only in the prefill
+    (``KVCache.write`` once a layer); each step hands its K/V column to
+    row 10, which quantises and writes it."""
+    _, _, qmodel = weights
+    writes, columns = [], []
+    write = port_whisper.KVCache.write
+    step = port_whisper.self_attention_step
+
+    def counting_write(cache, layer, start, k, v):
+        writes.append(k.shape[2])
+        return write(cache, layer, start, k, v)
+
+    def counting_step(*a, k_new=None, v_new=None, **kw):
+        columns.append(k_new is not None and v_new is not None)
+        return step(*a, k_new=k_new, v_new=v_new, **kw)
+
+    monkeypatch.setattr(port_whisper.KVCache, "write", counting_write)
+    monkeypatch.setattr(port_whisper, "self_attention_step", counting_step)
+    mel = torch.from_numpy((np.random.default_rng(4).standard_normal((2, 80, 3000)) * 0.3)
+                           .astype(np.float32))
+    res = decode_greedy(qmodel, mel, np.full((2, 1), SOT), 1, 0, FilterConfig(**CFG_KW),
+                        GreedyMode(), 6, NO_SPEECH, quantize_kv=True)
+    assert writes == [1] * DIMS.n_text_layer  # the one-token prefill's, a layer
+    assert columns == [True] * (DIMS.n_text_layer * res.steps) and res.steps == 5

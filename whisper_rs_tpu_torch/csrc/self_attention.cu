@@ -15,6 +15,12 @@
 //                     or over an int8 cache with f32 per-position scales
 //                     ks, vs [L, B, H, n_ctx]:  s_j = (q . K_j) * ks_j,
 //                     w_j = e_j / sum(e) * vs_j (kept in f32), out = sum_j w_j V_j;
+//                     over an int8 cache it may take this step's k_new,
+//                     v_new (query dtype) and write slot pos itself first,
+//                     quantised as quantize_kv does on the card:
+//                     s = max(amax |x|, 1e-8) * (1/127) (torch's division by
+//                     the constant, a multiply by its f32 reciprocal),
+//                     K[l, b, h, pos] = clamp(rint(x / s), -127, 127), ks = s;
 //   beam int8:        the beam read over an int8 cache, read only; the
 //                     scales of slot j come from the same row r(b, j) as its
 //                     K/V row, the ancestor's.
@@ -28,7 +34,8 @@
 // self_attention_fused_step (kernel body _self_fused_kernel, the TPU's
 // read-only kernel over ctx-major planes, which are this port's layout) and
 // self_attention_step (kernel body _self_attn_kernel, both branches; the TPU
-// kernel read a transposed K and whole-H scale blocks).  The TPU append
+// kernel read a transposed K and whole-H scale blocks, after XLA quantised
+// and wrote the column around it).  The TPU append
 // kernel kept both planes transposed and lane-padded to 512, spliced the
 // column into a VMEM copy and wrote back the aligned 128-wide block, with
 // DMAs double-buffered across programs.  The TPU beam kernel, which cannot
@@ -52,41 +59,38 @@
 // visible slot, and the rows of one audio that share an ancestor at a slot
 // share its K/V row, which the bound counts once.
 //
-// Design of the read-only greedy steps (fused, step: attend_step): one
-// block of 8 warps per (head, row), which reads slots lo..pos of the cache.
-// Only slots lo..pos are read: masked slots have weight exactly 0 in f32
-// (exp of NEG - max underflows), so skipping them changes nothing.  A group
-// of lanes reads one key row with 16-byte loads (at dh 64: 4 lanes in int8,
-// 8 in bf16, 16 in f32; at dh 16 a quarter of that, so a warp takes 4 times
-// the rows); the scores go to shared memory, the block takes max and sum,
-// and the same lane groups then walk V with the weights, reduced across
-// groups and warps in a fixed order (deterministic, no atomics).  Two
-// passes over the rows, each a chain of dependent round trips.
-//
-// Design of the append and beam steps (attend_window), redesigned for
-// Hopper: no chain of round trips and no barrier before the merge.  One
-// block (2 to 8 warps, the host's plan: ops/decode_attention.py::
-// step_launch_plan) per (head, row).  A lane group reads a key row, 16
-// bytes a lane (int8: 8, so that every lane holds 8 values but f32's 4);
-// lane group g takes the visible slots lo + g, lo + g + groups, ..., in
-// batches of UNROLL rows, and each batch's K and V reads (int8: and their
-// scales, through the same ancestor) go out straight into registers two
-// batches ahead of its scores, so a lane group has up to 2 UNROLL rows in
-// flight and no warp waits for another.  The beam block first reads its
-// row's ancestors over the window into shared memory, in one round beside
-// key_start and q; it then issues every gather from there (the beam rows of
-// one audio each read their ancestors' rows: an audio's rows in one block,
-// reading each shared row once, measured slower on the H100, PERF.md).  The
-// append and beam blocks take slot pos from k_new and v_new and write them
-// to the cache; no block reads slot pos from the cache (at slot pos every
-// row's ancestor is itself: the decode loop sets that column of the table
-// to the identity before the step).  Each lane group keeps a running f32
-// max and sum (an online softmax): a batch's scores, their max, the
-// rescale of the sum and of acc, then e V (int8: e times the slot's V
-// scale, in f32) added to acc; no slot is read twice.  The lane groups'
-// parts (max, sum, acc[dh]) merge across the warp by shuffles, then across
-// the warps in order: no atomics, so a call is bit-identical to the next.
-// The output is acc / sum.
+// Design, one body for every step (attend_window), redesigned for Hopper:
+// no chain of round trips and no barrier before the merge.  One block (2 to
+// 8 warps, the host's plan: ops/decode_attention.py::step_launch_plan) per
+// (head, row).  A lane group reads a key row, 16 bytes a lane (int8: 8, so
+// that every lane holds 8 values but f32's 4); lane group g takes the
+// visible slots lo + g, lo + g + groups, ..., in batches of UNROLL rows, and
+// each batch's K and V reads (int8: and their scales, through the same
+// ancestor) go out straight into registers two batches ahead of its scores,
+// so a lane group has up to 2 UNROLL rows in flight and no warp waits for
+// another.  The beam block first reads its row's ancestors over the window
+// into shared memory, in one round beside key_start and q; it then issues
+// every gather from there (the beam rows of one audio each read their
+// ancestors' rows: an audio's rows in one block, reading each shared row
+// once, measured slower on the H100, PERF.md).  The append and beam blocks
+// take slot pos from k_new and v_new and write them to the cache; the int8
+// step block that writes reads its column in the same round (warp 0 K,
+// warp 1 V), quantises it (the amax by shuffles), writes it and the two
+// scales to the cache and stages them in shared memory behind one
+// barrier, and reads slot pos from the staged copy, dequantised like any
+// slot; its first two batches' reads go out before that barrier where they
+// do not hold slot pos (the lane group that reads slot pos quantising in
+// registers, with no barrier, measured slower on the H100, PERF.md).  No
+// writing block reads slot pos from the cache (at slot pos every row's
+// ancestor is itself: the decode loop sets that column of the table to the
+// identity before the step); the read-only blocks read it from the cache,
+// where the caller wrote it.  Each lane group keeps a running f32 max and
+// sum (an online softmax): a batch's scores, their max, the rescale of the
+// sum and of acc, then e V (int8: e times the slot's V scale, in f32) added
+// to acc; no slot is read twice.  The lane groups' parts (max, sum,
+// acc[dh]) merge across the warp by shuffles, then across the warps in
+// order: no atomics, so a call is bit-identical to the next.  The output is
+// acc / sum.
 //
 // The head dim is a template parameter, instantiated at 64 (every registry
 // model) and 16 (the golden test dims); the entry points take dh and refuse
@@ -101,13 +105,12 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_WINDOW = 12 * 1024;  // W floats of scores in 48 KB
+constexpr int MAX_WINDOW = 12 * 1024;  // W ints of the beam's ancestors in 48 KB
 
 // Sixteen bytes of T as floats.
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { static constexpr int N = 4; };
 template <> struct Vec16<bf16> { static constexpr int N = 8; };
-template <> struct Vec16<int8_t> { static constexpr int N = 16; };
 
 __device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -123,13 +126,6 @@ __device__ __forceinline__ void load16(const bf16* p, float (&x)[8]) {
         x[2 * i] = f.x;
         x[2 * i + 1] = f.y;
     }
-}
-
-__device__ __forceinline__ void load16(const int8_t* p, float (&x)[16]) {
-    const int4 raw = *reinterpret_cast<const int4*>(p);
-    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) x[i] = static_cast<float>(v[i]);
 }
 
 // A lane's bytes of a cache row, loaded raw, as floats: 16 bytes of f32 or
@@ -179,153 +175,6 @@ __device__ __forceinline__ void load_n(const T* p, float (&x)[N]) {
     }
 }
 
-// The body of the five kernels for block (h, b), at head dim DH (16 or 64:
-// a key row is then 1 to 16 lanes' 16-byte loads).  T: the query, output and
-// fresh-column dtype; C: the cache's (T, or int8 with the f32 scales ksc,
-// vsc [L, B, H, n_ctx]).  anc: null for the greedy kernels (every slot from
-// row b, key_start of row b); else the [B, n_ctx] beam-local ancestor table
-// of groups of G rows.  WRITE (C == T): this step's column comes in knew
-// and vnew and is written here; without it, knew and vnew are unused and
-// slot pos is read from the cache like any other.
-template <int DH, typename T, typename C, bool WRITE>
-__device__ __forceinline__ void attend_step(
-    const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
-    C* __restrict__ kc, C* __restrict__ vc, const float* __restrict__ ksc,
-    const float* __restrict__ vsc, const long long* __restrict__ key_start,
-    const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H, int n_ctx,
-    int layer, int pos, int W, float* ws) {
-    constexpr bool INT8 = std::is_same<C, int8_t>::value;
-    static_assert(!WRITE || std::is_same<C, T>::value, "the column is written in the cache dtype");
-    constexpr int VEC = Vec16<C>::N;  // cache elements per 16-byte load
-    constexpr int LPR = DH / VEC;     // lanes per key row, at DH 64: 4 (int8), 8 (bf16) or 16 (f32)
-    constexpr int KPW = 32 / LPR;     // key rows per warp pass, at DH 64: 8, 4 or 2
-    static_assert(DH % VEC == 0 && 32 % LPR == 0, "whole 16-byte loads, whole rows a warp");
-    constexpr int STRIDE = WARPS * KPW;
-    __shared__ float red[WARPS][DH];
-    __shared__ float stat[WARPS];
-
-    const int h = blockIdx.x, b = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int grp = lane / LPR, seg = lane % LPR;
-    const size_t row = (size_t)b * H + h;
-    const size_t row_stride = (size_t)H * n_ctx * DH;  // between batch rows
-    const size_t head = (size_t)layer * B * row_stride + (size_t)h * n_ctx * DH;
-    const size_t scale_head = ((size_t)layer * B * H + h) * n_ctx;  // the same, over scales
-    const int first = anc ? (b / G) * G : b;  // the audio's first row (beam)
-    // with WRITE, C is T: the fresh column as cache elements
-    const C* kn = WRITE ? reinterpret_cast<const C*>(knew) + row * DH : nullptr;
-    const C* vn = WRITE ? reinterpret_cast<const C*>(vnew) + row * DH : nullptr;
-
-    // the cache row that holds slot j of this block's row, its K/V and scales
-    auto src = [&](int j) -> size_t { return anc ? first + anc[(size_t)b * n_ctx + j] : b; };
-    auto slot = [&](const C* c, int j) -> const C* {
-        return c + head + src(j) * row_stride + (size_t)j * DH;
-    };
-    auto scale = [&](const float* s, int j) -> float {
-        return s[scale_head + src(j) * H * n_ctx + j];
-    };
-
-    // this block's own column, read by no other block
-    if (WRITE && tid < DH) {
-        kc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = kn[tid];
-        vc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = vn[tid];
-    }
-
-    const long long ks = key_start ? key_start[first] : 0;
-    int lo = ks > 0 ? (ks > pos ? pos + 1 : (int)ks) : 0;
-    int hi = pos;
-    // every slot masked (key_start past pos): all scores are NEG, so the
-    // softmax is uniform over the W slots, as in the plain version
-    const bool empty = lo > hi;
-    if (empty) {
-        lo = 0;
-        hi = W - 1;
-    }
-    const int n = hi - lo + 1;
-
-    float qx[VEC];
-    load_n(q + row * DH + seg * VEC, qx);
-
-    // scores of slots lo..hi; lane group grp takes row j, lane seg its
-    // VEC elements
-    float lmax = -INFINITY;
-    for (int j0 = lo + warp * KPW; j0 <= hi; j0 += STRIDE) {
-        const int j = j0 + grp;
-        float part = 0.f;
-        if (j <= hi && !empty) {
-            float kx[VEC];
-            load16((WRITE && j == pos ? kn : slot(kc, j)) + seg * VEC, kx);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) part = fmaf(qx[e], kx[e], part);
-        }
-#pragma unroll
-        for (int o = LPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-        if (j <= hi) {
-            if (INT8 && !empty) part *= scale(ksc, j);
-            if (seg == 0) ws[j - lo] = part;
-            lmax = fmaxf(lmax, part);
-        }
-    }
-    lmax = warp_max(lmax);
-    if (lane == 0) stat[warp] = lmax;
-    __syncthreads();
-    float m = stat[0];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, stat[w]);
-    __syncthreads();
-
-    float lsum = 0.f;
-    for (int i = tid; i < n; i += THREADS) {
-        const float e = expf(ws[i] - m);
-        ws[i] = e;
-        lsum += e;
-    }
-    lsum = warp_sum(lsum);
-    if (lane == 0) stat[warp] = lsum;
-    __syncthreads();
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) total += stat[w];
-    for (int i = tid; i < n; i += THREADS) ws[i] = ws[i] / total;
-    __syncthreads();
-
-    // out = sum_j w_j V_j in f32 (int8: w_j times the slot's V scale, kept
-    // in f32), same row walk as the scores
-    float acc[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-    for (int j0 = lo + warp * KPW; j0 <= hi; j0 += STRIDE) {
-        const int j = j0 + grp;
-        if (j <= hi) {
-            float wj = ws[j - lo];
-            if (INT8) wj *= scale(vsc, j);
-            float vx[VEC];
-            load16((WRITE && j == pos ? vn : slot(vc, j)) + seg * VEC, vx);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wj, vx[e], acc[e]);
-        }
-    }
-    // across the KPW row groups of the warp, then across warps
-#pragma unroll
-    for (int o = 16; o >= LPR; o >>= 1) {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
-    }
-    if (grp == 0) {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) red[warp][seg * VEC + e] = acc[e];
-    }
-    __syncthreads();
-    if (tid < DH) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += red[w][tid];
-        out[row * DH + tid] = from_float<T>(s);
-    }
-}
-
-// ---- the append and beam steps: attend_window -----------------------------
-
 constexpr int UNROLL = 4;  // rows of a lane group's batch
 
 // The bytes a lane reads of a cache row: 16, or 8 of int8, so that a lane
@@ -351,23 +200,30 @@ __device__ __forceinline__ float rescale(float m, float mx) {
     return m == -INFINITY ? 0.f : __expf(m - mx);
 }
 
-// The append and beam steps for (head blockIdx.x, row blockIdx.y) at head
-// dim DH.  T, C, anc, G, WRITE as for attend_step (int8 C only read-only).
-// Lane group grp of the block's ng takes the visible slots lo + grp + t ng,
-// t = 0, 1, ..., in batches of UNROLL; each batch's reads go out two
-// batches ahead of its scores, straight into registers, so no barrier
-// holds a warp.  A beam block first reads its row's ancestors over the
-// window into (dynamic) shared memory.  The lane groups' parts merge over
-// the warp by shuffles, then over the warps in order.
+// The five steps for (head blockIdx.x, row blockIdx.y) at head dim DH (16 or
+// 64: a key row is then 1 to 16 lanes' loads).  T: the query, output and
+// fresh-column dtype; C: the cache's (T, or int8 with the f32 scales ksc,
+// vsc [L, B, H, n_ctx]).  WRITE: this step's column comes in knew and vnew
+// and is written here (an int8 cache takes it quantised); without it, knew
+// and vnew are unused and slot pos is read from the cache like any other.
+// BEAM: anc is the [B, n_ctx] beam-local ancestor table of groups of G rows
+// (else every slot from row b, key_start of row b).  Lane group grp of the
+// block's ng takes the visible slots lo + grp + t ng, t = 0, 1, ..., in
+// batches of UNROLL; each batch's reads go out two batches ahead of its
+// scores, straight into registers, so no barrier holds a warp.  A beam
+// block first reads its row's ancestors over the window into (dynamic)
+// shared memory.  The lane groups' parts merge over the warp by shuffles,
+// then over the warps in order.
 template <int DH, typename T, typename C, bool WRITE, bool BEAM>
 __device__ __forceinline__ void attend_window(
     const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
-    C* __restrict__ kc, C* __restrict__ vc, const float* __restrict__ ksc,
-    const float* __restrict__ vsc, const long long* __restrict__ key_start,
-    const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H, int n_ctx,
-    int layer, int pos, int W) {
+    C* __restrict__ kc, C* __restrict__ vc, float* __restrict__ ksc, float* __restrict__ vsc,
+    const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
+    T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
     constexpr bool INT8 = std::is_same<C, int8_t>::value;
-    static_assert(!WRITE || std::is_same<C, T>::value, "the column is written in the cache dtype");
+    constexpr bool QUANT = WRITE && INT8;  // the column quantised here
+    static_assert(INT8 || std::is_same<C, T>::value, "a cache in the query dtype, or int8");
+    static_assert(!(QUANT && BEAM), "the beam's int8 column is written by the caller");
     constexpr int VEC = Lane<C>::N;   // cache elements a lane reads of a row
     constexpr int LPR = DH / VEC;     // lanes a row
     constexpr int KPW = 32 / LPR;     // lane groups a warp
@@ -376,6 +232,8 @@ __device__ __forceinline__ void attend_window(
     extern __shared__ int ancs[];  // [W] (beam)
     __shared__ float wacc[WARPS][DH];
     __shared__ float wm[WARPS], wl[WARPS];
+    __shared__ __align__(16) int8_t staged[2][DH];  // the quantised K, V column
+    __shared__ float staged_scale[2];
 
     const int h = blockIdx.x, b = blockIdx.y;
     const int nt = blockDim.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -385,14 +243,32 @@ __device__ __forceinline__ void attend_window(
     const size_t row_stride = (size_t)H * n_ctx * DH;  // between batch rows
     const size_t head = (size_t)layer * B * row_stride + (size_t)h * n_ctx * DH;
     const size_t scale_head = ((size_t)layer * B * H + h) * n_ctx;
+    const size_t own = head + (size_t)b * row_stride + (size_t)pos * DH;  // this block's column
     const int first = BEAM ? b / G * G : b;  // the audio's first row (beam)
-    const C* kn = WRITE ? reinterpret_cast<const C*>(knew) + row * DH : nullptr;
-    const C* vn = WRITE ? reinterpret_cast<const C*>(vnew) + row * DH : nullptr;
+    // the fresh column as cache elements: knew, vnew (C is T) or the staged
+    // int8 column
+    const C* kn = QUANT ? reinterpret_cast<const C*>(staged[0])
+                        : WRITE ? reinterpret_cast<const C*>(knew) + row * DH : nullptr;
+    const C* vn = QUANT ? reinterpret_cast<const C*>(staged[1])
+                        : WRITE ? reinterpret_cast<const C*>(vnew) + row * DH : nullptr;
 
-    // one round: key_start, q, the ancestors
+    // one round: key_start, q, the ancestors (beam) or this step's column
+    // (int8 write: warp 0 reads K, warp 1 V, each lane DH / 32 values; at
+    // DH 16, lanes 0..15 one)
+    constexpr int PER = (DH + 31) / 32;
     const long long ks = key_start ? key_start[first] : 0;
-    float qx[VEC];
+    float qx[VEC], xq[PER];
     load_n(q + row * DH + seg * VEC, qx);
+    if constexpr (QUANT) {
+        if (warp < 2) {
+            const T* x = (warp ? vnew : knew) + row * DH;
+#pragma unroll
+            for (int i = 0; i < PER; ++i) {
+                const int e = lane + 32 * i;
+                xq[i] = e < DH ? to_float(x[e]) : 0.f;
+            }
+        }
+    }
     if (BEAM) {
         for (int j = tid; j < W; j += nt) ancs[j] = anc[(size_t)b * n_ctx + j];
         __syncthreads();
@@ -410,13 +286,14 @@ __device__ __forceinline__ void attend_window(
     const int n = hi - lo + 1;
 
     // this block's own column, read by no block of this launch
-    if (WRITE && tid < DH) {
-        kc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = kn[tid];
-        vc[head + (size_t)b * row_stride + (size_t)pos * DH + tid] = vn[tid];
+    if (WRITE && !QUANT && tid < DH) {
+        kc[own + tid] = kn[tid];
+        vc[own + tid] = vn[tid];
     }
 
     // the batch of rows t0, .. of this lane group (slot pos from the fresh
-    // column; a row past the window reads its last, weighted 0)
+    // column: knew, vnew in device memory or the int8 one staged in shared
+    // memory; a row past the window reads its last, weighted 0)
     auto load = [&](int t0, Batch<C>& bt) {
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
@@ -424,16 +301,62 @@ __device__ __forceinline__ void attend_window(
             const size_t r = BEAM ? first + ancs[j] : b;
             const size_t at = head + r * row_stride + (size_t)j * DH + seg * VEC;
             const bool fresh = WRITE && j == pos;
-            bt.k[u] = empty ? Raw{} : __ldcg(reinterpret_cast<const Raw*>(fresh ? kn + seg * VEC
-                                                                             : kc + at));
-            bt.v[u] = __ldcg(reinterpret_cast<const Raw*>(fresh ? vn + seg * VEC : vc + at));
+            const Raw* kp = reinterpret_cast<const Raw*>(fresh ? kn + seg * VEC : kc + at);
+            const Raw* vp = reinterpret_cast<const Raw*>(fresh ? vn + seg * VEC : vc + at);
+            bt.k[u] = empty ? Raw{} : QUANT && fresh ? *kp : __ldcg(kp);
+            bt.v[u] = QUANT && fresh ? *vp : __ldcg(vp);
             if (INT8) {
                 const size_t sat = scale_head + r * H * n_ctx + j;
-                bt.ks[u] = empty ? 0.f : __ldcg(ksc + sat);
-                bt.vs[u] = __ldcg(vsc + sat);
+                bt.ks[u] = empty ? 0.f : QUANT && fresh ? staged_scale[0] : __ldcg(ksc + sat);
+                bt.vs[u] = QUANT && fresh ? staged_scale[1] : __ldcg(vsc + sat);
             }
         }
     };
+
+    // rows a lane group, the same for every lane (the shuffles need them all)
+    const int rows = (n + ng - 1) / ng;
+    Batch<C> b0, b1;
+    // an int8 write reads slot pos from the staged column, behind the
+    // barrier; the first two batches go out before it where they do not hold
+    // slot pos (its index among the slots read is pos - lo; the same for
+    // every thread, so all or none wait)
+    const bool early = !QUANT || (pos - lo) / ng >= 2 * UNROLL;
+    if (early) {
+        load(0, b0);
+        if (rows > UNROLL) load(UNROLL, b1);
+    }
+    if constexpr (QUANT) {
+        // warp 0 quantises K, warp 1 V, the amax by shuffles; written to the
+        // cache and staged for the reads of slot pos
+        if (warp < 2) {
+            float amax = 0.f;
+#pragma unroll
+            for (int i = 0; i < PER; ++i) amax = fmaxf(amax, fabsf(xq[i]));
+            amax = warp_max(amax);
+            // quantize_kv's scale as torch computes it on the card
+            const float s = fmaxf(amax, 1e-8f) * (1.f / 127.f);
+            C* cache = warp ? vc : kc;
+#pragma unroll
+            for (int i = 0; i < PER; ++i) {
+                const int e = lane + 32 * i;
+                if (e < DH) {
+                    const float r = fminf(fmaxf(rintf(__fdiv_rn(xq[i], s)), -127.f), 127.f);
+                    const C v = static_cast<C>(static_cast<int>(r));
+                    staged[warp][e] = v;
+                    cache[own + e] = v;
+                }
+            }
+            if (lane == 0) {
+                staged_scale[warp] = s;
+                (warp ? vsc : ksc)[scale_head + (size_t)b * H * n_ctx + pos] = s;
+            }
+        }
+        __syncthreads();
+        if (!early) {
+            load(0, b0);
+            if (rows > UNROLL) load(UNROLL, b1);
+        }
+    }
 
     // this lane group's running max, sum and f32 sum of e V
     float m = -INFINITY, l = 0.f, acc[VEC];
@@ -480,11 +403,6 @@ __device__ __forceinline__ void attend_window(
         }
         m = mn;
     };
-    // rows a lane group, the same for every lane (the shuffles need them all)
-    const int rows = (n + ng - 1) / ng;
-    Batch<C> b0, b1;
-    load(0, b0);
-    if (rows > UNROLL) load(UNROLL, b1);
     for (int t0 = 0; t0 < rows; t0 += 2 * UNROLL) {
         consume(t0, b0);
         if (t0 + 2 * UNROLL < rows) load(t0 + 2 * UNROLL, b0);
@@ -554,50 +472,33 @@ beam_self_kernel(const T* __restrict__ q, const T* __restrict__ knew,
 template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 beam_self_int8_kernel(const T* __restrict__ q, int8_t* __restrict__ kc,
-                      int8_t* __restrict__ vc, const float* __restrict__ ksc,
-                      const float* __restrict__ vsc, const long long* __restrict__ key_start,
+                      int8_t* __restrict__ vc, float* __restrict__ ksc,
+                      float* __restrict__ vsc, const long long* __restrict__ key_start,
                       const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H,
                       int n_ctx, int layer, int pos, int W) {
     attend_window<DH, T, int8_t, false, true>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start,
                                               anc, G, out, B, H, n_ctx, layer, pos, W);
 }
 
-// ---- the read-only greedy steps: attend_step --------------------------------
-
-// ws: [n] scores, then weights, of slots lo..hi, in dynamic shared memory
 template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 self_fused_kernel(const T* __restrict__ q, T* __restrict__ kc, T* __restrict__ vc,
                   const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
                   int n_ctx, int layer, int pos, int W) {
-    extern __shared__ float ws[];
-    attend_step<DH, T, T, false>(q, nullptr, nullptr, kc, vc, nullptr, nullptr, key_start, nullptr,
-                             1, out, B, H, n_ctx, layer, pos, W, ws);
+    attend_window<DH, T, T, false, false>(q, nullptr, nullptr, kc, vc, nullptr, nullptr,
+                                          key_start, nullptr, 1, out, B, H, n_ctx, layer, pos, W);
 }
 
-template <int DH, typename T, typename C>
+// C: T (read only) or int8 (WRITE: the column quantised and written first)
+template <int DH, typename T, typename C, bool WRITE>
 __global__ void __launch_bounds__(THREADS)
-self_step_kernel(const T* __restrict__ q, C* __restrict__ kc, C* __restrict__ vc,
-                 const float* __restrict__ ksc, const float* __restrict__ vsc,
+self_step_kernel(const T* __restrict__ q, const T* __restrict__ knew,
+                 const T* __restrict__ vnew, C* __restrict__ kc, C* __restrict__ vc,
+                 float* __restrict__ ksc, float* __restrict__ vsc,
                  const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
                  int n_ctx, int layer, int pos, int W) {
-    extern __shared__ float ws[];
-    attend_step<DH, T, C, false>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start, nullptr, 1, out,
-                             B, H, n_ctx, layer, pos, W, ws);
-}
-
-// Launch ``kernel`` on the grid (H, B) with W floats of dynamic shared
-// memory, after checking 0 <= pos < W <= min(n_ctx, MAX_WINDOW) (and, for a
-// beam kernel, that B is whole groups of G).
-template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), int B, int H, int n_ctx, int pos, int window, int G,
-           void* stream, Args... args) {
-    if (window < 1 || window > MAX_WINDOW || window > n_ctx || pos < 0 || pos >= window ||
-        G < 1 || B % G)
-        return static_cast<int>(cudaErrorInvalidValue);
-    kernel<<<dim3(H, B), THREADS, (size_t)window * sizeof(float),
-             static_cast<cudaStream_t>(stream)>>>(args...);
-    return static_cast<int>(cudaGetLastError());
+    attend_window<DH, T, C, WRITE, false>(q, knew, vnew, kc, vc, ksc, vsc, key_start, nullptr, 1,
+                                          out, B, H, n_ctx, layer, pos, W);
 }
 
 // Call f with the head dim as a compile-time constant: the instances are
@@ -609,9 +510,9 @@ int by_head_dim(int dh, F&& f) {
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch a window kernel on the grid (H, B) with `threads` a block (the
-// plan of ops/decode_attention.py::step_launch_plan: 64..THREADS, whole
-// warps) and, for the beam, W ints of dynamic shared memory, after checking
+// Launch a step kernel on the grid (H, B) with `threads` a block (the plan
+// of ops/decode_attention.py::step_launch_plan: 64..THREADS, whole warps)
+// and, for the beam, W ints of dynamic shared memory, after checking
 // 0 <= pos < W <= min(n_ctx, MAX_WINDOW) and that B is whole groups of G.
 template <typename... Params, typename... Args>
 int launch_window(void (*kernel)(Params...), bool beam, int B, int H, int n_ctx, int pos,
@@ -655,37 +556,54 @@ int beam(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
 
 template <typename T>
 int fused(const void* q, void* kc, void* vc, const void* key_start, void* out, int B, int H,
-          int n_ctx, int layer, int pos, int window, int dh, void* stream) {
+          int n_ctx, int layer, int pos, int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
-        return launch(self_fused_kernel<decltype(D)::value, T>, B, H, n_ctx, pos, window, 1,
-                      stream, static_cast<const T*>(q), static_cast<T*>(kc),
-                      static_cast<T*>(vc), static_cast<const long long*>(key_start),
-                      static_cast<T*>(out), B, H, n_ctx, layer, pos, window);
-    });
-}
-
-template <typename T, typename C>
-int step(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
-         const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
-         int window, int dh, void* stream) {
-    return by_head_dim(dh, [&](auto D) {
-        return launch(self_step_kernel<decltype(D)::value, T, C>, B, H, n_ctx, pos, window, 1,
-                      stream, static_cast<const T*>(q), static_cast<C*>(kc), static_cast<C*>(vc),
-                      static_cast<const float*>(ksc), static_cast<const float*>(vsc),
-                      static_cast<const long long*>(key_start), static_cast<T*>(out), B, H,
-                      n_ctx, layer, pos, window);
+        return launch_window(self_fused_kernel<decltype(D)::value, T>, false, B, H, n_ctx, pos,
+                             window, 1, threads, stream, static_cast<const T*>(q),
+                             static_cast<T*>(kc), static_cast<T*>(vc),
+                             static_cast<const long long*>(key_start), static_cast<T*>(out), B,
+                             H, n_ctx, layer, pos, window);
     });
 }
 
 template <typename T>
-int beam_int8(const void* q, void* kc, void* vc, const void* ksc, const void* vsc,
-              const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
-              int layer, int pos, int window, int dh, int threads, void* stream) {
+int step(const void* q, const void* knew, const void* vnew, void* kc, void* vc, void* ksc,
+         void* vsc, const void* key_start, void* out, int B, int H, int n_ctx, int layer,
+         int pos, int window, int dh, int threads, void* stream) {
+    // scales go with an int8 cache, and a fresh column (both halves) only there
+    if (!ksc != !vsc || !knew != !vnew || (knew && !ksc))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return by_head_dim(dh, [&](auto D) {
+        constexpr int DH = decltype(D)::value;
+        const T* qt = static_cast<const T*>(q);
+        const T* kn = static_cast<const T*>(knew);
+        const T* vn = static_cast<const T*>(vnew);
+        float* kst = static_cast<float*>(ksc);
+        float* vst = static_cast<float*>(vsc);
+        const long long* start = static_cast<const long long*>(key_start);
+        T* o = static_cast<T*>(out);
+        if (!ksc)
+            return launch_window(self_step_kernel<DH, T, T, false>, false, B, H, n_ctx, pos,
+                                 window, 1, threads, stream, qt, kn, vn, static_cast<T*>(kc),
+                                 static_cast<T*>(vc), kst, vst, start, o, B, H, n_ctx, layer,
+                                 pos, window);
+        return launch_window(knew ? &self_step_kernel<DH, T, int8_t, true>
+                                  : &self_step_kernel<DH, T, int8_t, false>,
+                             false, B, H, n_ctx, pos, window, 1, threads, stream, qt, kn, vn,
+                             static_cast<int8_t*>(kc), static_cast<int8_t*>(vc), kst, vst, start,
+                             o, B, H, n_ctx, layer, pos, window);
+    });
+}
+
+template <typename T>
+int beam_int8(const void* q, void* kc, void* vc, void* ksc, void* vsc, const void* key_start,
+              const void* anc, int G, void* out, int B, int H, int n_ctx, int layer, int pos,
+              int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
         return launch_window(beam_self_int8_kernel<decltype(D)::value, T>, true, B, H, n_ctx,
                              pos, window, G, threads, stream, static_cast<const T*>(q),
                              static_cast<int8_t*>(kc), static_cast<int8_t*>(vc),
-                             static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+                             static_cast<float*>(ksc), static_cast<float*>(vsc),
                              static_cast<const long long*>(key_start),
                              static_cast<const int*>(anc), G, static_cast<T*>(out), B, H, n_ctx,
                              layer, pos, window);
@@ -742,54 +660,57 @@ extern "C" int beam_self_attention_f32(const void* q, const void* knew, const vo
 extern "C" int self_attention_fused_bf16(const void* q, void* kc, void* vc,
                                          const void* key_start, void* out, int B, int H,
                                          int n_ctx, int layer, int pos, int window, int dh,
-                                         void* stream) {
-    return fused<bf16>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, stream);
+                                         int threads, void* stream) {
+    return fused<bf16>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, threads,
+                       stream);
 }
 
 extern "C" int self_attention_fused_f32(const void* q, void* kc, void* vc, const void* key_start,
                                         void* out, int B, int H, int n_ctx, int layer, int pos,
-                                        int window, int dh, void* stream) {
-    return fused<float>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, stream);
+                                        int window, int dh, int threads, void* stream) {
+    return fused<float>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, threads,
+                        stream);
 }
 
-// As the fused entry points, over a cache in q's dtype (ksc, vsc null) or
-// an int8 cache with f32 scales ksc, vsc [L, B, H, n_ctx] (contiguous).
-extern "C" int self_attention_step_bf16(const void* q, void* kc, void* vc, const void* ksc,
-                                        const void* vsc, const void* key_start, void* out,
-                                        int B, int H, int n_ctx, int layer, int pos, int window,
-                                        int dh, void* stream) {
-    return ksc ? step<bf16, int8_t>(q, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer,
-                                    pos, window, dh, stream)
-               : step<bf16, bf16>(q, kc, vc, nullptr, nullptr, key_start, out, B, H, n_ctx,
-                                  layer, pos, window, dh, stream);
+// As the fused entry points, over a cache in q's dtype (ksc, vsc, knew,
+// vnew null) or an int8 cache with f32 scales ksc, vsc [L, B, H, n_ctx]
+// (contiguous).  Over the int8 cache, knew and vnew [B, H, dh] in q's dtype
+// (both or neither) are quantised and written with their scales at slot
+// pos, then read; null, the caller has written slot pos and its scales.
+extern "C" int self_attention_step_bf16(const void* q, const void* knew, const void* vnew,
+                                        void* kc, void* vc, void* ksc, void* vsc,
+                                        const void* key_start, void* out, int B, int H,
+                                        int n_ctx, int layer, int pos, int window, int dh,
+                                        int threads, void* stream) {
+    return step<bf16>(q, knew, vnew, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer, pos,
+                      window, dh, threads, stream);
 }
 
-extern "C" int self_attention_step_f32(const void* q, void* kc, void* vc, const void* ksc,
-                                       const void* vsc, const void* key_start, void* out, int B,
-                                       int H, int n_ctx, int layer, int pos, int window, int dh,
-                                       void* stream) {
-    return ksc ? step<float, int8_t>(q, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer,
-                                     pos, window, dh, stream)
-               : step<float, float>(q, kc, vc, nullptr, nullptr, key_start, out, B, H, n_ctx,
-                                    layer, pos, window, dh, stream);
+extern "C" int self_attention_step_f32(const void* q, const void* knew, const void* vnew,
+                                       void* kc, void* vc, void* ksc, void* vsc,
+                                       const void* key_start, void* out, int B, int H,
+                                       int n_ctx, int layer, int pos, int window, int dh,
+                                       int threads, void* stream) {
+    return step<float>(q, knew, vnew, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer, pos,
+                       window, dh, threads, stream);
 }
 
 // The beam entry points over an int8 cache with f32 scales ksc, vsc
 // [L, B, H, n_ctx], read only: the caller wrote slot pos and its scales.
-extern "C" int beam_self_attention_int8_bf16(const void* q, void* kc, void* vc, const void* ksc,
-                                             const void* vsc, const void* key_start,
-                                             const void* anc, int G, void* out, int B, int H,
-                                             int n_ctx, int layer, int pos, int window, int dh,
-                                             int threads, void* stream) {
+extern "C" int beam_self_attention_int8_bf16(const void* q, void* kc, void* vc, void* ksc,
+                                             void* vsc, const void* key_start, const void* anc,
+                                             int G, void* out, int B, int H, int n_ctx,
+                                             int layer, int pos, int window, int dh, int threads,
+                                             void* stream) {
     return beam_int8<bf16>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
                            window, dh, threads, stream);
 }
 
-extern "C" int beam_self_attention_int8_f32(const void* q, void* kc, void* vc, const void* ksc,
-                                            const void* vsc, const void* key_start,
-                                            const void* anc, int G, void* out, int B, int H,
-                                            int n_ctx, int layer, int pos, int window, int dh,
-                                            int threads, void* stream) {
+extern "C" int beam_self_attention_int8_f32(const void* q, void* kc, void* vc, void* ksc,
+                                            void* vsc, const void* key_start, const void* anc,
+                                            int G, void* out, int B, int H, int n_ctx, int layer,
+                                            int pos, int window, int dh, int threads,
+                                            void* stream) {
     return beam_int8<float>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
                             window, dh, threads, stream);
 }

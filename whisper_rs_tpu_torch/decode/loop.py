@@ -147,7 +147,8 @@ def decode_greedy(
     whole-step kernel, whose weight table is built here once, before the
     step loop.  ``quantize_kv`` keeps the cross K/V and the self-attention
     cache int8 (the JAX ``quantize_kv``); it takes the append route, where
-    the steps read the cache through ``self_attention_step``."""
+    each step's ``self_attention_step`` quantises and writes its K/V column,
+    then reads the cache."""
     if mode.temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported: the reference's noise comes from "

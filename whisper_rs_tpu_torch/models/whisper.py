@@ -50,10 +50,12 @@ for the token table (the MLP of a step then stays the two int8 linears
 and GELU: the JAX package never sends int8 weights to its MLP kernel);
 ``KVCache.init(..., quantize=True)`` and ``precompute_cross_kv(...,
 quantize=True)`` keep int8 K/V with f32 per-position scales
-(``quantize_kv``).  Every pass writes its quantised K/V and scales with
-``KVCache.write``; a step then reads the int8 cache through the read-only
-``self_attention_step`` (row 10) in the append kernel's place, or the beam
-kernel's int8 read, and the cross kernel's int8 branch.  The ctx and layer
+(``quantize_kv``).  The prefill and a beam step write their quantised K/V
+and scales with ``KVCache.write``; a greedy step hands its K/V column to
+``self_attention_step`` (row 10) in the append kernel's place, which
+quantises and writes it, then reads the int8 cache; a beam step reads it
+through the beam kernel's int8 read; both take the cross kernel's int8
+branch.  The ctx and layer
 routes take no int8 cache, and the layer route no int8 weights: the JAX
 package switches them off there.
 
@@ -78,6 +80,7 @@ from ..ops.decode_attention import (
     beam_self_attention_step_plain,
     cross_attention_step,
     cross_attention_step_plain,
+    quantize_kv,
     self_attention_append_step,
     self_attention_append_step_plain,
     self_attention_fused_step,
@@ -186,18 +189,6 @@ def attend_grouped(q, k_t, v_t, group: int, k_scale=None, v_scale=None) -> torch
         w = w * v_scale[:, None, :, None, :]
     w = w.to(q.dtype)
     return torch.einsum("aghqk,ahdk->aghqd", w, v_t.to(q.dtype)).reshape(AG, H, Tq, dh)
-
-
-def quantize_kv(x: torch.Tensor):
-    """[..., dh] -> (int8 values [..., dh], f32 scale [...]), one symmetric
-    scale a position, in f32 whatever x's dtype (the JAX ``_quantize_kv``,
-    whose scale keeps a trailing 1): ``s = max(amax |x|, 1e-8) / 127`` and
-    ``clip(round(x / s), -127, 127)``, rounded half to even as
-    ``jnp.round``.  Row by row it is also the weights' per-output-channel
-    quantisation (``models.quantize``)."""
-    xf = x.float()
-    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
-    return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
 
 
 # ---------------------------------------------------------------------------
@@ -356,12 +347,13 @@ class ResidualAttentionBlock(nn.Module):
     ) -> torch.Tensor:
         """One decoder block.  ``mask`` None marks an incremental step: the
         append kernel (the beam kernel with ``anc_local``, [B, n_ctx] int32
-        beam-local ancestors) writes the K/V column and masks by
-        ``pos_offset`` and ``key_start``, or (``step_kernel="ctx"``, or an
-        int8 cache) torch writes the column and a read-only kernel attends
-        (the fused kernel; over an int8 cache ``self_attention_step``, or
-        the beam kernel's int8 read); the MLP takes the fused kernel unless
-        its weights are int8."""
+        beam-local ancestors; over an int8 cache ``self_attention_step``,
+        which quantises it) writes the K/V column and masks by
+        ``pos_offset`` and ``key_start``, or (``step_kernel="ctx"``, or a
+        beam step over an int8 cache) torch writes the column and a
+        read-only kernel attends (the fused kernel, or the beam kernel's
+        int8 read); the MLP takes the fused kernel unless its weights are
+        int8."""
         B, T, D = x.shape
         H = self.attn.n_head
         dh = D // H
@@ -375,7 +367,7 @@ class ResidualAttentionBlock(nn.Module):
             q = (self.attn.query(hs) * scale).view(B, H, dh)
             k_new, v_new = self.attn.key(hs).view(B, H, dh), self.attn.value(hs).view(B, H, dh)
             read = (q, cache.k, cache.v, layer, pos_offset, key_start)
-            if cache.quantized or step_kernel == "ctx":
+            if (cache.quantized and anc_local is not None) or step_kernel == "ctx":
                 cache.write(layer, pos_offset, k_new[:, :, None], v_new[:, :, None])
             if anc_local is not None:
                 fn = beam_self_attention_step if kernels else beam_self_attention_step_plain
@@ -383,7 +375,7 @@ class ResidualAttentionBlock(nn.Module):
                 attn = fn(q, *new, *read[1:], anc_local, cross_group, window=window, **scales)
             elif cache.quantized:
                 fn = self_attention_step if kernels else self_attention_step_plain
-                attn = fn(*read, window=window, **scales)
+                attn = fn(*read, window=window, **scales, k_new=k_new, v_new=v_new)
             elif step_kernel == "ctx":
                 fn = self_attention_fused_step if kernels else self_attention_fused_step_plain
                 attn = fn(*read, window=window)
@@ -546,8 +538,8 @@ class TextDecoder(nn.Module):
         step's shape (counted under ``"decoder_step_fused:append"`` when
         ``kernels`` on the card).
         Over an int8 cache the append route takes ``self_attention_step``
-        in the append kernel's place; ctx and layer refuse it
-        (``check_route``).
+        in the append kernel's place, which quantises and writes the
+        step's column itself; ctx and layer refuse it (``check_route``).
 
         An int8 token table (``QuantEmbedding``) is dequantised row by row
         for the embedding, and the logits ``x @ W^T`` of its int8 values

@@ -26,18 +26,24 @@ Over an int8 cache it only reads: the caller has written the quantised
 column and its scales (``models.whisper.KVCache.write``), and the scales of
 slot j come from the same row as its K/V, the ancestor's.
 
-``self_attention_step`` (the same source, the read-only body): the greedy
-step over a cache whose slot ``pos`` the caller has written, read only.  The
+``self_attention_step`` (the same source, the same body): the greedy step
+over a cache whose slot ``pos`` the caller has written, read only.  The
 cache is int8 with f32 per-position scales ``[L, B, H, n_ctx]``, or in the
 query dtype without them.  Int8 math, as in the Pallas kernel: the f32 dot
 of q with the int8 K row times ``k_scale`` before the mask, ``w = e /
-sum(e)`` in f32, ``w * v_scale`` kept in f32, the f32 sum of ``w V``.
+sum(e)`` in f32, ``w * v_scale`` kept in f32, the f32 sum of ``w V``.  Over
+an int8 cache it can also take this step's ``k_new``/``v_new``: each block
+quantises its own (row, head)'s column (``quantize_kv``) and writes it and
+its scales at slot ``pos``, then reads, as XLA quantises and writes the
+column around the TPU kernel; no torch launch is left for the column.
 
-``self_attention_fused_step`` (the same source, the read-only body): the
-append step with the write left out.  The caller has written this step's
-K/V column at slot ``pos`` already (as XLA does before the TPU kernel);
-the kernel reads slots ``key_start[b] <= j <= pos`` and writes only its
+``self_attention_fused_step`` (the same source, the same body): the append
+step with the write left out.  The caller has written this step's K/V
+column at slot ``pos`` already (as XLA does before the TPU kernel); the
+kernel reads slots ``key_start[b] <= j <= pos`` and writes only its
 output.  Its math is the append step's.
+
+Every step kernel launches at the plan of ``step_launch_plan``.
 
 Each kernel has its predicate: ``step_kernel_takes`` for the four step
 self-attention kernels (head dim 16 or 64, the instances of the CUDA
@@ -113,6 +119,34 @@ def _check_scales(name, q, planes, k_scale, v_scale, shape) -> bool:
     return True
 
 
+def _check_new(name, scaled: bool, k_new, v_new) -> bool:
+    """Whether a read-only step's caller passes this step's column: both of
+    ``k_new``/``v_new`` or neither, and only over an int8 cache (a cache in
+    q's dtype takes its column through the append step)."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError(f"{name}: k_new and v_new go together")
+    if k_new is not None and not scaled:
+        raise ValueError(f"{name}: k_new/v_new go with an int8 cache; a cache in q's dtype takes "
+                         "self_attention_append_step")
+    return k_new is not None
+
+
+def quantize_kv(x: torch.Tensor):
+    """[..., dh] -> (int8 values [..., dh], f32 scale [...]), one symmetric
+    scale a position, in f32 whatever x's dtype (the JAX ``_quantize_kv``,
+    whose scale keeps a trailing 1): ``s = max(amax |x|, 1e-8) / 127`` and
+    ``clip(round(x / s), -127, 127)``, rounded half to even as
+    ``jnp.round``.  Row by row it is also the weights' per-output-channel
+    quantisation (``models.quantize``).  On the card torch divides by the
+    constant 127 as a multiply by its f32 reciprocal, as XLA does under
+    ``jit`` (on the CPU both divide), so the scale's last bit can differ
+    between the two devices; row 10's column write computes it as torch does
+    on the card."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
+
+
 def _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *extra):
     """What the CUDA step kernels take: q, k_new, v_new (None
     for the read-only steps) f32 or bf16 alike; the caches in q's dtype or
@@ -160,15 +194,21 @@ def _attend_window(q, k, v, pos: int, key_start, k_scale=None, v_scale=None) -> 
 
 def self_attention_step_plain(
     q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
-    key_start=None, *, window: int, k_scale=None, v_scale=None,
+    key_start=None, *, window: int, k_scale=None, v_scale=None, k_new=None, v_new=None,
 ) -> torch.Tensor:
     """Plain version: the attention output [B, H, dh] of the pre-scaled q
     over slots ``key_start[b] <= j <= pos`` of ``k_all``/``v_all``
     [L, B, H, n_ctx, dh] at ``layer`` (int8 with ``k_scale``/``v_scale``
-    [L, B, H, n_ctx] f32, or in q's dtype); the caches are only read."""
+    [L, B, H, n_ctx] f32, or in q's dtype).  With ``k_new``/``v_new``
+    [B, H, dh] (q's dtype; int8 cache only) this step's column is first
+    quantised (``quantize_kv``) and written with its scales at slot ``pos``
+    in place; without them the caches are only read."""
     name = "self_attention_step"
     _check_append_args(name, q, k_all, layer, pos, window)
     scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
+    if _check_new(name, scaled, k_new, v_new):
+        for new, plane, scale in ((k_new, k_all, k_scale), (v_new, v_all, v_scale)):
+            plane[layer, :, :, pos], scale[layer, :, :, pos] = quantize_kv(new)
     ks, vs = ((s[layer, :, :, :window] for s in (k_scale, v_scale)) if scaled else (None, None))
     return _attend_window(q, k_all[layer, :, :, :window], v_all[layer, :, :, :window], pos,
                           key_start, ks, vs)
@@ -219,32 +259,42 @@ def self_attention_append_step(
     _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
     plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
-    out = _window_launch(q, k_new, v_new, k_all, v_all, int(layer), int(pos), int(window),
-                         key_start, None, 1, plan, torch.empty_like(q))
+    out = _window_launch("self_attention_append", plan, int(layer), int(pos), int(window), q=q,
+                         k_new=k_new, v_new=v_new, k_all=k_all, v_all=v_all,
+                         key_start=key_start, out=torch.empty_like(q))
     LAUNCHES["self_attention_append_step"] += 1
     return out
 
 
-def _window_launch(q, k_new, v_new, k_all, v_all, layer: int, pos: int, window: int, key_start,
-                   anc_local, group: int, plan: "StepPlan", out, k_scale=None, v_scale=None):
-    """Launches the append kernel (``anc_local`` None) or the beam kernel
-    (int8 with ``k_scale``/``v_scale``, k_new and v_new None) at ``plan``
-    on tensors that the wrappers have checked, writing ``out``; raises if
+# The arguments of each step entry point of csrc/self_attention.cu before
+# its sizes, in order: tensors (None for a null pointer), and the beam's
+# group size
+_STEP_ENTRY_ARGS = {
+    "self_attention_append": ("q", "k_new", "v_new", "k_all", "v_all", "key_start", "out"),
+    "self_attention_fused": ("q", "k_all", "v_all", "key_start", "out"),
+    "self_attention_step": ("q", "k_new", "v_new", "k_all", "v_all", "k_scale", "v_scale",
+                            "key_start", "out"),
+    "beam_self_attention": ("q", "k_new", "v_new", "k_all", "v_all", "key_start", "anc_local",
+                            "group", "out"),
+    "beam_self_attention_int8": ("q", "k_all", "v_all", "k_scale", "v_scale", "key_start",
+                                 "anc_local", "group", "out"),
+}
+
+
+def _window_launch(entry: str, plan: "StepPlan", layer: int, pos: int, window: int,
+                   group: int = 1, **tensors) -> torch.Tensor:
+    """Launches the step entry point ``entry`` (a key of _STEP_ENTRY_ARGS;
+    q's dtype picks its instance) at ``plan`` on tensors that the wrappers
+    have checked, writing ``tensors["out"]``, which it returns; raises if
     the launch fails."""
-    L, B, H, n_ctx, dh = k_all.shape
-    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    q, out = tensors["q"], tensors["out"]
+    L, B, H, n_ctx, dh = tensors["k_all"].shape
+    symbol = f"{entry}_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}"
+    names = _STEP_ENTRY_ARGS[entry]
+    args = [group if k == "group" else None if tensors.get(k) is None else tensors[k].data_ptr()
+            for k in names]
     ints = (B, H, n_ctx, layer, pos, window, dh, plan.threads)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    if anc_local is None:
-        symbol = f"self_attention_append_{tag}"
-        args = [ptr(t) for t in (q, k_new, v_new, k_all, v_all, key_start, out)]
-        types = (P,) * 7 + (I,) * len(ints) + (P,)
-    else:
-        int8 = k_scale is not None
-        symbol = f"beam_self_attention{'_int8' if int8 else ''}_{tag}"
-        planes = (k_all, v_all, k_scale, v_scale) if int8 else (k_new, v_new, k_all, v_all)
-        args = [ptr(t) for t in (q, *planes, key_start, anc_local)] + [group, out.data_ptr()]
-        types = (P,) * 7 + (I, P) + (I,) * len(ints) + (P,)
+    types = tuple(I if k == "group" else P for k in names) + (I,) * len(ints) + (P,)
     fn = kernel_function("self_attention", symbol, types)
     check("self_attention", symbol,
           fn(*args, *ints, torch.cuda.current_stream(q.device).cuda_stream))
@@ -269,51 +319,42 @@ def self_attention_fused_step(
         raise ValueError(f"{name}: an int8 cache takes self_attention_step")
     _check_kernel_tensors(name, q, None, None, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
-    out = torch.empty_like(q)
-    symbol = "self_attention_fused_bf16" if q.dtype == torch.bfloat16 else "self_attention_fused_f32"
-    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, I, I, I, I, I, I, I, P))
-    err = fn(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-        None if key_start is None else key_start.data_ptr(), out.data_ptr(),
-        B, H, n_ctx, int(layer), int(pos), int(window), dh,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check("self_attention", symbol, err)
+    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
+    out = _window_launch("self_attention_fused", plan, int(layer), int(pos), int(window), q=q,
+                         k_all=k_all, v_all=v_all, key_start=key_start, out=torch.empty_like(q))
     LAUNCHES["self_attention_fused_step"] += 1
     return out
 
 
 def self_attention_step(
     q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
-    key_start=None, *, window: int, k_scale=None, v_scale=None,
+    key_start=None, *, window: int, k_scale=None, v_scale=None, k_new=None, v_new=None,
 ) -> torch.Tensor:
-    """One greedy step's self-attention at ``layer`` over a cache whose slot
-    ``pos`` the caller has written, read only: the kernel on the card (head
-    dim 16 or 64, ``step_kernel_takes``), the plain version on the CPU.  q
-    [B, H, dh] pre-scaled; caches [L, B, H, n_ctx, dh], int8 with
+    """One greedy step's self-attention at ``layer``: the kernel on the card
+    (head dim 16 or 64, ``step_kernel_takes``), the plain version on the
+    CPU.  q [B, H, dh] pre-scaled; caches [L, B, H, n_ctx, dh], int8 with
     ``k_scale``/``v_scale`` [L, B, H, n_ctx] f32, or in q's dtype without
-    them; ``key_start`` [B] int64 or None (zeros)."""
+    them; ``key_start`` [B] int64 or None (zeros).  Over an int8 cache
+    ``k_new``/``v_new`` [B, H, dh] in q's dtype, if given, are quantised and
+    written with their scales at slot ``pos`` in place before the read;
+    without them the caller has written slot ``pos``, and the caches are
+    only read."""
     name = "self_attention_step"
     if not use_kernel(name, step_kernel_takes(q.shape[-1]), q.device):
         return self_attention_step_plain(q, k_all, v_all, layer, pos, key_start, window=window,
-                                         k_scale=k_scale, v_scale=v_scale)
+                                         k_scale=k_scale, v_scale=v_scale, k_new=k_new,
+                                         v_new=v_new)
     _check_append_args(name, q, k_all, layer, pos, window)
     scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
+    _check_new(name, scaled, k_new, v_new)
     scales = (k_scale, v_scale) if scaled else ()
-    _check_kernel_tensors(name, q, None, None, k_all, v_all, key_start, *scales)
+    _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *scales)
     L, B, H, n_ctx, dh = k_all.shape
-    out = torch.empty_like(q)
-    symbol = "self_attention_step_bf16" if q.dtype == torch.bfloat16 else "self_attention_step_f32"
-    fn = kernel_function("self_attention", symbol, (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                                    P))
-    err = fn(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-        *((s.data_ptr() for s in scales) if scaled else (None, None)),
-        None if key_start is None else key_start.data_ptr(), out.data_ptr(),
-        B, H, n_ctx, int(layer), int(pos), int(window), dh,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check("self_attention", symbol, err)
+    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
+    out = _window_launch("self_attention_step", plan, int(layer), int(pos), int(window), q=q,
+                         k_new=k_new, v_new=v_new, k_all=k_all, v_all=v_all,
+                         k_scale=k_scale if scaled else None, v_scale=v_scale,
+                         key_start=key_start, out=torch.empty_like(q))
     LAUNCHES["self_attention_step"] += 1
     return out
 
@@ -395,9 +436,11 @@ def beam_self_attention_step(
     L, B, H, n_ctx, dh = k_all.shape
     plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size(),
                             beam=True)
-    out = _window_launch(q, k_new, v_new, k_all, v_all, int(layer), int(pos), int(window),
-                         key_start, anc_local, int(group), plan, torch.empty_like(q),
-                         k_scale if scaled else None, v_scale)
+    out = _window_launch("beam_self_attention_int8" if scaled else "beam_self_attention", plan,
+                         int(layer), int(pos), int(window), int(group), q=q, k_new=k_new,
+                         v_new=v_new, k_all=k_all, v_all=v_all, k_scale=k_scale,
+                         v_scale=v_scale, key_start=key_start, anc_local=anc_local,
+                         out=torch.empty_like(q))
     LAUNCHES["beam_self_attention_step"] += 1
     return out
 
@@ -498,8 +541,8 @@ def cross_launch_plan(A: int, G: int, H: int, Tk: int, head_dim: int = 64,
                      _cross_smem(head_dim, itemsize, G, chunk, rows, stages), Tk)
 
 
-# The append and beam kernels' plan (csrc/self_attention.cu, attend_window):
-# a block takes one (row, head).  A key row is read by `lanes` lanes (16
+# The step kernels' plan (csrc/self_attention.cu, attend_window): a block
+# takes one (row, head).  A key row is read by `lanes` lanes (16
 # bytes each, int8 8), a lane group; lane group g of the block's takes the
 # visible slots lo + g, lo + g + groups, ..., in batches of STEP_UNROLL,
 # each read two batches ahead of its scores.  A block has as many warps,
@@ -524,8 +567,8 @@ def step_lanes(head_dim: int, itemsize: int) -> int:
 
 
 class StepPlan(NamedTuple):
-    """How the append and beam kernels launch: a block of ``threads`` a
-    (row, head), with ``smem`` bytes of shared memory."""
+    """How a step kernel launches: a block of ``threads`` a (row, head),
+    with ``smem`` bytes of shared memory."""
     threads: int
     smem: int
 
@@ -538,9 +581,9 @@ class StepPlan(NamedTuple):
 
 def step_launch_plan(B: int, H: int, n: int, window: int, head_dim: int = 64,
                      itemsize: int = 2, beam: bool = False) -> StepPlan:
-    """The append (``beam`` False) or beam kernel's plan for B rows, H heads
-    and ``n`` visible slots (pos + 1) of a ``window``, at ``head_dim`` over
-    a cache of ``itemsize`` bytes: the warps of a block, and its shared
+    """A step kernel's plan (the beam kernel's with ``beam``) for B rows, H
+    heads and ``n`` visible slots (pos + 1) of a ``window``, at ``head_dim``
+    over a cache of ``itemsize`` bytes: the warps of a block, and its shared
     memory (the beam row's ancestors over the window, and the warps'
     partials)."""
     warps = min(STEP_MAX_WARPS, STEP_WARPS_PER_SM * SMS // (B * H),
