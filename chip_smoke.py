@@ -26,7 +26,14 @@ encoder splits heads for row 6, ``encoder_attention_split``, and whose
 steps run the step, cross and MLP kernels' head-dim-16 and D-64
 instances), and the slice's main path, base.en
 at full width and depth with ``TranscribeOptions()`` defaults (beam 5,
-timestamps, conditioned on the previous text) over a seeded 95 s file.
+timestamps, conditioned on the previous text) over a seeded 95 s file;
+and the CLI's transcription path with OpenAI's recipe, base.en at full
+width and depth: the temperature fallback ladder (beam 5 at rung 0,
+best-of-5 sampling with the JAX package's threefry noise above it), the
+no-speech threshold and word timestamps, over a seeded FLAC file read back
+by the port's ``load_audio``, through ``TranscribeTask`` and through
+``cli.main`` (``--batch 2``, ``--format srt``) on a seeded OpenAI-format
+checkpoint written by the script.
 Phases, in order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
@@ -36,7 +43,11 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               instance of rows 7, 9-12, a summary for the rest), and
               the whole-step kernel's tensor-core instructions in its
               SASS (cuobjdump);
-  3. kernels  each kernel wrapper at the shapes each path gives it, against
+  3. rng      the sampler's noise (decode/rng.py) on the card against the
+              CPU at [5, 51865]: keys, bits and uniforms bit for bit, the
+              Gumbel noise within GUMBEL_ULPS ulps, the drawn tokens equal;
+              the draw's device launches and wall ms a call;
+  4. kernels  each kernel wrapper at the shapes each path gives it, against
               its plain PyTorch version: at base.en b128 in f32 and bf16
               (mel: f32 only, 80 bins); at large-v3 b12 and medium.en b8
               mel (f32) and the encoder kernels in bf16; the cross kernel
@@ -88,8 +99,12 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               chunk of rows; row 8 is timed hot and cold in L2 (rotating
               through n_text_layer weight sets, its library call the same
               way) and checked at 129 rows of base.en, past its widest
-              batch tile;
-  4. parity   f32, 4 seeded 30 s windows, through the kernels and through
+              batch tile; the recipe's sampling rungs (the cross kernel at
+              greedy A 1, G 5, the append kernel at 5 rows with a
+              key_start a row, the MLP at 5 rows) and the CLI's --batch 2
+              (every kernel at base.en batch 2, beam 5, and the append
+              kernel at 10 rows);
+  5. parity   f32, 4 seeded 30 s windows, through the kernels and through
               the plain versions: base.en at full width, and large-v3 at
               full width with the depth cut to 4 + 4 layers, log_mel_frontend
               -> decode_greedy (224 steps): first-step filtered logits within
@@ -125,7 +140,7 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               the segments; row 6 launched n_audio_layer times an encoder
               call, row 4 never, the cross, MLP and append (greedy) or beam
               kernels n_text_layer times a step;
-  5. e2e      each path in bf16, timed 3 times (large-v3, the ctx and the
+  6. e2e      each path in bf16, timed 3 times (large-v3, the ctx and the
               append routes once each, E2E_REPS_CUT), after a 4-token
               warm-up run, with every launch count set to 0 just before each
               run and read just after: each kernel launched as expected
@@ -150,12 +165,24 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               launch counts checked (every kernel of the path, and no
               other), audio-s/s of the median, windows,
               ms a step; one window under torch.profiler (launches, idle
-              share);
-  6. profile  one more e2e run of each under torch.profiler (the first three
+              share).  Then OpenAI's recipe (transcribe_recipe): f32
+              through the kernels against the plain versions call by call
+              (each rung of each window; tokens equal unless the plain
+              margin, for a sampling rung the top-2 gap of logits / T +
+              noise times T, is below 1e-3), then the segments and each
+              word (text equal, times within WORD_TIME_TOL), the launch
+              counts of the kernel run; bf16 timed, its launch counts
+              checked, with windows, the rungs of each, steps by rung
+              kind, the draw's cost and the alignment pass's ms a window;
+              it fails where no window sampled.  Then the CLI (cli_phase):
+              --batch 2 on a WAV and a FLAC with the recipe and --json,
+              exit 0, one entry a file, every kernel of the path launched;
+              --format srt for one file, well-formed cues;
+  7. profile  one more e2e run of each under torch.profiler (the first three
               paths cut to PROFILE_STEPS tokens, which keeps the trace's
               processing short; the layer route in full): its idle share
               and where its device time goes;
-  7. the kernels line (JSON), the card line, and last the contract line.
+  8. the kernels line (JSON), the card line, and last the contract line.
 
 Every phase prints its seconds.  Exits nonzero, printing no result, where
 CUDA is absent.
@@ -168,6 +195,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -176,7 +204,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_rs_tpu_torch import DecodeTask, Tokenizer, TranscribeTask, log_mel_file
+from whisper_rs_tpu_torch import DecodeTask, Tokenizer, TranscribeTask, cli, log_mel_file
+from whisper_rs_tpu_torch.audio.flac import encode_flac
+from whisper_rs_tpu_torch.audio.io import load_audio, write_wav
 from whisper_rs_tpu_torch.audio.constants import HOP_LENGTH, N_FFT, N_SAMPLES
 from whisper_rs_tpu_torch.audio.mel import hann_window, mel_filterbank, pad_or_trim, reflect_pad
 from whisper_rs_tpu_torch.config import (
@@ -196,6 +226,7 @@ from whisper_rs_tpu_torch.decode import (
     rank_max_likelihood,
 )
 from whisper_rs_tpu_torch.decode import loop as decode_loop
+from whisper_rs_tpu_torch.decode import rng as decode_rng
 from whisper_rs_tpu_torch.decode import task as decode_task_module
 from whisper_rs_tpu_torch.decode.filters import log_softmax
 from whisper_rs_tpu_torch.decode.loop import _encode_and_prefill
@@ -291,8 +322,9 @@ BEAM_CHECK_POS = (233, 255, 256, 400)
 SCORE_RTOL = 2e-6  # beam parity scores: |d| <= 1e-4 + SCORE_RTOL |plain|
 E2E_REPS = 3
 # timed e2e runs of a path where E2E_REPS is more than the script's time
-# allows: large-v3 takes 13 s a run and is compared with nothing in the run
-E2E_REPS_CUT = {"large-v3": 1}
+# allows: large-v3 takes 13 s a run and is compared with nothing in the run;
+# the recipe's 40 s file takes 69-109 s a run (H100 80GB HBM3, 700 W)
+E2E_REPS_CUT = {"large-v3": 1, "base.en b1 recipe": 1}
 STEP_WINDOW = 256  # the append kernel is timed at W = 256, pos = W - 1
 # (atol, rtol) of |kernel - plain| <= atol + rtol |plain|.  In bf16 the rtol
 # covers one bf16 ulp of the output (2^-7 relative) where the two round an
@@ -2326,6 +2358,542 @@ def transcribe_main_path() -> dict:
     return launches
 
 
+# OpenAI's transcription recipe (the CLI's --temperatures 0,0.2,...,1.0
+# --word-timestamps with TranscribeOptions' no-speech threshold 0.6), on a
+# seeded FLAC file of RECIPE_SECONDS written and read back by the port
+LADDER = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+RECIPE_SECONDS = 40  # two windows at least: a sampled window prompts the next
+# The f32 parity runs on the file's first RECIPE_PARITY_SECONDS (two windows
+# of six rungs each), cut for the script's time: the whole file's four
+# windows took 230 s of f32 (H100 80GB HBM3, 700 W)
+RECIPE_PARITY_SECONDS = 20
+RECIPE_LABEL = f"{TRANSCRIBE_MODEL} b1 recipe"
+CLI_LABEL = f"{TRANSCRIBE_MODEL} b2 CLI --batch 2"
+CLI_SECONDS = (6, 4)  # the CLI's two files, a WAV and a FLAC: a window each
+WORD_TIME_TOL = 0.02  # one encoder frame: DTW may meet a near-tie the other way
+# The Gumbel noise's two logs may round apart between the card and the CPU:
+# the CPU tests measured at most 2 ulps of max(|g|, 1) between torch and XLA
+# (tests/test_torch_sampling.py); the tolerance is twice that.
+GUMBEL_ULPS = 4
+ARTIFACTS = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def check_rng() -> dict:
+    """[rng] The sampler's noise on the card against the CPU, [5, 51865] (5
+    rows of one audio, base.en's vocab rounded up to the multilingual one)
+    at three (seed, step) pairs: the row keys, 32-bit random bits and the
+    uniforms in [tiny, 1) bit for bit, the Gumbel noise within GUMBEL_ULPS
+    ulps of max(|g|, 1), and the tokens of ``categorical`` on seeded
+    logits at T 0.6 equal (where not, the CPU draw's top-2 gap must be
+    under 1e-5).  The CPU side runs on one torch thread (``one_thread``);
+    the Gumbel noise on torch's default CPU pool is compared with it and
+    the values that differ are printed.  Then the draw alone on the card: its device launches, its
+    wall ms a call (eager, synchronised, as a decode step makes it) and its
+    device time (a CUDA graph).  Returns {"draw_ms", "draw_launches",
+    "draw_device_ms"}."""
+    dev, V, rows = torch.device("cuda"), 51865, 5
+    gen = torch.Generator().manual_seed(3)
+
+    def one_thread(fn, *args):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(*args)
+        finally:
+            torch.set_num_threads(threads)
+
+    for seed, step in ((0, 0), (0, 9), (12345, 3)):
+        key = decode_rng.PRNGKey(seed)
+        k_cpu = decode_rng.row_keys(key, step + 1, rows, rows)[step]
+        k_dev = decode_rng.row_keys(key.to(dev), step + 1, rows, rows)[step]
+        if not torch.equal(k_dev.cpu(), k_cpu):
+            raise AssertionError(f"rng: row keys differ at seed {seed} step {step}")
+        if not torch.equal(decode_rng.random_bits(k_dev, (V,)).cpu(),
+                           decode_rng.random_bits(k_cpu, (V,))):
+            raise AssertionError(f"rng: random bits differ at seed {seed} step {step}")
+        u_dev = decode_rng.uniform(k_dev, (V,), decode_rng.TINY, 1.0).cpu()
+        u_cpu = decode_rng.uniform(k_cpu, (V,), decode_rng.TINY, 1.0)
+        if not torch.equal(u_dev.view(torch.int32), u_cpu.view(torch.int32)):
+            raise AssertionError(f"rng: uniforms differ at seed {seed} step {step}")
+        g_dev = decode_rng.gumbel(k_dev, (V,)).cpu()
+        g_cpu = one_thread(decode_rng.gumbel, k_cpu, (V,))
+        g_pool = decode_rng.gumbel(k_cpu, (V,))
+        pool_apart = int((g_pool != g_cpu).sum())
+        ulp = torch.from_numpy(np.spacing(np.maximum(g_cpu.abs().numpy(), 1.0)))
+        ulps = ((g_dev - g_cpu).abs() / ulp).max().item()
+        if ulps > GUMBEL_ULPS:
+            raise AssertionError(f"rng: Gumbel noise {ulps:.1f} ulps apart (tolerance "
+                                 f"{GUMBEL_ULPS})")
+        logits = torch.randn(rows, V, generator=gen) * 3
+        logits[:, ::7] = float("-inf")
+        t = 0.6
+        tok_cpu = one_thread(decode_rng.categorical, k_cpu, logits / torch.full((), t))
+        tok_dev = decode_rng.categorical(k_dev, logits.to(dev) / torch.full((), t, device=dev))
+        if not torch.equal(tok_dev.cpu(), tok_cpu):
+            top = (g_cpu + logits / t).topk(2, dim=-1).values
+            gap = (top[:, 0] - top[:, 1]).min().item()
+            if gap >= 1e-5:
+                raise AssertionError(f"rng: tokens differ with a top-2 gap of {gap:.3e}")
+            print(f"  seed {seed} step {step}: tokens differ at a top-2 gap of {gap:.3e}",
+                  flush=True)
+        print(f"[rng] seed {seed} step {step}: keys, bits and uniforms bit-equal card vs CPU; "
+              f"Gumbel max {ulps:.2f} ulps of max(|g|, 1) (tolerance {GUMBEL_ULPS}; the CPU "
+              f"on one thread, {pool_apart} values apart on {torch.get_num_threads()} "
+              f"threads); tokens {tok_dev.tolist()}", flush=True)
+    scaled = (logits / t).to(dev)
+
+    def draw():
+        return decode_rng.categorical(k_dev, scaled)
+
+    for _ in range(3):
+        draw()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        draw()
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 50 * 1e3
+    n = device_launches(draw)
+    device_ms = timed_ms(draw, 20, graph=True)
+    print(f"[rng] the draw at [{rows}, {V}] (threefry, uniform, Gumbel, argmax in torch ops): "
+          f"{n} device launches, {ms:.3f} ms a call (wall, synchronised), {device_ms:.4f} ms of "
+          f"device time (a CUDA graph of 20 calls)", flush=True)
+    return {"draw_ms": ms, "draw_launches": n, "draw_device_ms": device_ms}
+
+
+def kernel_checks_recipe(rows: dict) -> None:
+    """The kernels at the shapes the recipe and the CLI give them for the
+    first time, into ``rows``: the ladder's sampling rungs at batch 1 (best
+    of 5: the cross kernel at A 1, G 5 on the greedy path, the append
+    kernel at 5 rows with a key_start a row, the MLP at 5 rows), and the
+    CLI's --batch 2 (every kernel at base.en batch 2, beam 5: the encoder
+    kernels at 2 windows, the cross and beam kernels at A 2, G 5, the MLP
+    at 10 rows; its sampling rungs' append kernel at 10 rows), each against
+    its plain version, timed, bf16 bit-identical call to call."""
+    dims = dims_for(TRANSCRIBE_MODEL)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    rec = rows.setdefault(RECIPE_LABEL, {name: {} for name in KERNELS})
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] sampling rungs: cross_attention_step ({tag}, greedy A 1, G 5)",
+              flush=True)
+        rec["cross_attention_step"][tag] = check_cross(dims, 1, 5, dtype, randn)
+        print(f"[kernels] sampling rungs: self_attention_append_step ({tag}, 5 rows of one "
+              f"audio, a key_start a row)", flush=True)
+        rec["self_attention_append_step"][tag] = check_step_attention(dims, 5, 1, dtype, randn,
+                                                                      gen)
+        print(f"[kernels] sampling rungs: decoder_mlp_step ({tag}, 5 rows)", flush=True)
+        rec["decoder_mlp_step"][tag] = check_mlp(dims, 5, dtype, randn)
+    cli = rows[CLI_LABEL] = kernel_checks(dims, 2, (torch.bfloat16,), group=5)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] CLI sampling rungs: self_attention_append_step ({tag}, 10 rows)",
+              flush=True)
+        cli["self_attention_append_step"][tag] = check_step_attention(dims, 10, 1, dtype, randn,
+                                                                      gen)
+
+
+@contextlib.contextmanager
+def recorded_calls(margins: bool = False):
+    """Records every ``DecodeTask.run_batch`` call of any task (the ladder's
+    primary and sampling tasks alike) as a dict: ``temperature`` (None for
+    the primary task), ``rows`` (the windows of the call's mel),
+    ``outputs``, incremental ``steps``, the decode's ``candidates`` (on the
+    host) and ``sample_begin``.  With ``margins``,
+    the plain path's margins, in logit units: a beam call's smallest
+    selection margin (``margin``); a sampling call's top-2 gap of
+    ``logits / T + noise`` times T of every row at every step
+    (``row_margins`` [steps, rows]) and the gap between its best two
+    candidates' ranking scores (``rank_gap``)."""
+    calls, state = [], {}
+    run_batch = decode_task_module.DecodeTask.run_batch
+    greedy_fn, beam_fn = decode_task_module.decode_greedy, decode_task_module.decode_beam
+    rank_fn = decode_task_module.rank_max_likelihood
+    sample_fn, step_fn = decode_rng.categorical, decode_loop._beam_step
+
+    def counting(fn):
+        def run(model, mel, tokens, sample_begin, *args, **kw):
+            res = fn(model, mel, tokens, sample_begin, *args, **kw)
+            state.update(steps=res.steps, candidates=res.candidates.cpu(),
+                         sample_begin=sample_begin)
+            return res
+        return run
+
+    def recording_sample(keys, scaled):
+        top = (decode_rng.gumbel(keys, scaled.shape[-1:]) + scaled).topk(2, dim=-1).values
+        state["rows"].append((top[:, 0] - top[:, 1]) * state["temperature"])
+        return sample_fn(keys, scaled)
+
+    def recording_step(logits, s, pos, beam, cap, eot):
+        m = selection_margins(logits, s, beam, eot).min()
+        state["margin"] = m if state["margin"] is None else torch.minimum(state["margin"], m)
+        return step_fn(logits, s, pos, beam, cap, eot)
+
+    def recording_rank(result, sample_begin, eot, length_penalty):
+        out = rank_fn(result, sample_begin, eot, length_penalty)
+        if result.scores.shape[1] > 1:
+            top = (result.scores / out[2].clamp(min=1).float()).topk(2, dim=-1).values
+            state["rank_gap"] = (top[:, 0] - top[:, 1]).min()
+        return out
+
+    def recording_run_batch(self, mel, prompts, temperature=None):
+        state.update(margin=None, rank_gap=None, rows=[], temperature=temperature or 1.0)
+        out = run_batch(self, mel, prompts, temperature=temperature)
+        call = {"temperature": temperature, "rows": mel.shape[0], "outputs": out,
+                "steps": state["steps"],
+                "candidates": state["candidates"], "sample_begin": state["sample_begin"]}
+        if margins:
+            call["margin"] = None if state["margin"] is None else float(state["margin"])
+            call["rank_gap"] = None if state["rank_gap"] is None else float(state["rank_gap"])
+            call["row_margins"] = torch.stack(state["rows"]).cpu() if state["rows"] else None
+        calls.append(call)
+        return out
+
+    decode_task_module.decode_greedy = counting(greedy_fn)
+    decode_task_module.decode_beam = counting(beam_fn)
+    decode_task_module.DecodeTask.run_batch = recording_run_batch
+    if margins:
+        decode_rng.categorical, decode_loop._beam_step = recording_sample, recording_step
+        decode_task_module.rank_max_likelihood = recording_rank
+    try:
+        yield calls
+    finally:
+        decode_task_module.decode_greedy, decode_task_module.decode_beam = greedy_fn, beam_fn
+        decode_task_module.DecodeTask.run_batch = run_batch
+        decode_rng.categorical, decode_loop._beam_step = sample_fn, step_fn
+        decode_task_module.rank_max_likelihood = rank_fn
+
+
+def compare_calls(what: str, got: list, want: list, tol: float = 1e-3) -> bool:
+    """Call by call (each rung of each window), kernel path against plain
+    path: the same rung; in a sampling call each row's candidate equal, or
+    first apart at a step where the plain row's margin (its top-2 gap of
+    ``logits / T + noise``, times T) is below ``tol``; the chosen tokens
+    equal and avg_logprobs within 1e-3.  Where the chosen tokens differ,
+    the difference must come from such a row, or (equal rows) from a gap
+    below ``tol`` between the best two ranking scores, or in a beam call
+    from a selection margin below ``tol``; comparing stops there, since
+    every later call follows from it.  Returns whether every call was
+    compared."""
+    for i, (k, p) in enumerate(zip(got, want)):
+        t = k["temperature"]
+        if t != p["temperature"]:
+            raise AssertionError(f"{what} call {i}: rung {t} against the plain path's "
+                                 f"{p['temperature']}")
+        apart = []
+        if t is not None:
+            ck, cp = k["candidates"], p["candidates"]
+            for a, g in itertools.product(range(ck.shape[0]), range(ck.shape[1])):
+                diff = torch.nonzero(ck[a, g] != cp[a, g])
+                if not diff.numel():
+                    continue
+                step = min(int(diff[0]) - p["sample_begin"], p["row_margins"].shape[0] - 1)
+                m = float(p["row_margins"][step, a * ck.shape[1] + g])
+                print(f"  {what} call {i} (T {t}): row {g} apart from sampled token {step}, "
+                      f"plain margin {m:.3e}", flush=True)
+                if m >= tol:
+                    raise AssertionError(f"{what} call {i}: a row diverges with margin {m:.3e}")
+                apart.append(g)
+        for ok, op in zip(k["outputs"], p["outputs"], strict=True):
+            if ok.tokens.tolist() == op.tokens.tolist():
+                d = abs(ok.avg_logprob - op.avg_logprob)
+                if d > 1e-3:
+                    raise AssertionError(f"{what} call {i}: avg_logprob off by {d:.3e}")
+                continue
+            margin = p["margin"] if t is None else (0.0 if apart else p["rank_gap"])
+            print(f"  {what} call {i} (T {t or 0.0}): the chosen tokens differ; plain margin "
+                  f"{margin:.3e}", flush=True)
+            if margin >= tol:
+                raise AssertionError(f"{what} call {i}: diverges with margin {margin:.3e}")
+            print(f"  {what}: the margin is below {tol:g}, so comparing stops at call {i}",
+                  flush=True)
+            return False
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} calls against the plain path's {len(want)}")
+    return True
+
+
+def compare_words(what: str, got, want) -> int:
+    """Segments (seek, start, end, text) equal; each segment's words: text
+    equal, times within WORD_TIME_TOL.  Returns the number of words."""
+    seg = lambda s: (s.seek, round(s.start_time, 6), round(s.end_time, 6), s.text)  # noqa: E731
+    if [seg(s) for s in got.segments] != [seg(s) for s in want.segments]:
+        raise AssertionError(f"{what}: segments differ")
+    n, worst = 0, 0.0
+    for gs, ws in zip(got.segments, want.segments):
+        gw, ww = gs.words or [], ws.words or []
+        if [w.word for w in gw] != [w.word for w in ww]:
+            raise AssertionError(f"{what}: the words of segment at {gs.start_time} differ")
+        for a, b in zip(gw, ww):
+            worst = max(worst, abs(a.start - b.start), abs(a.end - b.end))
+        n += len(gw)
+    if worst > WORD_TIME_TOL + 1e-9:
+        raise AssertionError(f"{what}: a word time {worst:.3f} s off (tolerance {WORD_TIME_TOL})")
+    print(f"  {what}: {len(got.segments)} segments equal; {n} words, text equal, times within "
+          f"{worst:.3f} s (tolerance {WORD_TIME_TOL})", flush=True)
+    return n
+
+
+def recipe_launches(dims, calls, files: int = 1) -> dict:
+    """The recipe's launch counts over the recorded decode ``calls`` of
+    ``files`` files: the mel kernel once a file; the encoder kernels once a layer a call (every rung
+    encodes its window again); the cross and MLP kernels once a layer a
+    step; the beam kernel a layer a step of rung 0, the append kernel a
+    layer a step of the sampling rungs.  The alignment pass launches none
+    (torch.matmul, as the JAX package computes it)."""
+    L, Lt, n = dims.n_audio_layer, dims.n_text_layer, len(calls)
+    beam = sum(c["steps"] for c in calls if c["temperature"] is None)
+    sampled = sum(c["steps"] for c in calls if c["temperature"] is not None)
+    return {"log_mel": files, "ln_fused": L * n, "residual_ln": L * n,
+            "encoder_attention_merged": L * n, "cross_attention_step": Lt * (beam + sampled),
+            "beam_self_attention_step": Lt * beam, "self_attention_append_step": Lt * sampled,
+            "decoder_mlp_step": Lt * (beam + sampled)}
+
+
+def rungs_per_window(calls) -> list:
+    """The rungs each window took: a window starts at rung 0 (the primary
+    task's call, temperature None)."""
+    out = []
+    for c in calls:
+        if c["temperature"] is None:
+            out.append([])
+        out[-1].append(c["temperature"] or 0.0)
+    return out
+
+
+def transcribe_recipe(rng_row: dict) -> dict:
+    """[transcribe recipe] base.en at full width and depth, OpenAI's recipe:
+    ``TranscribeOptions(temperatures=LADDER, no_speech_threshold=0.6,
+    word_timestamps=True)`` with the default beam 5 at rung 0 and best-of-5
+    sampling above it, over a seeded RECIPE_SECONDS file written as FLAC by
+    the port's ``encode_flac`` and read back by its ``load_audio``.  (a) f32
+    on the file's first RECIPE_PARITY_SECONDS (two windows at least)
+    through the kernels and through the plain versions, call by call
+    (``compare_calls``), then the segments and words (``compare_words``),
+    and the kernel run's launch counts; (b) bf16 through the kernels, timed
+    (E2E_REPS, cut by E2E_REPS_CUT), each run's launch counts checked:
+    audio-s/s, windows, the rungs of each, steps by rung kind, launches a
+    window, the draw's launches and ms a step ([rng]) and the alignment
+    pass's ms a window.  Fails where no window ran a rung above 0.  Returns
+    the last timed run's launches."""
+    dims = dims_for(TRANSCRIBE_MODEL)
+    tok = Tokenizer.for_dims(dims)
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    path = ARTIFACTS / "recipe.flac"
+    x = (np.random.default_rng(31).standard_normal(16000 * RECIPE_SECONDS) * 0.1
+         ).astype(np.float32)
+    path.write_bytes(encode_flac(np.clip(x, -1, 1), 16000))
+    audio = load_audio(path)
+    if audio.shape != x.shape or np.abs(audio - np.clip(x, -1, 1)).max() > 1 / 32767:
+        raise AssertionError(f"load_audio: {audio.shape} samples, not the file written")
+    options = TranscribeOptions(temperatures=LADDER, no_speech_threshold=0.6,
+                                word_timestamps=True)
+    print(f"[transcribe recipe] {TRANSCRIBE_MODEL} full width and depth, temperatures "
+          f"{LADDER}, no_speech_threshold 0.6, word timestamps, beam "
+          f"{options.decode.mode.beam_size} at rung 0; a {RECIPE_SECONDS} s FLAC "
+          f"({path.stat().st_size} bytes) read back by load_audio", flush=True)
+
+    model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    out = {}
+    for kernels in (True, False):
+        task = TranscribeTask(model, tok, options, kernels=kernels)
+        with recorded_calls(margins=not kernels) as calls:
+            reset_launches()
+            res = task.run(audio[: 16000 * RECIPE_PARITY_SECONDS])
+            torch.cuda.synchronize()
+            out[kernels] = (res, calls, dict(LAUNCHES))
+    (res_k, calls_k, launches), (res_p, calls_p, _) = out[True], out[False]
+    if len(rungs_per_window(calls_k)) < 2:
+        raise AssertionError("f32 recipe: one window: no sampled text prompted a window")
+    print(f"  f32, the file's first {RECIPE_PARITY_SECONDS} s: kernel path {len(calls_k)} "
+          f"calls, rungs by window "
+          f"{rungs_per_window(calls_k)}; plain path {len(calls_p)} calls", flush=True)
+    if compare_calls("f32 recipe", calls_k, calls_p):
+        compare_words("f32 recipe", res_k, res_p)
+    check_route_counts("f32 recipe", launches, recipe_launches(dims, calls_k))
+    del model, task
+    torch.cuda.empty_cache()
+
+    model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+    task = TranscribeTask(model, tok, options)
+    align_ms = []
+    align = task._aligner.align_window
+
+    def timed_align(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words = align(*args)
+        align_ms.append((time.perf_counter() - t0) * 1e3)
+        return words
+
+    task._aligner.align_window = timed_align
+    categorical = decode_rng.categorical
+
+    def timed_draw(keys, scaled):
+        # no synchronisation: the host's time launching the draw, and the
+        # span the draw takes on the device's timeline (CUDA events)
+        ends = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ends[0].record()
+        t0 = time.perf_counter()
+        out = categorical(keys, scaled)
+        draw_host.append(time.perf_counter() - t0)
+        ends[1].record()
+        draw_events.append(ends)
+        return out
+
+    times = []
+    reps = E2E_REPS_CUT.get(RECIPE_LABEL, E2E_REPS)
+    for _ in range(reps):
+        draw_host, draw_events = [], []
+        with recorded_calls() as calls:
+            decode_rng.categorical = timed_draw
+            reset_launches()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = task.run(audio)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            finally:
+                decode_rng.categorical = categorical
+            launches = dict(LAUNCHES)
+        check_route_counts("bf16 recipe", launches, recipe_launches(dims, calls))
+    rungs = rungs_per_window(calls)
+    if not any(t > 0 for window in rungs for t in window):
+        raise AssertionError("bf16 recipe: no window ran a rung above 0: the ladder never sampled")
+    words = [w for s in res.segments for w in (s.words or [])]
+    if not res.segments or not words or not all(np.isfinite(res.avg_logprobs)):
+        raise AssertionError("bf16 recipe: no segments, no words, or a non-finite avg_logprob")
+    elapsed = float(np.median(times))
+    beam_steps = sum(c["steps"] for c in calls if c["temperature"] is None)
+    sampled_steps = sum(c["steps"] for c in calls if c["temperature"] is not None)
+    n_win = len(rungs)
+    print(f"  bf16: {n_win} windows, rungs by window {rungs}; {len(calls)} decode calls; steps "
+          f"beam {beam_steps}, sampling {sampled_steps}; {len(res.segments)} segments, "
+          f"{len(words)} words; runs {', '.join(f'{t:.3f}' for t in times)} s (median of "
+          f"{reps}); {RECIPE_SECONDS / elapsed:.2f} audio-s/s; wall over the steps "
+          f"{elapsed / (beam_steps + sampled_steps) * 1e3:.2f} ms a step", flush=True)
+    print(f"  launches of the last run (checked against recipe_launches): {launches}; the "
+          f"port's kernels {sum(v for k, v in launches.items() if ':' not in k) / n_win:.1f} a "
+          f"window", flush=True)
+    # a sampling call draws after its prefill and at each incremental step
+    draws = sum(c["steps"] + 1 for c in calls if c["temperature"] is not None)
+    if len(draw_host) != draws:
+        raise AssertionError(f"bf16 recipe: {len(draw_host)} draws, not the {draws} of its "
+                             "sampling calls")
+    span_ms = [a.elapsed_time(b) for a, b in draw_events]
+    print(f"  the draw, alone ([rng]): {rng_row['draw_launches']} device launches, "
+          f"{rng_row['draw_ms']:.3f} ms a call synchronised, {rng_row['draw_device_ms']:.4f} ms "
+          f"of device time", flush=True)
+    print(f"  the draw in the last run: {len(draw_host)} draws, one a sampling step and "
+          f"one after each sampling call's prefill; host "
+          f"{np.median(draw_host) * 1e3:.3f} ms a step to launch it (median; "
+          f"{sum(draw_host):.3f} s in all, {sum(draw_host) / times[-1] * 100:.1f}% of the run's "
+          f"{times[-1]:.3f} s); its span on the device's timeline {np.median(span_ms):.3f} ms "
+          f"a step (median; CUDA events, {sum(span_ms) / 1e3:.3f} s in all)", flush=True)
+    print(f"  alignment pass: {len(align_ms)} windows, {np.median(align_ms):.2f} ms a window "
+          f"(median; all {', '.join(f'{t:.2f}' for t in align_ms)})", flush=True)
+    del model, task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cli_phase() -> dict:
+    """[cli] The command line in process (``cli.main``) on a seeded
+    OpenAI-format checkpoint of base.en (seed 0, written here) and two
+    seeded files, a WAV and a FLAC: ``--batch 2 --language en
+    --temperatures 0,0.2,...,1.0 --word-timestamps --json`` (bf16 on the
+    card, its defaults) must exit 0 with one JSON entry a file, each
+    segment's times finite and its words in time order; every decode call
+    of 2 windows (the batch driver retries a failed batch row by row, which
+    would hide the failure) and every kernel launched exactly as
+    ``recipe_launches`` counts over the recorded calls, the mel kernel
+    once a file; then ``--format srt --word-timestamps`` for one file
+    (without the ladder: its six rungs would double the phase's time):
+    numbered cues of well-formed times, its calls of 1 window and its
+    launches checked likewise.  Prints the wall audio-s/s of each.  Returns
+    the --batch 2 run's launches."""
+    import io
+    import re
+
+    dims = dims_for(TRANSCRIBE_MODEL)
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    ckpt = ARTIFACTS / f"{TRANSCRIBE_MODEL}-seed0.pt"
+    torch.save({"dims": dataclasses.asdict(dims),
+                "model_state_dict": init_random(dims, 0, device="cpu").state_dict()}, ckpt)
+    rng = np.random.default_rng(41)
+    files = [ARTIFACTS / "cli0.wav", ARTIFACTS / "cli1.flac"]
+    clips = [(rng.standard_normal(16000 * s) * 0.1).clip(-1, 1).astype(np.float32)
+             for s in CLI_SECONDS]
+    write_wav(files[0], clips[0])
+    files[1].write_bytes(encode_flac(clips[1], 16000))
+    recipe = ["--temperatures", ",".join(str(t) for t in LADDER), "--word-timestamps"]
+
+    def run(argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    def check_calls(what, calls, launches, rows, n_files):
+        odd = [c["rows"] for c in calls if c["rows"] != rows]
+        if not calls or odd:
+            raise AssertionError(f"{what}: {len(calls)} decode calls, {len(odd)} of them of "
+                                 f"{odd} windows, not {rows}")
+        check_route_counts(what, launches, recipe_launches(dims, calls, n_files))
+
+    reset_launches()
+    with recorded_calls() as calls:
+        rc, text, wall = run([*map(str, files), "--checkpoint", str(ckpt), "--batch", "2",
+                              "--language", "en", *recipe, "--json"])
+    launches = dict(LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cli --batch 2: exit code {rc}")
+    payloads = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    if [p["file"] for p in payloads] != [str(f) for f in files]:
+        raise AssertionError(f"cli --batch 2: entries for {[p['file'] for p in payloads]}")
+    n_words = 0
+    for p in payloads:
+        if not p["segments"] or p["language"] != "en" or not isinstance(p["text"], str):
+            raise AssertionError(f"cli --batch 2: {p['file']}: no segments or a bad entry")
+        for seg in p["segments"]:
+            ws = seg.get("words", [])  # absent where the window aligned no word
+            n_words += len(ws)
+            if not (np.isfinite([seg["start"], seg["end"]]).all()
+                    and all(w["start"] <= w["end"] for w in ws)
+                    and all(a["end"] <= b["start"] + 1e-9 for a, b in zip(ws, ws[1:]))):
+                raise AssertionError(f"cli --batch 2: {p['file']}: a segment's times or words "
+                                     "out of order")
+    check_calls("cli --batch 2", calls, launches, 2, len(files))
+    print(f"[cli] --batch 2, 2 files ({sum(CLI_SECONDS)} s): exit 0, "
+          f"{sum(len(p['segments']) for p in payloads)} segments, {n_words} words; "
+          f"{len(calls)} decode calls of 2 windows, rungs "
+          f"{[c['temperature'] or 0.0 for c in calls]}; wall {wall:.2f} s with the "
+          f"checkpoint's load, {sum(CLI_SECONDS) / wall:.2f} audio-s/s; launches (checked "
+          f"against recipe_launches) {launches}", flush=True)
+
+    reset_launches()
+    with recorded_calls() as calls:
+        rc, text, wall = run([str(files[1]), "--checkpoint", str(ckpt), "--language", "en",
+                              "--word-timestamps", "--format", "srt"])
+    srt_launches = dict(LAUNCHES)
+    cues = re.findall(r"(?m)^(\d+)\n(\d\d:\d\d:\d\d,\d\d\d) --> (\d\d:\d\d:\d\d,\d\d\d)$", text)
+    if rc != 0 or not cues or [int(c[0]) for c in cues] != list(range(1, len(cues) + 1)):
+        raise AssertionError(f"cli --format srt: exit code {rc}, cues {cues[:3]}")
+    check_calls("cli --format srt", calls, srt_launches, 1, 1)
+    print(f"[cli] --format srt, {files[1].name} ({CLI_SECONDS[1]} s): exit 0, {len(cues)} cues; "
+          f"wall {wall:.2f} s, {CLI_SECONDS[1] / wall:.2f} audio-s/s", flush=True)
+    return launches
+
+
 # substrings of the device kernel names of the port's own kernels
 OWN_KERNELS = {
     "log_mel_kernel": "log_mel",
@@ -2477,7 +3045,6 @@ def print_sass_mma(source: str = "decoder_layer") -> None:
     """The tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) of each
     kernel of ``source``'s built library, from ``cuobjdump -sass`` beside
     nvcc (not measured where it is missing)."""
-    import pathlib
     import re
 
     tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
@@ -2526,6 +3093,10 @@ def main() -> int:
     def phase_done(phase: str, t0: float) -> None:
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    rng_row = check_rng()
+    phase_done("rng", t0)
+
     def label(m: str, b: int, beam: int) -> str:
         return f"{m} b{b}" + (f" beam{beam}" if beam else "")
 
@@ -2564,6 +3135,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_checks_g10(rows)
     phase_done("kernels cross attention at G 10", t0)
+    t0 = time.perf_counter()
+    kernel_checks_recipe(rows)
+    phase_done("kernels recipe and CLI shapes", t0)
 
     for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
@@ -2610,6 +3184,12 @@ def main() -> int:
     t0 = time.perf_counter()
     launches[TRANSCRIBE_LABEL] = transcribe_main_path()
     phase_done(f"transcribe {TRANSCRIBE_LABEL}", t0)
+    t0 = time.perf_counter()
+    launches[RECIPE_LABEL] = transcribe_recipe(rng_row)
+    phase_done("transcribe recipe", t0)
+    t0 = time.perf_counter()
+    launches[CLI_LABEL] = cli_phase()
+    phase_done("cli", t0)
 
     # each kernel's headline numbers come from the path of the slice that
     # runs it: the whole-step kernel's from the layer route, the fused
@@ -2627,7 +3207,7 @@ def main() -> int:
                + [int8_label(*path[:3]) for path in INT8_PATHS]
                + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"]
                + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL,
-                                       MLP_TILES_LABEL, G10_LABEL])
+                                       MLP_TILES_LABEL, G10_LABEL, RECIPE_LABEL, CLI_LABEL])
     extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "phase_bound_us",
                   "phase_gbps", "library_call", "read_only_ms", "column_write_ms",
                   "cold_ms", "library_cold_ms", "bit_identical", "plan", "one_window",

@@ -157,12 +157,3 @@ def test_bf16_model_casts_mel_to_compute_dtype(setup):
     )
     assert res.audio_features.dtype == torch.bfloat16
     assert res.scores.dtype == torch.float32 and torch.isfinite(res.scores).all()
-
-
-def test_temperature_sampling_raises(setup):
-    _, model, mel = setup
-    with pytest.raises(NotImplementedError, match="threefry"):
-        decode_greedy(
-            model, torch.from_numpy(mel[:1]), np.full((1, 1), SOT), 1, 0,
-            FilterConfig(**CFG_KW), GreedyMode(temperature=0.5), 3, NO_SPEECH,
-        )

@@ -36,6 +36,19 @@ def test_no_jax_imports(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
+def test_the_port_reads_its_own_vocabulary():
+    """The tokenizer's default file is the port's package data, a copy of
+    the JAX package's, so the installed command line needs nothing of the
+    JAX package's directory."""
+    from whisper_rs_tpu_torch.tokenize import tokenizer
+
+    path = tokenizer._VENDORED_JSON
+    assert path == PORT / "assets" / "gpt2.json"
+    assert path.read_bytes() == (ROOT / "whisper_rs_tpu" / "assets" / "gpt2.json").read_bytes()
+    for source in _sources():  # no path into the JAX package's directory
+        assert "\"whisper_rs_tpu\" /" not in source.read_text(), source
+
+
 def test_every_cuda_source_is_built():
     from whisper_rs_tpu_torch.ops import build
 
@@ -52,6 +65,7 @@ DIMS_KW = dict(
 
 
 def _entry_points():
+    from whisper_rs_tpu_torch import cli
     from whisper_rs_tpu_torch.config import ModelDims
     from whisper_rs_tpu_torch.device import resolve_device
     from whisper_rs_tpu_torch.models import (
@@ -75,6 +89,7 @@ def _entry_points():
         "load_hf_checkpoint": lambda: load_hf_checkpoint(missing),
         "load_params": lambda: load_params(missing),
         "load_checkpoint": lambda: load_checkpoint(missing),
+        "cli": lambda: cli.main([str(missing), "--checkpoint", str(missing)]),
     }
 
 
@@ -83,6 +98,7 @@ def _entry_points():
     [
         "resolve_device", "log_mel_frontend", "init_random", "params_from_state_dict",
         "load_openai_checkpoint", "load_hf_checkpoint", "load_params", "load_checkpoint",
+        "cli",
     ],
 )
 def test_entry_points_without_device_raise_when_cuda_is_absent(name, monkeypatch):
@@ -706,6 +722,57 @@ def test_chip_smoke_compare_windows_stops_only_below_the_plain_margin(chip_smoke
     off = [([_window([1, 2, 3], avg=-1.01)], 3), plain[1]]
     with pytest.raises(AssertionError, match="avg_logprob"):
         chip_smoke.compare_windows("x", off, plain, wide, beam)
+
+
+def _call(temperature, rows, chosen, row_margins=None, margin=None, rank_gap=None):
+    """One recorded decode call of chip_smoke.recorded_calls: one audio,
+    its rows' candidates (prompt [7] then the sampled tokens) and the
+    chosen row's output."""
+    cand = torch.tensor([[[7, *r] for r in rows]])
+    return {"temperature": temperature, "outputs": [_window(rows[chosen])], "steps": 3,
+            "candidates": cand, "sample_begin": 1, "margin": margin, "rank_gap": rank_gap,
+            "row_margins": None if row_margins is None else torch.tensor(row_margins)}
+
+
+@pytest.mark.parametrize("case", ["equal", "row apart, small margin", "row apart, wide margin",
+                                  "chosen apart", "rank swap", "rung differs", "beam"])
+def test_chip_smoke_compare_calls_holds_each_sampled_row_to_its_margin(chip_smoke, case):
+    """The recipe's parity, call by call: a sampled row may leave the plain
+    path's only at a step where the plain row's margin is below 1e-3 (and
+    comparing stops where the chosen tokens then differ); equal rows with
+    other chosen tokens need a ranking gap below 1e-3; a beam call keeps
+    the selection-margin rule; the rung must match."""
+    margins = [[1.0, 1.0], [1.0, 5e-4], [1.0, 1.0]]  # [steps, rows]
+    plain = [_call(None, [[1, 2, 3]], 0, margin=1.0),
+             _call(0.2, [[4, 5, 6], [4, 5, 8]], 0, margins, rank_gap=1.0)]
+    if case == "equal":
+        assert chip_smoke.compare_calls("x", plain, plain)
+    elif case == "row apart, small margin":  # row 1 apart at step 1 (margin 5e-4)
+        kernel = [plain[0], _call(0.2, [[4, 5, 6], [4, 9, 8]], 0)]
+        assert chip_smoke.compare_calls("x", kernel, plain)
+        kernel = [plain[0], _call(0.2, [[4, 5, 6], [4, 9, 8]], 1)]  # and chosen: stops
+        assert not chip_smoke.compare_calls("x", kernel, plain)
+    elif case == "row apart, wide margin":  # row 0 apart at step 2 (margin 1.0)
+        kernel = [plain[0], _call(0.2, [[4, 5, 9], [4, 5, 8]], 0)]
+        with pytest.raises(AssertionError, match="margin"):
+            chip_smoke.compare_calls("x", kernel, plain)
+    elif case == "chosen apart":  # the same rows, another row chosen, wide ranking gap
+        kernel = [plain[0], _call(0.2, [[4, 5, 6], [4, 5, 8]], 1)]
+        with pytest.raises(AssertionError, match="margin"):
+            chip_smoke.compare_calls("x", kernel, plain)
+    elif case == "rank swap":  # the same, the best two ranking scores 1e-4 apart
+        close = [plain[0], {**plain[1], "rank_gap": 1e-4}]
+        kernel = [plain[0], _call(0.2, [[4, 5, 6], [4, 5, 8]], 1)]
+        assert not chip_smoke.compare_calls("x", kernel, close)
+    elif case == "rung differs":
+        with pytest.raises(AssertionError, match="rung"):
+            chip_smoke.compare_calls("x", [plain[0], {**plain[1], "temperature": 0.4}], plain)
+    else:
+        kernel = [_call(None, [[1, 9, 3]], 0), plain[1]]
+        with pytest.raises(AssertionError, match="margin"):
+            chip_smoke.compare_calls("x", kernel, plain)
+        close = [{**plain[0], "margin": 5e-4}, plain[1]]
+        assert not chip_smoke.compare_calls("x", kernel, close)
 
 
 def test_chip_smoke_route_counts(chip_smoke):

@@ -7,7 +7,9 @@ greedy and beam 3 with mixed prompts; ``detect_language``; and both frozen
 end-to-end goldens (``tests/data/goldens/e2e.json``,
 ``e2e_multilingual.json``) reproduced by the port's ``TranscribeTask`` and
 ``DecodeTask`` with weights from the JAX ``init_params`` (tokens and texts
-exact, floats within the goldens' 1e-3)."""
+exact, floats within the goldens' 1e-3); and the six-rung temperature
+fallback ladder against the JAX ``TranscribeTask`` (the same rungs, tokens,
+segments and avg logprobs), with its stubbed retry."""
 
 import json
 import pathlib
@@ -184,6 +186,7 @@ def _run_planted(module, options, windows, output_cls, n_frames, task_kw):
     task.tokenizer = PlantedTokenizer()
     task.options = options
     task.decode_task = PlantedDecodeTask(windows, output_cls)
+    task._aligner = None
     for k, v in task_kw.items():
         setattr(task, k, v)
     mel = np.zeros((80, n_frames), np.float32)
@@ -318,20 +321,122 @@ def test_layer_route_at_head_dim_16_decodes_as_the_append_route(en_stack):
 
 
 def test_unported_options_raise(en_stack):
+    """What still raises: a temperature override on a beam-search task (the
+    ladder samples with its own best-of-N greedy task).  The ladder, word
+    timestamps, ``keep_audio_features`` and a greedy override all run."""
     _, model, _ = en_stack
     tok = Tokenizer()
-    with pytest.raises(NotImplementedError, match="sampling"):
-        TranscribeTask(model, tok, TranscribeOptions(temperatures=(0.0, 0.2)))
-    with pytest.raises(NotImplementedError, match="word timestamps"):
-        TranscribeTask(model, tok, TranscribeOptions(word_timestamps=True))
-    with pytest.raises(NotImplementedError, match="alignment"):
-        DecodeTask(model, tok, keep_audio_features=True)
-    task = DecodeTask(model, tok, DecodeOptions(mode=GreedyMode(), sample_len=2))
-    with pytest.raises(NotImplementedError, match="temperature sampling"):
-        task.run(torch.zeros(80, 3000), temperature=0.5)
     with pytest.raises(ValueError, match="greedy"):
         DecodeTask(model, tok, DecodeOptions(sample_len=2)).run(torch.zeros(80, 3000),
                                                                temperature=0.0)
+    with pytest.raises(ValueError, match="greedy"):
+        DecodeTask(model, tok, DecodeOptions(sample_len=2)).run(torch.zeros(80, 3000),
+                                                               temperature=0.5)
+    task = DecodeTask(model, tok, DecodeOptions(mode=GreedyMode(), sample_len=2),
+                      keep_audio_features=True)
+    out = task.run(torch.zeros(80, 3000), temperature=0.5)[0]
+    assert out.audio_features.shape == (1500, 64)
+    assert TranscribeTask(model, tok, TranscribeOptions(temperatures=(0.0, 0.2),
+                                                        word_timestamps=True))._aligner
+
+
+# -- the temperature fallback ladder --------------------------------------------
+
+LADDER = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The ladder runs thousands of small torch ops; on torch's default
+    pool, under the suite's parallel workers, its threads contend with the
+    other workers' (the ladder test took 650 s against 30 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _record_rungs(monkeypatch, cls):
+    """The temperature (None: the primary task) of every window decode."""
+    rungs = []
+    run = cls.run
+
+    def recording(self, mel, temperature=None):
+        rungs.append(temperature)
+        return run(self, mel, temperature=temperature)
+
+    monkeypatch.setattr(cls, "run", recording)
+    return rungs
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_temperature_ladder_matches_jax(en_stack, monkeypatch):
+    """OpenAI's six-rung ladder over the 35 s file, beam 3 at rung 0 and
+    best-of-3 sampling above it, against the JAX TranscribeTask on the same
+    weights and audio: the same rungs taken, tokens, segments and avg
+    logprobs.  Random weights decode at an avg logprob near -7, far under
+    the -1 threshold, so every window climbs the whole ladder."""
+    params, model, audio = en_stack
+    jax_opts = JaxTranscribeOptions(
+        decode=JaxDecodeOptions(mode=JaxBeam(beam_size=3), sample_len=SAMPLE_LEN),
+        temperatures=LADDER, no_speech_threshold=0.6)
+    opts = TranscribeOptions(
+        decode=DecodeOptions(mode=BeamSearchMode(beam_size=3), sample_len=SAMPLE_LEN),
+        temperatures=LADDER, no_speech_threshold=0.6)
+    jax_rungs = _record_rungs(monkeypatch, JaxDecodeTask)
+    want = jax_transcribe.TranscribeTask(params, JaxDims(**FIELDS), JaxTokenizer(),
+                                         jax_opts).run(audio)
+    rungs = _record_rungs(monkeypatch, DecodeTask)
+    task = TranscribeTask(model, Tokenizer(), opts)
+    got = task.run(audio)
+    assert rungs == jax_rungs == [None, *LADDER[1:]] * len(got.avg_logprobs)
+    assert task._fallback_tasks["sampling"].options.mode == \
+        GreedyMode(group_size=3)
+    assert got.tokens.tolist() == want.tokens.tolist()
+    assert got.text == want.text
+    assert [(s.seek, s.start_token, s.end_token, s.text) for s in got.segments] == [
+        (s.seek, s.start_token, s.end_token, s.text) for s in want.segments]
+    for g, w in zip(got.segments, want.segments, strict=True):
+        assert g.start_time == pytest.approx(w.start_time)
+        assert g.end_time == pytest.approx(w.end_time)
+    np.testing.assert_allclose(got.avg_logprobs, want.avg_logprobs, atol=1e-4)
+    np.testing.assert_allclose(got.no_speech_probs, want.no_speech_probs, atol=1e-5)
+
+
+def test_temperature_ladder_retries():
+    """Mirrors tests/test_sampling_and_ckpt.py::test_temperature_ladder_retries:
+    a window failing the quality checks is decoded again at the next rung by
+    the sampling task, which takes the rung at run time."""
+    calls = []
+
+    class StubTask:
+        def __init__(self, temperature, outputs):
+            self.temperature, self.outputs = temperature, outputs
+
+        def set_prompt(self, p):
+            pass
+
+        def run(self, mel, temperature=None):
+            calls.append(self.temperature if temperature is None else temperature)
+            return [self.outputs.pop(0)]
+
+    bad = DecodeOutput(tokens=np.asarray([600, 10], np.int64), text="x", avg_logprob=-5.0,
+                       no_speech_prob=0.0)
+    good = DecodeOutput(tokens=np.asarray([600, 11], np.int64), text="fine words",
+                        avg_logprob=-0.2, no_speech_prob=0.0)
+    task = TranscribeTask.__new__(TranscribeTask)
+    task.dims = ModelDims(**FIELDS)
+    task.model = SimpleNamespace(device=torch.device("cpu"))
+    task.kernels = False
+    task.tokenizer = SimpleNamespace(token_id_ts_begin=600, decode=lambda toks: "t",
+                                     encode=lambda s: [1])
+    task.options = TranscribeOptions(temperatures=(0.0, 0.4), condition_on_prev_text=False)
+    task.decode_task = StubTask(0.0, [bad])
+    task._fallback_tasks = {"sampling": StubTask(None, [good])}
+    task._aligner = None
+    out = task.run(None, mel=torch.zeros(80, 100))
+    assert calls == [0.0, 0.4]
+    assert out.avg_logprobs == [-0.2]
 
 
 # -- the frozen end-to-end goldens ---------------------------------------------

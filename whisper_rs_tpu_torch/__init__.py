@@ -1,6 +1,9 @@
 """PyTorch/CUDA port of whisper-tpu: mel frontend, encoder, window decode
-(greedy and beam search), the text layer and long-audio transcription,
-with hand-written Hopper kernels (``csrc/``) on the hot path.
+(greedy, sampled with JAX's threefry noise, and beam search), the text
+layer, long-audio transcription with the temperature fallback ladder and
+word timestamps, audio file input, the batch driver (``parallel``) and the
+command line (``cli``), with hand-written Hopper kernels (``csrc/``) on the
+hot path.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no ``device`` they raise (``device.resolve_device``).

@@ -124,11 +124,10 @@ class TranscribeOptions:
     conditioning on; else ``condition_on_prev_text`` decides.  A window
     with ``no_speech_prob > no_speech_threshold`` and ``avg_logprob <
     logprob_threshold`` is skipped as silence (None: never).
-    ``temperatures`` (the fallback ladder, with
-    ``compression_ratio_threshold``) and ``word_timestamps`` (with
-    ``alignment_heads``) are the JAX package's fields; the port's
-    ``TranscribeTask`` refuses both, as sampling and alignment are not
-    ported."""
+    ``temperatures`` is the fallback ladder (with
+    ``compression_ratio_threshold`` and ``logprob_threshold``);
+    ``word_timestamps`` aligns each window's words (with
+    ``alignment_heads``, default the upper half of the decoder's heads)."""
 
     decode: DecodeOptions = DecodeOptions()
     initial_prompt_tokens: Optional[Tuple[int, ...]] = None

@@ -1,5 +1,6 @@
-"""Window decode, greedy and beam search: filters, prompts, the step loops,
-ranking, ``DecodeTask`` and language identification."""
+"""Window decode, greedy (argmax or sampled, ``rng``) and beam search:
+filters, prompts, the step loops, ranking, ``DecodeTask``, language
+identification and word alignment (``align``)."""
 
 from .filters import FilterConfig, apply_filters
 from .language import detect_language

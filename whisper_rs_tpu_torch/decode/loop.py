@@ -3,8 +3,10 @@ encoder, cross K/V precompute, prompt prefill, then a host loop of
 incremental decoder steps with the logit filters, in phases of growing
 attention window.  Two token extractors:
 
-  * greedy at temperature 0 (``decode_greedy``): argmax and EOT
-    bookkeeping; the loop checks ``finished.all()`` on the host once a step;
+  * greedy (``decode_greedy``): argmax at temperature 0, else a draw from
+    ``softmax(logits / T)`` with JAX's threefry noise (``decode/rng.py``),
+    and EOT bookkeeping; the loop checks ``finished.all()`` on the host
+    once a step;
   * beam search (``decode_beam``): per-beam top-(beam+1) candidates ranked
     per audio, EOT candidates into a capacity-capped finished buffer in
     score order, and the cache read through an ancestor table (gather at
@@ -15,8 +17,13 @@ Ties among equal scores are broken as JAX's ``lax.top_k`` and stable
 ``argsort`` break them: the lower index first.  ``torch.topk`` promises no
 order for ties on the card, so every ranking here is a stable sort.
 
-Temperature sampling is not ported: the reference draws its noise from
-JAX's threefry generator, which torch cannot reproduce.
+A sampled draw is batch-composition invariant, as in the JAX loop: row r
+of step s draws with the key ``fold_in(fold_in(rng_key, s), r % group)``,
+where s counts from the first sampled position (not the absolute position,
+which moves with the prompt bucket), so an audio draws the same noise
+alone or inside a batch.  Every key of a decode is made once before the
+step loop (``rng.row_keys``); a step hashes only its noise on the device
+and adds no host sync.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from ..config import BeamSearchMode, GreedyMode
 from ..models.whisper import CrossKV, KVCache, Whisper, precompute_cross_kv
 from ..ops.decoder_layer_fused import decoder_step_weights
+from . import rng
 from .filters import FilterConfig, apply_filters, log_softmax
 
 BIG_NEG = -1e9  # finite stand-in for -inf in scores
@@ -113,10 +121,16 @@ def _phase_windows(n_ctx: int, prefill_width: int, sample_len: int) -> tuple:
     return tuple(wins)
 
 
-def _greedy_update(logits, tokens, pos: int, sum_logprobs, finished, eot: int):
-    """Argmax next token; accumulate its logprob for live rows; pin
+def _greedy_update(logits, tokens, pos: int, sum_logprobs, finished, eot: int,
+                   temperature=None, keys=None):
+    """Next token: argmax, or with ``temperature`` (a 0-d f32 tensor, the
+    divisor of the logits) a draw with the step's row ``keys``;
+    accumulate its logprob (of the unscaled logits) for live rows; pin
     finished rows to EOT.  Writes ``tokens[:, pos]`` in place."""
-    next_tok = logits.argmax(dim=-1)
+    if temperature is None:
+        next_tok = logits.argmax(dim=-1)
+    else:
+        next_tok = rng.categorical(keys, logits / temperature)
     cur_lp = log_softmax(logits).gather(1, next_tok[:, None])[:, 0]
     sum_logprobs = sum_logprobs + torch.where(finished, torch.zeros_like(cur_lp), cur_lp)
     next_tok = torch.where(finished, torch.full_like(next_tok, eot), next_tok)
@@ -139,6 +153,8 @@ def decode_greedy(
     kernels: bool = True,
     step_kernel: str = "append",
     quantize_kv: bool = False,
+    rng_key: Optional[torch.Tensor] = None,  # [2] threefry key (rng.PRNGKey)
+    temperature: Optional[float] = None,  # overrides mode.temperature
 ) -> DecodeResult:
     """Greedy decode of one batch of 30 s windows.  ``kernels=False`` runs
     every kernel's plain version instead (the reference path on the card).
@@ -148,12 +164,14 @@ def decode_greedy(
     step loop.  ``quantize_kv`` keeps the cross K/V and the self-attention
     cache int8 (the JAX ``quantize_kv``); it takes the append route, where
     each step's ``self_attention_step`` quantises and writes its K/V column,
-    then reads the cache."""
-    if mode.temperature > 0.0:
-        raise NotImplementedError(
-            "temperature sampling is not ported: the reference's noise comes from "
-            "JAX threefry (fold_in by row and step), which torch cannot reproduce"
-        )
+    then reads the cache.
+
+    At a temperature above 0 (``temperature``, else ``mode.temperature``)
+    each row draws its token from ``softmax(logits / T)`` with the noise of
+    the JAX loop on ``rng_key`` (default ``rng.PRNGKey(0)``), the ``group``
+    rows of an audio independently (best-of-N); an override divides by
+    ``max(T, 1e-6)``, as the JAX loop's traced temperature does.  At 0 it
+    is the argmax."""
     model.decoder.check_route(step_kernel, int8_kv=quantize_kv)
     dev = model.device
     dims = model.dims
@@ -172,9 +190,23 @@ def decode_greedy(
     n_audio = B // group
     step_weights = decoder_step_weights(model.decoder.blocks) if step_kernel == "layer" else None
 
+    t = mode.temperature if temperature is None else float(temperature)
+    divisor = keys = None
+    if t > 0.0:
+        if temperature is not None:
+            t = max(t, 1e-6)
+        divisor = torch.full((), t, dtype=torch.float32, device=dev)
+        if rng_key is None:
+            rng_key = rng.PRNGKey(0, device=dev)
+        keys = rng.row_keys(rng_key.to(dev), sample_len, B, group)
+
+    def update(logits, pos, sum_lp, finished):
+        step_keys = None if keys is None else keys[pos - sample_begin]
+        return _greedy_update(logits, tokens, pos, sum_lp, finished, eot, divisor, step_keys)
+
     sum_lp = torch.zeros(B, dtype=torch.float32, device=dev)
     finished = torch.zeros(B, dtype=torch.bool, device=dev)
-    sum_lp, finished = _greedy_update(logits, tokens, sample_begin, sum_lp, finished, eot)
+    sum_lp, finished = update(logits, sample_begin, sum_lp, finished)
 
     step, pos = 1, sample_begin + 1
     for W in _phase_windows(n_ctx, initial_tokens.shape[1], sample_len):
@@ -183,7 +215,7 @@ def decode_greedy(
                 model, tokens, pos, cross_kv, cache, cfg, sample_begin, key_start,
                 group, W, kernels, step_kernel=step_kernel, step_weights=step_weights,
             )
-            sum_lp, finished = _greedy_update(logits, tokens, pos, sum_lp, finished, eot)
+            sum_lp, finished = update(logits, pos, sum_lp, finished)
             step, pos = step + 1, pos + 1
 
     # finalize: rows that never emitted EOT get one appended

@@ -5,9 +5,11 @@ The filter stack is assembled once from ``DecodeOptions`` and the
 tokenizer; a run builds the end-aligned prompts of its rows
 (``build_batch_prompts``, per-row ``key_start``), decodes through
 ``decode_greedy`` or ``decode_beam`` on the model's device, ranks the
-candidates and detokenizes the chosen one of each audio.  Temperature
-sampling and the audio features for word alignment are not ported: a
-temperature above 0 and ``keep_audio_features`` raise.
+candidates and detokenizes the chosen one of each audio.  A greedy task
+takes a temperature override at run time (the JAX package's traced
+temperature: one task serves every rung of the fallback ladder);
+``keep_audio_features`` hands each audio's encoder output to the caller,
+on the model's device, for word alignment.
 """
 
 from __future__ import annotations
@@ -37,13 +39,15 @@ class DecodeOutput:
     text: str
     avg_logprob: float
     no_speech_prob: float
+    audio_features: Optional[torch.Tensor] = None  # [n_audio_ctx, n_state], on the device
 
 
 class DecodeTask:
-    """Decodes windows with ``model`` (on its device): greedy at temperature
-    0 or beam search, as ``options.mode`` says.  ``kernels``,
-    ``step_kernel`` (greedy only) and ``quantize_kv`` pass through to the
-    decode loop."""
+    """Decodes windows with ``model`` (on its device): greedy (argmax, or
+    sampled at a temperature above 0) or beam search, as ``options.mode``
+    says.  ``kernels``, ``step_kernel`` (greedy only) and ``quantize_kv``
+    pass through to the decode loop; with ``keep_audio_features`` each
+    output carries its audio's encoder output."""
 
     def __init__(
         self,
@@ -56,15 +60,12 @@ class DecodeTask:
         kernels: bool = True,
         step_kernel: str = "append",
     ):
-        if keep_audio_features:
-            raise NotImplementedError(
-                "keep_audio_features serves word-level alignment, which is not ported"
-            )
         dims = model.dims
         self.model = model
         self.dims = dims
         self.tokenizer = tokenizer
         self.options = options
+        self.keep_audio_features = keep_audio_features
         self.quantize_kv = quantize_kv
         self.kernels = kernels
         self.step_kernel = step_kernel
@@ -108,9 +109,10 @@ class DecodeTask:
     def run_batch(self, mel, prompts, temperature: Optional[float] = None) -> List[DecodeOutput]:
         """Decode of [n_audio, n_mels, 3000] with a prompt per row (a token
         sequence, or None): the prompts end-aligned into one prefill bucket,
-        each row masked from its own ``key_start``.  ``temperature`` 0 (or
-        None) is greedy's argmax; above 0 it raises, as sampling is not
-        ported."""
+        each row masked from its own ``key_start``.  ``temperature``
+        overrides a greedy mode's temperature (0: the argmax; above 0: a
+        draw at that temperature, the logits divided by ``max(T, 1e-6)``);
+        beam search takes none."""
         mel = torch.as_tensor(mel)
         if mel.ndim == 2:
             mel = mel[None]
@@ -119,14 +121,8 @@ class DecodeTask:
             raise ValueError(f"{len(prompts)} prompts for {n_audio} audios")
         mode = self.options.mode
         greedy = isinstance(mode, GreedyMode)
-        if temperature is not None:
-            if not greedy:
-                raise ValueError("a temperature override applies to greedy decoding only")
-            if temperature > 0.0:
-                raise NotImplementedError(
-                    "temperature sampling is not ported: the reference's noise comes from JAX "
-                    "threefry, which torch cannot reproduce"
-                )
+        if temperature is not None and not greedy:
+            raise ValueError("a temperature override applies to greedy decoding only")
         tok = self.tokenizer
         tokens, key_start, sample_begin, sot_idx = build_batch_prompts(
             prompts, tok.sequence_sot(), tok.token_id_sot, tok.token_id_startofprev,
@@ -136,7 +132,8 @@ class DecodeTask:
                 self.filter_cfg, mode, self.sample_len, tok.token_id_no_speech)
         kwargs = dict(key_start=key_start, kernels=self.kernels, quantize_kv=self.quantize_kv)
         if greedy:
-            result = decode_greedy(*args, step_kernel=self.step_kernel, **kwargs)
+            result = decode_greedy(*args, step_kernel=self.step_kernel,
+                                   temperature=temperature, **kwargs)
         else:
             result = decode_beam(*args, **kwargs)
         selected, avg_logprob, lengths = rank_max_likelihood(
@@ -160,5 +157,6 @@ class DecodeTask:
                 text=self.tokenizer.decode(toks),
                 avg_logprob=float(avg_logprob[i]),
                 no_speech_prob=float(no_speech[i]),
+                audio_features=result.audio_features[i] if self.keep_audio_features else None,
             ))
         return outputs

@@ -343,7 +343,7 @@ class ResidualAttentionBlock(nn.Module):
     def decoder_forward(
         self, x, layer: int, pos_offset: int, mask, window: int, cross_kv: CrossKV,
         cache: KVCache, cross_group: int, kernels: bool, key_start=None, anc_local=None,
-        step_kernel: str = "append",
+        step_kernel: str = "append", cross_logits: Optional[dict] = None,
     ) -> torch.Tensor:
         """One decoder block.  ``mask`` None marks an incremental step: the
         append kernel (the beam kernel with ``anc_local``, [B, n_ctx] int32
@@ -353,7 +353,9 @@ class ResidualAttentionBlock(nn.Module):
         beam step over an int8 cache) torch writes the column and a
         read-only kernel attends (the fused kernel, or the beam kernel's
         int8 read); the MLP takes the fused kernel unless its weights are
-        int8."""
+        int8.  A prefill pass whose ``cross_logits`` holds ``layer`` sets it
+        to the block's pre-softmax cross-attention logits [B, H, T, Tk] from
+        f32 products (q and k upcast, as ``preferred_element_type=f32``)."""
         B, T, D = x.shape
         H = self.attn.n_head
         dh = D // H
@@ -407,6 +409,9 @@ class ResidualAttentionBlock(nn.Module):
             ).reshape(B, H, 1, dh)
         else:
             kv = cross_kv.kv[layer]
+            if cross_logits is not None and layer in cross_logits:
+                cross_logits[layer] = torch.einsum("bhqd,bhdk->bhqk", qx.float(),
+                                                   kv[:, :, 0].float())
             attn = attend_grouped(qx, kv[:, :, 0], kv[:, :, 1], cross_group,
                                   **{k: s[layer] for k, s in cross_scales.items()})
         x = x + self.cross_attn.out(merge_heads(attn))
@@ -511,6 +516,7 @@ class TextDecoder(nn.Module):
         ancestors: Optional[torch.Tensor] = None,  # [B, n_ctx] int32 beam-local (beam)
         step_kernel: str = "append",  # an incremental step's route: append, ctx, layer
         step_weights=None,  # DecoderStepWeights of the "layer" route, built once
+        cross_logits: Optional[dict] = None,  # layer -> a prefill's f32 cross logits
     ) -> torch.Tensor:
         """One decoder pass; returns f32 logits [B, T (or K), n_vocab] and
         updates ``cache`` in place.
@@ -543,7 +549,11 @@ class TextDecoder(nn.Module):
 
         An int8 token table (``QuantEmbedding``) is dequantised row by row
         for the embedding, and the logits ``x @ W^T`` of its int8 values
-        are scaled per token after the product, in f32."""
+        are scaled per token after the product, in f32.
+
+        A prefill given ``cross_logits`` (a dict keyed by layer) fills in
+        each of those layers' pre-softmax cross-attention logits [B, H, T,
+        Tk], from f32 products: the word aligner's teacher-forced pass."""
         B, T = tokens.shape
         dev = tokens.device
         n_ctx = self.positional_embedding.shape[0]
@@ -590,7 +600,7 @@ class TextDecoder(nn.Module):
             for layer, block in enumerate(self.blocks):
                 x = block.decoder_forward(
                     x, layer, pos_offset, mask, W, cross_kv, cache, cross_group, kernels,
-                    key_start, ancestors, step_kernel,
+                    key_start, ancestors, step_kernel, cross_logits,
                 )
         if logit_positions is not None:
             x = x[:, logit_positions]

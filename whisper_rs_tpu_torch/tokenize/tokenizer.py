@@ -4,8 +4,8 @@ tokens and its virtual timestamp tokens (counterpart of
 ``tokenizers``; the port needs neither that package nor ``regex``).
 
 It reads the same tokenizer file, a Hugging Face ``tokenizer.json`` of the
-GPT-2 BPE (by default the vocabulary vendored at
-``whisper_rs_tpu/assets/gpt2.json``, read as a file), and gives the same ids
+GPT-2 BPE (by default the port's own copy of the vocabulary,
+``whisper_rs_tpu_torch/assets/gpt2.json``, read as a file), and gives the same ids
 and text as the Hugging Face tokenizer that file describes:
 
   * ``encode``: the special tokens in the text are matched first, whole,
@@ -39,9 +39,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from .languages import language_table, num_languages_for_vocab
 
-# the GPT-2 vocabulary vendored with the JAX package, read as a file
-_VENDORED_JSON = (pathlib.Path(__file__).resolve().parents[2] / "whisper_rs_tpu" / "assets"
-                  / "gpt2.json")
+# the GPT-2 vocabulary shipped with the port (package data), read as a file
+_VENDORED_JSON = pathlib.Path(__file__).resolve().parents[1] / "assets" / "gpt2.json"
 
 
 class Task(enum.Enum):

@@ -15,8 +15,17 @@ segmentation rules are the reference's:
     timestamp, and the seek advances a full window.
 
 Segment ``start_token``/``end_token`` are global token indices in both
-branches.  The temperature fallback ladder and word timestamps are not
-ported: ``TranscribeOptions.temperatures`` and ``word_timestamps`` raise.
+branches.
+
+With ``TranscribeOptions.temperatures`` (OpenAI's fallback ladder, e.g.
+0, 0.2, ..., 1.0) a window that ``needs_fallback`` (a degenerate
+repetition or a low average log-probability, unless it is confidently
+silence) is decoded again at the next rung, with the seek held: rung 0
+with the primary task, every rung above 0 with one best-of-N sampling task
+(``_sampling_task``: N the beam size, the temperature passed at run time).
+With ``word_timestamps`` each window's consumed tokens are aligned to the
+audio (``decode/align.py``) and each word goes to the segment its midpoint
+falls in (``assign_words``).
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import torch
 
 from .audio.constants import HOP_LENGTH, N_FRAMES, SAMPLE_RATE
 from .audio.mel import pad_or_trim
-from .config import TranscribeOptions
+from .config import BeamSearchMode, GreedyMode, TranscribeOptions
+from .decode.align import WordAligner, WordTiming
 from .decode.task import DecodeTask
 from .models.whisper import Whisper
 from .ops.mel import log_mel_file
@@ -41,12 +51,16 @@ QUANTUM = HOP_LENGTH / SAMPLE_RATE  # 0.01 s, one mel frame
 
 @dataclasses.dataclass
 class TranscribeSegment:
+    """One segment; ``words`` holds its aligned words when
+    ``TranscribeOptions.word_timestamps`` is on, else None."""
+
     seek: int
     start_time: float
     end_time: float
     start_token: int
     end_token: int
     text: str
+    words: Optional[List[WordTiming]] = None
 
 
 @dataclasses.dataclass
@@ -89,6 +103,34 @@ def should_skip_no_speech(opts: TranscribeOptions, no_speech_prob: float,
     a low-confidence decode."""
     return (opts.no_speech_threshold is not None and no_speech_prob > opts.no_speech_threshold
             and avg_logprob < opts.logprob_threshold)
+
+
+def assign_words(segments: List[TranscribeSegment], words) -> None:
+    """Attach a window's aligned words to its segments by time: each word
+    goes to the segment whose span holds its midpoint (else the nearest
+    span).  Words and segments are both in time order, so reading order is
+    kept."""
+    if not segments or not words:
+        return
+    for s in segments:
+        s.words = []
+    for w in words:
+        mid = (w.start + w.end) / 2.0
+        target = next((s for s in segments
+                       if s.start_time - 1e-6 <= mid <= s.end_time + 1e-6), None)
+        if target is None:
+            target = min(segments, key=lambda s: min(abs(s.start_time - mid),
+                                                     abs(s.end_time - mid)))
+        target.words.append(w)
+
+
+def sampling_options(options: TranscribeOptions):
+    """The ``DecodeOptions`` of the ladder's rungs above 0: best-of-N greedy
+    sampling (beam search is not defined at a temperature), N the beam
+    size or the greedy group size."""
+    mode = options.decode.mode
+    n = mode.beam_size if isinstance(mode, BeamSearchMode) else getattr(mode, "group_size", 1)
+    return dataclasses.replace(options.decode, mode=GreedyMode(group_size=max(n or 1, 1)))
 
 
 def process_window_result(
@@ -150,7 +192,8 @@ class TranscribeTask:
     """Transcribes whole files with ``model`` on its device; ``kernels``
     passes through to the mel and the window decode (``decode_task``,
     whose own fields, e.g. ``quantize_kv``, may be set after
-    construction)."""
+    construction; the sampling task of the ladder inherits
+    ``quantize_kv`` when it is first made)."""
 
     def __init__(
         self,
@@ -160,18 +203,27 @@ class TranscribeTask:
         *,
         kernels: bool = True,
     ):
-        if options.temperatures is not None:
-            raise NotImplementedError(
-                "the temperature fallback ladder samples, and sampling is not ported"
-            )
-        if options.word_timestamps:
-            raise NotImplementedError("word timestamps (alignment) are not ported")
         self.model = model
         self.dims = model.dims
         self.tokenizer = tokenizer
         self.options = options
         self.kernels = kernels
-        self.decode_task = DecodeTask(model, tokenizer, options.decode, kernels=kernels)
+        self.decode_task = DecodeTask(model, tokenizer, options.decode, kernels=kernels,
+                                      keep_audio_features=options.word_timestamps)
+        self._fallback_tasks: dict = {}
+        self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
+                         if options.word_timestamps else None)
+
+    def _sampling_task(self) -> DecodeTask:
+        """The one task of every rung above 0 (``sampling_options``); the
+        temperature is passed at run time."""
+        if "sampling" not in self._fallback_tasks:
+            self._fallback_tasks["sampling"] = DecodeTask(
+                self.model, self.tokenizer, sampling_options(self.options),
+                keep_audio_features=self.options.word_timestamps, kernels=self.kernels,
+                quantize_kv=getattr(self.decode_task, "quantize_kv", False),
+            )
+        return self._fallback_tasks["sampling"]
 
     def run(self, audio, mel: Optional[torch.Tensor] = None) -> TranscribeOutput:
         """audio [n_samples] f32 at 16 kHz, or a precomputed ``mel``
@@ -202,18 +254,40 @@ class TranscribeTask:
         seek = 0
         while seek < n_frames:
             window = pad_or_trim(mel[:, seek:], N_FRAMES)
-            if condition:
-                self.decode_task.set_prompt(tokens)
-            result = self.decode_task.run(window)[0]
+            # the fallback ladder (None: one pass with the primary task)
+            ladder = opts.temperatures or (0.0,)
+            for idx, t in enumerate(ladder):
+                if opts.temperatures is None or t == 0.0:
+                    task, temp = self.decode_task, None
+                else:
+                    task, temp = self._sampling_task(), t
+                if condition:
+                    task.set_prompt(tokens)
+                result = task.run(window, temperature=temp)[0]
+                if idx == len(ladder) - 1 or opts.temperatures is None:
+                    break
+                if not needs_fallback(opts, result.text, result.avg_logprob,
+                                      result.no_speech_prob):
+                    break
             avg_logprobs.append(result.avg_logprob)
             no_speech_probs.append(result.no_speech_prob)
             if should_skip_no_speech(opts, result.no_speech_prob, result.avg_logprob):
                 seek += N_FRAMES
                 continue
+            n_segs_before, n_tokens_before, seek_before = len(segments), len(tokens), seek
             seek = process_window_result(
                 tokens, segments, np.asarray(result.tokens, np.int64), result.text, seek,
                 ts_begin, input_stride, time_precision, self.tokenizer.decode,
             )
+            if self._aligner is not None and result.audio_features is not None:
+                content = max(1, min(n_frames - seek_before, N_FRAMES) // input_stride)
+                # align only the tokens this window consumed: the tail past
+                # the last timestamp pair is decoded (and aligned) again by
+                # the next window
+                words = self._aligner.align_window(tokens[n_tokens_before:],
+                                                   result.audio_features,
+                                                   seek_before * QUANTUM, content)
+                assign_words(segments[n_segs_before:], words)
 
         tokens_arr = np.asarray(tokens, np.int64)
         return TranscribeOutput(
