@@ -33,7 +33,11 @@ best-of-5 sampling with the JAX package's threefry noise above it), the
 no-speech threshold and word timestamps, over a seeded FLAC file read back
 by the port's ``load_audio``, through ``TranscribeTask`` and through
 ``cli.main`` (``--batch 2``, ``--format srt``) on a seeded OpenAI-format
-checkpoint written by the script.
+checkpoint written by the script; the serving engine (``ServingEngine``,
+continuous batching at batch 4) at base.en; base.en b128 greedy with int8
+weights and K/V under the int8×int8 matmuls (``WHISPER_INT8_MATMUL=1``);
+and the evaluation tools (``tools.validate_checkpoint``, ``tools.eval_wer``)
+on a synthetic split.
 Phases, in order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
@@ -103,7 +107,9 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               greedy A 1, G 5, the append kernel at 5 rows with a
               key_start a row, the MLP at 5 rows) and the CLI's --batch 2
               (every kernel at base.en batch 2, beam 5, and the append
-              kernel at 10 rows);
+              kernel at 10 rows); the serving engine's (every kernel at
+              base.en batch 4, beam 5: the cross and beam kernels at A 4,
+              G 5, the MLP at 20 rows; the append kernel at 20 rows);
   5. parity   f32, 4 seeded 30 s windows, through the kernels and through
               the plain versions: base.en at full width, and large-v3 at
               full width with the depth cut to 4 + 4 layers, log_mel_frontend
@@ -159,11 +165,11 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               step; on the int8-weight path, the device time of one step's
               int8 weight casts alone.  Then the main transcription path:
               the whole-file mel through row 1 against its plain version;
-              f32 through the kernels against the plain versions, window by
-              window as above, with the kernel run's launch counts checked;
-              bf16 through the kernels, E2E_REPS timed runs, each with its
-              launch counts checked (every kernel of the path, and no
-              other), audio-s/s of the median, windows,
+              f32 through the kernels against the plain versions, window
+              by window as above, with the kernel run's launch counts
+              checked; bf16 through the kernels, timed
+              (E2E_REPS_CUT), each run's launch counts checked (every
+              kernel of the path, and no other), audio-s/s, windows,
               ms a step; one window under torch.profiler (launches, idle
               share).  Then OpenAI's recipe (transcribe_recipe): f32
               through the kernels against the plain versions call by call
@@ -177,7 +183,21 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               it fails where no window sampled.  Then the CLI (cli_phase):
               --batch 2 on a WAV and a FLAC with the recipe and --json,
               exit 0, one entry a file, every kernel of the path launched;
-              --format srt for one file, well-formed cues;
+              --format srt for one file, well-formed cues.  Then the serving
+              engine (serve_phase): bf16, six requests, four at once and two
+              from a second client thread, every call of 4 rows, a round
+              holding a late request beside an early one, stats and
+              launch counts checked, audio-s/s, latency p50/p95, ms a step;
+              f32 with a two-rung ladder, each call replayed through the
+              plain path and each request held to the sequential
+              TranscribeTask on the card (compare_calls).  Then the
+              int8×int8 matmuls (int8_matmul_phase): the int8 linear
+              bit-equal to its plain version at base.en's shapes (M <= 16
+              too), timed beside _int_mm, the cast-and-matmul and F.linear;
+              the int8 path with the switch on, f32 parity at full depth and
+              bf16 timed and profiled beside the path without it.  Then the
+              evaluation tools (eval_phase): validate_checkpoint exits 3 with
+              the JAX tool's verdict keys, eval_wer exits 0 with a WER;
   7. profile  one more e2e run of each under torch.profiler (the first three
               paths cut to PROFILE_STEPS tokens, which keeps the trace's
               processing short; the layer route in full): its idle share
@@ -195,16 +215,25 @@ import dataclasses
 import functools
 import itertools
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_rs_tpu_torch import DecodeTask, Tokenizer, TranscribeTask, cli, log_mel_file
+from whisper_rs_tpu_torch import (
+    DecodeTask,
+    ServingEngine,
+    Tokenizer,
+    TranscribeTask,
+    cli,
+    log_mel_file,
+)
 from whisper_rs_tpu_torch.audio.flac import encode_flac
 from whisper_rs_tpu_torch.audio.io import load_audio, write_wav
 from whisper_rs_tpu_torch.audio.constants import HOP_LENGTH, N_FFT, N_SAMPLES
@@ -275,6 +304,7 @@ from whisper_rs_tpu_torch.ops.encoder_fused import (
     residual_ln_plain,
 )
 from whisper_rs_tpu_torch.ops.mel import fft_table as mel_fft_table
+from whisper_rs_tpu_torch.transcribe import rung_key
 from whisper_rs_tpu_torch.ops.mel import (
     kernel_flops_per_frame,
     log_mel_frontend,
@@ -307,6 +337,19 @@ INT8_GREEDY_CHECK_POS = (2, 127, 128, 200)  # unprompted greedy steps checked pl
 # about 3 times that.
 INT8_LOGIT_TOL = 1e-4
 INT8_SCORE_RTOL = 1e-5
+# The int8×int8 parity's tolerances (WHISPER_INT8_MATMUL=1 on the int8
+# greedy path).  Every linear also quantises its input rows, so where the
+# two paths' f32 activations differ by an ulp next to a rounding boundary,
+# an activation rounds to the neighbouring int8 step (1/127 of its row's
+# amax), which the int8-weight path never does.  The first run on the H100
+# measured step logits 1.98e-3 and 6.77e-3 apart at positions 128 and 200
+# (275 int8 values of the second step's K/V column rounded apart) and
+# 6e-7 at positions 2 and 127: 20 and 68 times INT8_LOGIT_TOL; every row
+# then left the plain path at a top-2 margin of 3.1e-4 to 9.1e-3.  The logit
+# tolerance is about 3 times the worst; a dropped key tile or a wrong
+# scale moves the logits by 0.1 or more.  The no-speech probabilities
+# (1.1e-7 apart) keep 1e-5.
+INT8X8_LOGIT_TOL = 2e-2
 GREEDY_CHECK_POS = (233, 255, 256, 400)  # steps checked plain vs kernel, routes parity
 LAYER_BF16_DEPTH = 4  # decoder layers of the whole-step kernel's bf16 check
 # the whole-step kernel's phases, in order (csrc/decoder_layer.cu)
@@ -323,8 +366,12 @@ SCORE_RTOL = 2e-6  # beam parity scores: |d| <= 1e-4 + SCORE_RTOL |plain|
 E2E_REPS = 3
 # timed e2e runs of a path where E2E_REPS is more than the script's time
 # allows: large-v3 takes 13 s a run and is compared with nothing in the run;
-# the recipe's 40 s file takes 69-109 s a run (H100 80GB HBM3, 700 W)
-E2E_REPS_CUT = {"large-v3": 1, "base.en b1 recipe": 1}
+# the recipe's 40 s file takes 69-109 s a run (H100 80GB HBM3, 700 W).  The
+# serving, int8×int8 and evaluation phases (128 s) took the time of two more
+# runs of the medium.en beam paths (9-12 s a run), of the 95 s transcription
+# (about 11 s a run) and of base.en b128 with and without int8 (3-6 s)
+E2E_REPS_CUT = {"large-v3": 1, "base.en b1 recipe": 1, "medium.en": 1, "medium.en int8 KV": 1,
+                "base.en b1 beam5 transcribe": 1, "base.en": 1, "base.en int8": 1}
 STEP_WINDOW = 256  # the append kernel is timed at W = 256, pos = W - 1
 # (atol, rtol) of |kernel - plain| <= atol + rtol |plain|.  In bf16 the rtol
 # covers one bf16 ulp of the output (2^-7 relative) where the two round an
@@ -1541,17 +1588,20 @@ def parity_beam(dims, label: str, beam: int, int8_kv: bool = False) -> None:
     torch.cuda.empty_cache()
 
 
-def parity_routes(dims, label: str, routes=("layer", "ctx"), int8: bool = False) -> None:
+def parity_routes(dims, label: str, routes=("layer", "ctx"), int8: bool = False,
+                  tol: float | None = None) -> None:
     """The greedy decode through each step route, f32, through the kernels
     and through the plain versions: prompted as BENCH_PROMPTED, or (``int8``:
     int8 weights and K/V on the append route) unprompted with the logit
     tolerance INT8_LOGIT_TOL.  The filtered logits of the steps at
     GREEDY_CHECK_POS (INT8_GREEDY_CHECK_POS: the first step, both ends of
     the 128 phase, one at 256), plain against kernel on the kernel path's
-    own state, within the tolerance; tokens equal per row unless the plain
-    path's top-2 margin at the first divergent position is below it;
-    no-speech probabilities within 1e-5."""
-    tol, check_pos = (INT8_LOGIT_TOL, INT8_GREEDY_CHECK_POS) if int8 else (1e-3, GREEDY_CHECK_POS)
+    own state, within the tolerance (``tol`` where given); tokens equal per
+    row unless the plain path's top-2 margin at the first divergent
+    position is below it; no-speech probabilities within 1e-5."""
+    default, check_pos = ((INT8_LOGIT_TOL, INT8_GREEDY_CHECK_POS) if int8
+                          else (1e-3, GREEDY_CHECK_POS))
+    tol = default if tol is None else tol
     print(f"[parity] {label}, f32, {PARITY_WINDOWS} windows, "
           + ("unprompted, greedy, int8 weights and K/V" if int8 else
              f"prompted, greedy, step_kernel {' and '.join(routes)}"), flush=True)
@@ -1764,15 +1814,18 @@ def e2e_model(dims):
 
 
 def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
-        int8_kv: bool = False) -> dict:
+        int8_kv: bool = False, reps=None, summary=None) -> dict:
     """One path in bf16 at full width and depth: greedy and unprompted, or
     (``beam`` > 0) beam search prompted as bench.py's BENCH_PROMPTED; with
     int8 weights (``quantize_params``) and int8 K/V (``quantize_kv``) as
-    asked."""
+    asked; ``reps`` timed runs (default E2E_REPS, or E2E_REPS_CUT's).
+    ``summary`` (a dict) takes audio-s/s, ms a step and the profiled run's
+    launches and device busy ms a pass."""
     what = f"beam {beam}, prompted" if beam else "greedy, unprompted"
     what += "".join(f", int8 {w}" for w, on in (("weights", int8_weights), ("K/V", int8_kv)) if on)
-    reps = E2E_REPS_CUT.get(name + (" int8" if int8_weights else " int8 KV" if int8_kv else ""),
-                            E2E_REPS)
+    if reps is None:
+        reps = E2E_REPS_CUT.get(name + (" int8" if int8_weights else " int8 KV" if int8_kv
+                                        else ""), E2E_REPS)
     print(f"[e2e] {name} bf16 batch {batch}, {what}, {reps} timed runs", flush=True)
     t0 = time.perf_counter()
     if int8_weights:  # its own model: quantize_params works in place
@@ -1890,9 +1943,12 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
           f"{t_steps:.3f} s, {t_steps / steps * 1e3:.2f} ms a step (a width-1 decoder pass "
           f"and the token update); prefill+steps over the width-1 passes "
           f"{(elapsed - t_enc) / n_passes * 1e3:.2f} ms a pass", flush=True)
-    profile_run(lambda a: run(a, PROFILE_STEPS), audio,
-                f"one e2e run cut to {PROFILE_STEPS} tokens",
-                passes=PROFILE_STEPS if sample_begin == 1 else PROFILE_STEPS - 1)
+    profiled = profile_run(lambda a: run(a, PROFILE_STEPS), audio,
+                           f"one e2e run cut to {PROFILE_STEPS} tokens",
+                           passes=PROFILE_STEPS if sample_begin == 1 else PROFILE_STEPS - 1)
+    if summary is not None:
+        summary.update(audio_s_per_s=batch * 30.0 / elapsed, ms_step=t_steps / steps * 1e3,
+                       **profiled)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -2822,10 +2878,7 @@ def cli_phase() -> dict:
     import re
 
     dims = dims_for(TRANSCRIBE_MODEL)
-    ARTIFACTS.mkdir(parents=True, exist_ok=True)
-    ckpt = ARTIFACTS / f"{TRANSCRIBE_MODEL}-seed0.pt"
-    torch.save({"dims": dataclasses.asdict(dims),
-                "model_state_dict": init_random(dims, 0, device="cpu").state_dict()}, ckpt)
+    ckpt = seeded_checkpoint()
     rng = np.random.default_rng(41)
     files = [ARTIFACTS / "cli0.wav", ARTIFACTS / "cli1.flac"]
     clips = [(rng.standard_normal(16000 * s) * 0.1).clip(-1, 1).astype(np.float32)
@@ -2894,6 +2947,445 @@ def cli_phase() -> dict:
     return launches
 
 
+# -- the serving engine, the int8×int8 matmuls and the evaluation tools --------
+
+# [serve]: base.en at batch 4 with TranscribeOptions() defaults (beam 5,
+# conditioned), six seeded requests of SERVE_SECONDS: the first SERVE_EARLY
+# submitted at once, the rest from a second client thread once the first
+# round has begun
+SERVE_BATCH = 4
+SERVE_SECONDS = (8, 12, 20, 35, 50, 65)
+SERVE_EARLY = 4
+SERVE_LABEL = f"{TRANSCRIBE_MODEL} serve b{SERVE_BATCH} beam5"
+# the f32 pass: three requests with a two-rung ladder, the last submitted once
+# the first round has begun, so that rows at both rungs share rounds; each
+# call is cut to SERVE_F32_SAMPLE_LEN tokens for the script's time (every
+# call is replayed through the plain path, every request sequentially)
+SERVE_F32_SECONDS = (8, 20, 35)
+SERVE_F32_LADDER = (0.0, 1.0)
+SERVE_F32_SAMPLE_LEN = 64
+# [int8 matmul]: the int8×int8 linears at base.en's shapes, (label, rows M,
+# in K, out N); and the path, base.en b128 greedy with int8 weights and K/V
+INT8_MM_SHAPES = tuple(
+    (f"{where} {name}", m, k, n)
+    for where, m in (("encoder b128", 128 * 1500), ("step b128", 128), ("step b5", 5))
+    for name, k, n in (("q/k/v/out", 512, 512), ("fc1", 512, 2048), ("fc2", 2048, 512)))
+INT8_MM_LABEL = f"{TRANSCRIBE_MODEL} b128 int8x8"
+INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core OP/s (NVIDIA data sheet)
+# [eval]: the keys of the JAX tool's verdict (tools/validate_checkpoint.py)
+VERDICT_KEYS = {
+    "checkpoint", "model_dims", "n_utterances", "decode", "dtype", "recipe", "wer",
+    "audio_s_per_s", "wer_ok", "wer_int8", "delta_wer_int8", "int8_ok", "wer_int8_kv",
+    "delta_wer_int8_kv", "int8_kv_ok", "wer_int8_matmul", "delta_wer_int8_matmul",
+    "int8_matmul_ok", "word_timing", "language_id", "ok",
+}
+
+
+def kernel_checks_serve(rows: dict) -> None:
+    """The kernels at the serving engine's shapes, into ``rows``: every
+    kernel at base.en batch 4, beam 5 (the encoder kernels at 4 windows, the
+    cross and beam kernels at A 4, G 5, the MLP at 20 rows), and the append
+    kernel at 20 rows (the ladder's best-of-5 sampling rungs at batch 4)."""
+    dims = dims_for(TRANSCRIBE_MODEL)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    serve = rows[SERVE_LABEL] = kernel_checks(dims, SERVE_BATCH, (torch.bfloat16,), group=5)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] serve sampling rungs: self_attention_append_step ({tag}, "
+              f"{SERVE_BATCH * 5} rows)", flush=True)
+        serve["self_attention_append_step"][tag] = check_step_attention(
+            dims, SERVE_BATCH * 5, 1, dtype, randn, gen)
+
+
+def seeded_audio(seconds, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in seconds]
+
+
+@contextlib.contextmanager
+def serving_recorded(engine, margins: bool = False, keep_inputs: bool = False):
+    """``recorded_calls`` of an engine's decode calls, each call also with the
+    request ids of its real rows in order (``rids``) and, with
+    ``keep_inputs``, its task, mel and prompts; and the engine's rounds, the
+    index of each round's first call and its requests (``rounds``: a list
+    of (first call, request ids)).  The engine admits no request until
+    ``gate`` is set, so that requests submitted before it share the first
+    round.  Yields (calls, rounds, gate, started), the last an Event set when
+    the first round begins."""
+    rounds, gate, started = [], threading.Event(), threading.Event()
+    decode_round, admit = engine._decode_round, engine._admit_locked
+    with recorded_calls(margins) as calls:
+        recording = decode_task_module.DecodeTask.run_batch
+
+        def run_batch(task, mel, prompts, temperature=None):
+            rids = [j.handle.request_id for j in engine._active
+                    if j is not None and rung_key(engine.options, j.temp_idx) == temperature]
+            # a prompt is its job's token list, which grows after the call
+            inputs = dict(task=task, mel=mel.clone(),
+                          prompts=[None if p is None else list(p) for p in prompts])
+            out = recording(task, mel, prompts, temperature=temperature)
+            calls[-1]["rids"] = rids
+            if keep_inputs:
+                calls[-1].update(inputs)
+            return out
+
+        def round_(jobs):
+            rounds.append((len(calls), sorted(j.handle.request_id for _, j in jobs)))
+            started.set()
+            return decode_round(jobs)
+
+        decode_task_module.DecodeTask.run_batch = run_batch
+        engine._decode_round = round_
+        engine._admit_locked = lambda: admit() if gate.is_set() else None
+        try:
+            yield calls, rounds, gate, started
+        finally:
+            del engine._decode_round, engine._admit_locked
+            decode_task_module.DecodeTask.run_batch = recording
+
+
+def request_calls(calls, rid=None) -> list:
+    """The calls of one request as batch-1 calls, candidates from each call's
+    sample_begin (the prefill bucket, set by the batch's longest prompt):
+    ``rid`` None for calls that are one request's already (sequential)."""
+    out = []
+    for c in calls:
+        a = 0 if rid is None else c["rids"].index(rid) if rid in c["rids"] else None
+        if a is None:
+            continue
+        sb = c["sample_begin"]
+        one = dict(c, candidates=c["candidates"][a:a + 1, :, sb:], sample_begin=0,
+                   outputs=[c["outputs"][a]])
+        out.append(one)
+    return out
+
+
+def trimmed(kernel: list, plain: list):
+    """The two sides' candidates cut to one length (a request's prompt, and so
+    its room in the context, differs between a batch and a sequential run)."""
+    for k, p in zip(kernel, plain):
+        n = min(k["candidates"].shape[-1], p["candidates"].shape[-1])
+        k["candidates"], p["candidates"] = k["candidates"][..., :n], p["candidates"][..., :n]
+    return kernel, plain
+
+
+def serve_phase() -> dict:
+    """[serve] ``ServingEngine`` at base.en, full width and depth, seed-0
+    weights, the port's Tokenizer, batch 4, after ``warmup()``.  (a) bf16,
+    ``TranscribeOptions()`` defaults, six requests (SERVE_SECONDS), four
+    at once and two from a second client thread once the first round has
+    begun: every call of 4 rows; a round holding a late request beside an
+    early one; every handle resolved, its partial segments equal to its
+    output; stats consistent (submitted 6, completed 6, failed 0, the
+    windows decoded and the utilisation over the calls); every kernel's
+    launches as ``recipe_launches`` counts over the calls, the mel kernel
+    once a request.  Prints audio-s/s (first submit to last result),
+    latency p50 and p95, rounds, utilisation, ms a step.  (b) f32, three
+    requests (SERVE_F32_SECONDS) with the ladder SERVE_F32_LADDER, the last
+    submitted once the first round has begun: a round with calls at both
+    rungs; each call replayed through the plain path on the same inputs
+    (``compare_calls``); each request's calls against the port's sequential
+    ``TranscribeTask`` on the card by the same rule.  Returns the bf16
+    run's launches."""
+    dims = dims_for(TRANSCRIBE_MODEL)
+    tok = Tokenizer.for_dims(dims)
+    audios = seeded_audio(SERVE_SECONDS, 51)
+    print(f"[serve] {card_line()}: {TRANSCRIBE_MODEL} full width and depth, bf16, "
+          f"ServingEngine batch {SERVE_BATCH}, TranscribeOptions() defaults; requests of "
+          f"{SERVE_SECONDS} s, {SERVE_EARLY} at once, {len(SERVE_SECONDS) - SERVE_EARLY} from a "
+          f"second client", flush=True)
+    model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+    engine = ServingEngine(model, tok, TranscribeOptions(), batch_size=SERVE_BATCH)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    print(f"  warmup (build_all, a padded call unprompted and one at the 232 bucket): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    late = []
+    with serving_recorded(engine) as (calls, rounds, gate, started):
+        reset_launches()
+
+        def second_client():
+            if started.wait(timeout=600):
+                late.extend(engine.submit(a) for a in audios[SERVE_EARLY:])
+
+        client = threading.Thread(target=second_client)
+        client.start()
+        t_first = time.perf_counter()
+        early = [engine.submit(a) for a in audios[:SERVE_EARLY]]
+        gate.set()
+        client.join(timeout=600)
+        if client.is_alive() or len(late) != len(SERVE_SECONDS) - SERVE_EARLY:
+            raise AssertionError("serve: the second client did not submit")
+        handles = early + late
+        outs = [h.result(timeout=600) for h in handles]
+        t_last = max(h.finished_at for h in handles)
+        if not engine.drain(timeout=600):
+            raise AssertionError("serve: the engine did not drain")
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        stats = engine.stats()
+    engine.close()
+    odd = [c["rows"] for c in calls if c["rows"] != SERVE_BATCH]
+    if not calls or odd:
+        raise AssertionError(f"serve: {len(calls)} calls, {len(odd)} not of {SERVE_BATCH} rows")
+    early_ids = {h.request_id for h in early}
+    late_ids = {h.request_id for h in late}
+    if rounds[0][1] != sorted(early_ids):
+        raise AssertionError(f"serve: the first round holds {rounds[0][1]}, not the early "
+                             f"requests {sorted(early_ids)}")
+    if not any(early_ids & set(r) and late_ids & set(r) for _, r in rounds):
+        raise AssertionError(f"serve: no round holds a late request beside an early one: "
+                             f"{rounds}")
+    for h, out in zip(handles, outs):
+        if h.segments_so_far() != out.segments or not out.segments:
+            raise AssertionError(f"serve: request {h.request_id}: no segments, or partial "
+                                 "segments unlike its output")
+        if not np.isfinite(out.avg_logprobs).all():
+            raise AssertionError(f"serve: request {h.request_id}: a non-finite avg_logprob")
+    windows = sum(len(o.avg_logprobs) for o in outs)
+    want = {"submitted": 6, "completed": 6, "failed": 0, "queued": 0, "active": 0,
+            "window_batches": len(calls), "windows_decoded": windows}
+    if ({k: stats[k] for k in want} != want
+            or abs(stats["batch_utilization"] - windows / (SERVE_BATCH * len(calls))) > 1e-12):
+        raise AssertionError(f"serve: stats {stats}, expected {want}")
+    check_route_counts("bf16 serve", launches, recipe_launches(dims, calls, len(SERVE_SECONDS)))
+    steps = sum(c["steps"] for c in calls)
+    print(f"  bf16: {len(SERVE_SECONDS)} requests, {windows} windows (by request "
+          f"{[len(o.avg_logprobs) for o in outs]}) in {len(rounds)} rounds of "
+          f"{len(calls)} calls of {SERVE_BATCH} rows; rounds' requests {[r for _, r in rounds]} "
+          f"(early {sorted(early_ids)}, late {sorted(late_ids)}); utilisation "
+          f"{stats['batch_utilization']:.3f}; {sum(SERVE_SECONDS) / (t_last - t_first):.2f} "
+          f"audio-s/s from the first submit to the last result ({t_last - t_first:.3f} s); "
+          f"latency p50 {stats['latency_p50']:.3f} s, p95 {stats['latency_p95']:.3f} s; "
+          f"decode {stats['decode_seconds']:.3f} s over {steps} steps, "
+          f"{stats['decode_seconds'] / steps * 1e3:.2f} ms a step", flush=True)
+    print(f"  launches (checked against recipe_launches, the mel kernel once a request): "
+          f"{launches}", flush=True)
+    del model, engine
+    torch.cuda.empty_cache()
+
+    # (b) f32: the ladder, the plain replay of every call, the sequential task
+    options = TranscribeOptions(decode=DecodeOptions(sample_len=SERVE_F32_SAMPLE_LEN),
+                                temperatures=SERVE_F32_LADDER)
+    audios = seeded_audio(SERVE_F32_SECONDS, 52)
+    print(f"[serve] f32, temperatures {SERVE_F32_LADDER} (beam 5 at rung 0, best-of-5 "
+          f"sampling above), sample_len {SERVE_F32_SAMPLE_LEN}; requests of {SERVE_F32_SECONDS} "
+          f"s, the last once the first round has begun", flush=True)
+    model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    engine = ServingEngine(model, tok, options, batch_size=SERVE_BATCH)
+    with serving_recorded(engine, keep_inputs=True) as (calls, rounds, gate, started):
+        reset_launches()
+        handles = [engine.submit(a) for a in audios[:-1]]
+        gate.set()
+        if not started.wait(timeout=600):
+            raise AssertionError("serve f32: no round began")
+        handles.append(engine.submit(audios[-1]))
+        outs = [h.result(timeout=600) for h in handles]
+        engine.drain(timeout=600)
+        torch.cuda.synchronize()
+        launches_f32 = dict(LAUNCHES)
+    engine.close()
+    check_route_counts("f32 serve", launches_f32,
+                       recipe_launches(dims, calls, len(SERVE_F32_SECONDS)))
+    bounds = [i for i, _ in rounds] + [len(calls)]
+    mixed = [r for r, (i, j) in enumerate(zip(bounds, bounds[1:]))
+             if len({c["temperature"] for c in calls[i:j]}) > 1]
+    if not mixed:
+        raise AssertionError(f"serve f32: no round ran both rungs: {rounds}")
+    print(f"  f32: {len(calls)} calls in {len(rounds)} rounds, rungs by round "
+          f"{[[c['temperature'] or 0.0 for c in calls[i:j]] for i, j in zip(bounds, bounds[1:])]}"
+          f"; requests by call {[c['rids'] for c in calls]}", flush=True)
+    compared = 0
+    for i, c in enumerate(calls):
+        c["task"].kernels = False
+        with recorded_calls(margins=True) as plain:
+            c["task"].run_batch(c["mel"], c["prompts"], temperature=c["temperature"])
+        c["task"].kernels = True
+        compared += compare_calls(f"f32 serve call {i} (T {c['temperature'] or 0.0}, requests "
+                                  f"{c['rids']}), kernel path against plain", [c], plain)
+    print(f"  f32: {compared} of {len(calls)} calls equal to the plain path on their inputs "
+          f"(the rest stopped below the margin)", flush=True)
+    for h, audio, seconds in zip(handles, audios, SERVE_F32_SECONDS):
+        with recorded_calls(margins=True) as seq:
+            want_out = TranscribeTask(model, tok, options).run(audio)
+        got, ref = trimmed(request_calls(calls, h.request_id), request_calls(seq))
+        what = f"f32 serve request {h.request_id} ({seconds} s) against sequential"
+        if compare_calls(what, got, ref):
+            out = outs[handles.index(h)]
+            if ([(s.seek, s.text) for s in out.segments]
+                    != [(s.seek, s.text) for s in want_out.segments]):
+                raise AssertionError(f"{what}: segments differ")
+            print(f"  {what}: {len(got)} calls (rungs {[c['temperature'] or 0.0 for c in got]})"
+                  f" equal, {len(out.segments)} segments equal", flush=True)
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_matmul_phase(rows: dict, int8_summary: dict) -> dict:
+    """[int8 matmul] With ``WHISPER_INT8_MATMUL=1``: (a) the int8 linear
+    (``quantize_rows``, ``torch._int_mm``, the f32 epilogue) at base.en's
+    shapes (INT8_MM_SHAPES: the encoder's at 128 x 1500 rows, a step's at
+    128 and at 5 rows, the M <= 16 case) bit-equal to its plain version
+    (the exact float64 product) on the card, timed beside ``_int_mm``
+    alone, ``QuantLinear``'s cast-and-matmul (the switch off) and a bf16
+    ``F.linear``; whether the installed torch refuses ``_int_mm`` at 5 rows.
+    (b) The path, base.en b128 greedy with int8 weights and K/V and the
+    switch on: f32 parity at full depth (``parity_routes``, INT8_LOGIT_TOL),
+    then bf16 timed once and profiled, beside the base.en b128 int8 path's
+    ``int8_summary``.  Returns the bf16 run's launches."""
+    from whisper_rs_tpu_torch.models.whisper import (
+        QuantLinear,
+        int8_dot,
+        int8_matmul_enabled,
+        int8_mm_plain,
+        int_mm_rows,
+        quantize_rows,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    probe = torch.zeros(5, 64, dtype=torch.int8, device=dev)
+    try:
+        torch._int_mm(probe, torch.zeros(64, 8, dtype=torch.int8, device=dev))
+        refused = "takes 5 rows"
+    except RuntimeError as e:
+        refused = f"refuses 5 rows ({str(e).splitlines()[0][:80]})"
+    print(f"[int8 matmul] {card_line()}: torch {torch.__version__}: torch._int_mm {refused}; "
+          f"the port pads fewer than 17 rows with zero rows", flush=True)
+    previous = os.environ.get("WHISPER_INT8_MATMUL")
+    os.environ["WHISPER_INT8_MATMUL"] = "1"
+    try:
+        if not int8_matmul_enabled():
+            raise AssertionError("int8 matmul: the switch does not read as on")
+        for label, M, K, N in INT8_MM_SHAPES:
+            lin = QuantLinear(K, N).to(dev)
+            with torch.no_grad():
+                w = torch.randn(N, K, generator=gen, device=dev) * K**-0.5
+                values, scale = quantize_kv(w)
+                lin.weight.copy_(values)
+                lin.scale.copy_(scale)
+                lin.bias.copy_(torch.randn(N, generator=gen, device=dev) * 0.1)
+            lin = lin.to(torch.bfloat16)
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            xq, s_x = quantize_rows(x)
+            got = int8_dot(xq, s_x, lin, torch.bfloat16)
+            acc = int8_mm_plain(xq, lin.weight)
+            want = ((acc.float() * s_x * lin.scale.float()) + lin.bias.float()).to(torch.bfloat16)
+            if not torch.equal(got, want) or not torch.equal(lin(x), want):
+                raise AssertionError(f"int8 matmul {label}: not bit-equal to the plain product")
+            big = M * N > 1e7  # calls over a millisecond: timed eagerly
+            reps = 5 if big else 50
+            w_bf16 = lin.weight.to(torch.bfloat16) * lin.scale[:, None]
+            ms = timed_ms(lambda: lin(x), reps, graph=not big)
+            mm_ms = timed_ms(lambda: int_mm_rows(xq, lin.weight), reps, graph=not big)
+            os.environ["WHISPER_INT8_MATMUL"] = "0"
+            cast_ms = timed_ms(lambda: lin(x), reps, graph=not big)
+            os.environ["WHISPER_INT8_MATMUL"] = "1"
+            lib_ms = timed_ms(lambda: F.linear(x, w_bf16, lin.bias), reps, graph=not big)
+            # x bf16 read, w int8 read, y bf16 written; 2 M K N int8 operations
+            t_bytes, t_ops = (2 * M * K + N * K + 2 * M * N) / MEM_BW, 2 * M * K * N / INT8_PEAK_OPS
+            bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                                              else "operations")
+            print(f"  {label} [{M}, {K}] x [{K}, {N}]: bit-equal to the plain product; int8 "
+                  f"linear {ms:.4f} ms (_int_mm alone {mm_ms:.4f}) | switch off, cast and "
+                  f"matmul {cast_ms:.4f} ms | bf16 F.linear {lib_ms:.4f} ms | int8 bound "
+                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+            del lin, x, xq, s_x, got, acc, want, w_bf16
+            torch.cuda.empty_cache()
+
+        dims = dims_for(TRANSCRIBE_MODEL)
+        parity_routes(dims, f"{TRANSCRIBE_MODEL} full width, int8×int8 matmuls on",
+                      routes=("append",), int8=True, tol=INT8X8_LOGIT_TOL)
+        summary = {}
+        launches = e2e(dims, TRANSCRIBE_MODEL, 128, int8_weights=True, int8_kv=True, reps=1,
+                       summary=summary)
+    finally:
+        if previous is None:
+            os.environ.pop("WHISPER_INT8_MATMUL", None)
+        else:
+            os.environ["WHISPER_INT8_MATMUL"] = previous
+    print(f"[int8 matmul] {card_line()}: base.en b128 int8 weights and K/V, bf16: switch on "
+          f"{summary['ms_step']:.2f} ms a step, {summary['audio_s_per_s']:.2f} audio-s/s, "
+          f"{summary.get('launches_per_pass', float('nan')):.1f} launches and "
+          f"{summary.get('busy_ms_per_pass', float('nan')):.3f} ms device busy a pass; switch "
+          f"off (the int8 path above) {int8_summary['ms_step']:.2f} ms a step, "
+          f"{int8_summary['audio_s_per_s']:.2f} audio-s/s, "
+          f"{int8_summary.get('launches_per_pass', float('nan')):.1f} launches and "
+          f"{int8_summary.get('busy_ms_per_pass', float('nan')):.3f} ms a pass", flush=True)
+    rows[INT8_MM_LABEL] = rows[int8_label(*INT8_PATHS[0][:3])]
+    return launches
+
+
+def seeded_checkpoint() -> pathlib.Path:
+    """An OpenAI-format checkpoint of base.en with seed-0 weights, written
+    once under ARTIFACTS."""
+    dims = dims_for(TRANSCRIBE_MODEL)
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    ckpt = ARTIFACTS / f"{TRANSCRIBE_MODEL}-seed0.pt"
+    if not ckpt.exists():
+        torch.save({"dims": dataclasses.asdict(dims),
+                    "model_state_dict": init_random(dims, 0, device="cpu").state_dict()}, ckpt)
+    return ckpt
+
+
+def eval_phase() -> None:
+    """[eval] The evaluation tools on the card: a synthetic LibriSpeech split
+    (two seeded 2 s FLACs and a trans.txt, as the JAX tools' tests write
+    it) and the seeded base.en checkpoint.  ``validate_checkpoint`` (greedy,
+    batch 2, 16 tokens a window, the recipe) must print a verdict with
+    every key of the JAX tool's and return 3 (random weights fail the
+    quality gates); ``eval_wer`` (greedy, batch 2, one pass a window) must
+    return 0 and print a WER."""
+    import io
+
+    from whisper_rs_tpu_torch.tools import eval_wer, validate_checkpoint
+
+    split = ARTIFACTS / "librispeech" / "test-clean"
+    d = split / "19" / "198"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in range(2):
+        utt = f"19-198-{i:04d}"
+        audio = (rng.standard_normal(16000 * 2) * 0.1).astype(np.float32)
+        (d / f"{utt}.flac").write_bytes(encode_flac(audio, 16000))
+        lines.append(f"{utt} HELLO WORLD NUMBER {i}")
+    (d / "19-198.trans.txt").write_text("\n".join(lines))
+    ckpt = seeded_checkpoint()
+
+    def run(tool, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(argv)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    rc, text, wall = run(validate_checkpoint, [
+        "--checkpoint", str(ckpt), "--librispeech", str(split), "--greedy", "--batch", "2",
+        "--sample-len", "16"])
+    verdict = json.loads(text.strip().splitlines()[-1])
+    if rc != 3 or set(verdict) != VERDICT_KEYS or verdict["ok"]:
+        raise AssertionError(f"validate_checkpoint: exit code {rc}, keys "
+                             f"{sorted(set(verdict) ^ VERDICT_KEYS)} apart, ok {verdict['ok']}")
+    print(f"[eval] {card_line()}: validate_checkpoint on the card: exit 3 (random weights fail the gates), "
+          f"every key of the JAX tool's verdict; {wall:.2f} s; verdict {json.dumps(verdict)}",
+          flush=True)
+    rc, text, wall = run(eval_wer, ["--checkpoint", str(ckpt), "--librispeech", str(split),
+                                    "--greedy", "--batch", "2", "--no-recipe"])
+    line = next((x for x in text.splitlines() if x.startswith("WER:")), None)
+    if rc != 0 or line is None:
+        raise AssertionError(f"eval_wer: exit code {rc}, output {text[-200:]!r}")
+    print(f"[eval] eval_wer on the card: exit 0; {line}; {wall:.2f} s", flush=True)
+
+
 # substrings of the device kernel names of the port's own kernels
 OWN_KERNELS = {
     "log_mel_kernel": "log_mel",
@@ -2954,15 +3446,19 @@ def device_launches(fn, warmup: int = 2) -> int:
     return sum(e.count for e in events)
 
 
-def profile_run(run, audio, what: str, passes: int = 0) -> None:
+def profile_run(run, audio, what: str, passes: int = 0) -> dict:
     """One more run of the e2e batch under torch.profiler: its wall time, its
     device busy time (the sum of kernel durations; one stream, so kernels do
     not overlap) and idle share, device time by kind, the top kernels, and
     (given its ``passes`` width-1 decoder passes) its device launches a
-    pass."""
+    pass.  Returns those numbers (empty where the trace holds no device
+    time).  The profiler records the device's activity alone: with the
+    host's operators too, processing the trace took twice as long (15.3
+    against 7.0 s at base.en b128, H100 80GB HBM3, 700 W) for the same
+    device numbers."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(audio)
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2973,12 +3469,14 @@ def profile_run(run, audio, what: str, passes: int = 0) -> None:
     ]
     if not events:
         print("[profile] the trace holds no device time: not measured", flush=True)
-        return
+        return {}
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1 - busy_ms / wall_ms}
     print(f"[profile] {what} under torch.profiler: wall {wall_ms:.1f} ms; "
           f"device busy {busy_ms:.1f} ms; idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     if passes:
         n = sum(e.count for e in events)
+        out.update(launches_per_pass=n / passes, busy_ms_per_pass=busy_ms / passes)
         print(f"  device launches (kernels and copies): {n} in all, {n / passes:.1f} a width-1 "
               f"decoder pass over {passes} (the encoder's and prefill's included); device busy "
               f"{busy_ms / passes:.3f} ms a pass", flush=True)
@@ -2991,6 +3489,7 @@ def profile_run(run, audio, what: str, passes: int = 0) -> None:
     print("  top kernels by device time:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+    return out
 
 
 KERNELS = {
@@ -3138,6 +3637,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_checks_recipe(rows)
     phase_done("kernels recipe and CLI shapes", t0)
+    t0 = time.perf_counter()
+    kernel_checks_serve(rows)
+    phase_done("kernels serving shapes", t0)
 
     for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
@@ -3176,10 +3678,12 @@ def main() -> int:
     by_route = e2e_routes(dims_for(routes_model), routes_model, routes_batch)
     launches[layer_label], launches[ctx_label] = by_route["layer"], by_route["ctx"]
     phase_done(f"e2e {routes_label} routes", t0)
+    int8_summary = {}
     for m, b, beam, int8_weights in INT8_PATHS:
         t0 = time.perf_counter()
-        launches[int8_label(m, b, beam)] = e2e(dims_for(m), m, b, beam, int8_weights=int8_weights,
-                                               int8_kv=True)
+        launches[int8_label(m, b, beam)] = e2e(
+            dims_for(m), m, b, beam, int8_weights=int8_weights, int8_kv=True,
+            summary=int8_summary if (m, b, beam) == INT8_PATHS[0][:3] else None)
         phase_done(f"e2e {int8_label(m, b, beam)}", t0)
     t0 = time.perf_counter()
     launches[TRANSCRIBE_LABEL] = transcribe_main_path()
@@ -3190,6 +3694,15 @@ def main() -> int:
     t0 = time.perf_counter()
     launches[CLI_LABEL] = cli_phase()
     phase_done("cli", t0)
+    t0 = time.perf_counter()
+    launches[SERVE_LABEL] = serve_phase()
+    phase_done("serve", t0)
+    t0 = time.perf_counter()
+    launches[INT8_MM_LABEL] = int8_matmul_phase(rows, int8_summary)
+    phase_done("int8 matmul", t0)
+    t0 = time.perf_counter()
+    eval_phase()
+    phase_done("eval", t0)
 
     # each kernel's headline numbers come from the path of the slice that
     # runs it: the whole-step kernel's from the layer route, the fused
@@ -3207,7 +3720,8 @@ def main() -> int:
                + [int8_label(*path[:3]) for path in INT8_PATHS]
                + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"]
                + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL,
-                                       MLP_TILES_LABEL, G10_LABEL, RECIPE_LABEL, CLI_LABEL])
+                                       MLP_TILES_LABEL, G10_LABEL, RECIPE_LABEL, CLI_LABEL,
+                                       SERVE_LABEL, INT8_MM_LABEL])
     extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "phase_bound_us",
                   "phase_gbps", "library_call", "read_only_ms", "column_write_ms",
                   "cold_ms", "library_cold_ms", "bit_identical", "plan", "one_window",

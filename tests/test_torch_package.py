@@ -58,6 +58,85 @@ def test_every_cuda_source_is_built():
     assert all(p.parent == build.BUILD_DIR for p in paths)
 
 
+def test_one_build_and_load_of_a_library_under_threads(tmp_path, monkeypatch):
+    """Two threads that ask for one library at once run one compile and load
+    it once: ``_nvcc`` is a stub that writes its ``-o`` file slowly and
+    counts its runs, ``ctypes.CDLL`` a stand-in that checks the file."""
+    import threading
+    import types
+
+    from whisper_rs_tpu_torch.ops import build
+
+    runs = tmp_path / "runs"
+    stub = tmp_path / "nvcc"
+    stub.write_text(f"""#!{sys.executable}
+import sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+with open({str(runs)!r}, "a") as f:
+    f.write(out + "\\n")
+time.sleep(0.5)
+with open(out, "w") as f:
+    f.write("library")
+""")
+    stub.chmod(0o755)
+    loaded = []
+
+    def fake_cdll(path):
+        assert pathlib.Path(path).read_text() == "library"
+        loaded.append(path)
+        return types.SimpleNamespace(kernel_error_string=types.SimpleNamespace())
+
+    monkeypatch.setattr(build, "_nvcc", lambda: str(stub))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", fake_cdll)
+    start = threading.Barrier(2)
+    got = []
+
+    def ask():
+        start.wait(timeout=30)
+        got.append(build._library("mel"))
+
+    threads = [threading.Thread(target=ask) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and len(got) == 2
+    assert got[0] is got[1]
+    assert len(runs.read_text().splitlines()) == 1 and loaded == [str(build.library_path("mel"))]
+    assert build.library_path("mel").exists()
+    assert not list((tmp_path / "build").glob("*.tmp"))  # named by process and thread
+
+
+def test_launch_counts_lose_nothing_under_threads():
+    """count_launch is a locked read-modify-write: 16 threads adding to one
+    key with the interpreter switching threads every microsecond lose no
+    count."""
+    import threading
+
+    from whisper_rs_tpu_torch.ops import LAUNCHES, count_launch
+
+    before = dict(LAUNCHES)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [count_launch("log_mel")
+                                                    for _ in range(2000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert LAUNCHES["log_mel"] - before["log_mel"] == 32000
+    assert {k: v for k, v in LAUNCHES.items() if k != "log_mel"} == {
+        k: v for k, v in before.items() if k != "log_mel"}
+    LAUNCHES["log_mel"] = before["log_mel"]
+
+
 DIMS_KW = dict(
     n_mels=80, n_vocab=100, n_audio_ctx=1500, n_audio_state=64, n_audio_head=4,
     n_audio_layer=1, n_text_ctx=448, n_text_state=64, n_text_head=4, n_text_layer=1,
@@ -77,6 +156,9 @@ def _entry_points():
         params_from_state_dict,
     )
     from whisper_rs_tpu_torch.ops.mel import log_mel_frontend
+    from whisper_rs_tpu_torch.serve import ServingEngine
+    from whisper_rs_tpu_torch.tokenize import Tokenizer
+    from whisper_rs_tpu_torch.tools import eval_wer, validate_checkpoint
 
     dims = ModelDims(**DIMS_KW)
     missing = ROOT / "no-such-checkpoint"  # the device is resolved before any read
@@ -90,6 +172,11 @@ def _entry_points():
         "load_params": lambda: load_params(missing),
         "load_checkpoint": lambda: load_checkpoint(missing),
         "cli": lambda: cli.main([str(missing), "--checkpoint", str(missing)]),
+        "ServingEngine": lambda: ServingEngine(init_random(dims, 0), Tokenizer()),
+        "eval_wer": lambda: eval_wer.main(["--checkpoint", str(missing),
+                                           "--librispeech", str(missing)]),
+        "validate_checkpoint": lambda: validate_checkpoint.main([
+            "--checkpoint", str(missing), "--librispeech", str(missing)]),
     }
 
 
@@ -98,7 +185,7 @@ def _entry_points():
     [
         "resolve_device", "log_mel_frontend", "init_random", "params_from_state_dict",
         "load_openai_checkpoint", "load_hf_checkpoint", "load_params", "load_checkpoint",
-        "cli",
+        "cli", "ServingEngine", "eval_wer", "validate_checkpoint",
     ],
 )
 def test_entry_points_without_device_raise_when_cuda_is_absent(name, monkeypatch):
@@ -123,9 +210,12 @@ def _meta_calls():
     )
     from whisper_rs_tpu_torch.ops.encoder_fused import ln_fused, residual_ln
     from whisper_rs_tpu_torch.ops.mel import raw_log10_mel
+    from whisper_rs_tpu_torch.models.whisper import int8_mm
 
     m = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
     return {
+        "int8_mm": lambda: int8_mm(torch.empty(5, 64, dtype=torch.int8, device="meta"),
+                                   torch.empty(32, 64, dtype=torch.int8, device="meta")),
         "encoder_attention_split": lambda: encoder_attention_split(
             m(1, 3, 8, 16), m(1, 3, 8, 16), m(1, 3, 8, 16), 0.25
         ),
@@ -168,6 +258,7 @@ def _meta_calls():
         "cross_attention_step", "self_attention_append_step", "beam_self_attention_step",
         "decoder_mlp_step", "self_attention_fused_step", "decoder_step_fused",
         "self_attention_step", "encoder_attention_split", "cross_attention_step_g10",
+        "int8_mm",
     ],
 )
 def test_wrappers_raise_off_the_cpu_without_a_kernel(name):

@@ -50,8 +50,14 @@ for the token table (the MLP of a step then stays the two int8 linears
 and GELU: the JAX package never sends int8 weights to its MLP kernel);
 ``KVCache.init(..., quantize=True)`` and ``precompute_cross_kv(...,
 quantize=True)`` keep int8 K/V with f32 per-position scales
-(``quantize_kv``).  The prefill and a beam step write their quantised K/V
-and scales with ``KVCache.write``; a greedy step hands its K/V column to
+(``quantize_kv``).  With ``WHISPER_INT8_MATMUL=1`` (the JAX package's
+switch, off by default, read at every call) an int8 linear also quantises
+its input rows (``quantize_rows``) and runs an s8×s8→s32 product
+(``int8_mm``: ``torch._int_mm`` on the card, exact integer sums on the
+CPU), both scales in an f32 epilogue (``int8_dot``); the encoder's q, k
+and v share one quantisation of their input.  The prefill and a beam step
+write their quantised K/V and scales with ``KVCache.write``; a greedy step
+hands its K/V column to
 ``self_attention_step`` (row 10) in the append kernel's place, which
 quantises and writes it, then reads the int8 cache; a beam step reads it
 through the beam kernel's int8 read; both take the cross kernel's int8
@@ -67,6 +73,7 @@ The KV cache is updated in place.  Its planes are ctx-major
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -88,7 +95,7 @@ from ..ops.decode_attention import (
     self_attention_step,
     self_attention_step_plain,
 )
-from ..ops import LAUNCHES
+from ..ops import count_launch
 from ..ops.decoder_layer_fused import (
     decoder_step_fused,
     decoder_step_fused_plain,
@@ -258,6 +265,71 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+# torch._int_mm on the card refuses M <= 16 in some releases: fewer rows are
+# padded with zero rows to this many (their int32 sums are exact and dropped)
+INT_MM_MIN_ROWS = 17
+
+
+def int8_matmul_enabled() -> bool:
+    """``WHISPER_INT8_MATMUL=1``: the int8 linears run s8×s8→s32 products on
+    dynamically quantised activation rows instead of casting their weights
+    (the JAX ``_int8_matmul_enabled``; off by default until
+    ``tools.validate_checkpoint`` passes its ΔWER gate on real weights)."""
+    return os.environ.get("WHISPER_INT8_MATMUL", "0") == "1"
+
+
+def quantize_rows(x: torch.Tensor):
+    """[..., K] -> (int8 [..., K], f32 scale [..., 1]): one symmetric scale a
+    row, ``s = max(amax |row|, 1e-8) / 127`` and ``clip(round(x / s), -127,
+    127)`` rounded half to even (the JAX ``_quantize_rows``, which is
+    ``quantize_kv`` with the scale's trailing 1)."""
+    xq, scale = quantize_kv(x)
+    return xq, scale[..., None]
+
+
+def int8_mm_plain(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xq int8 [M, K] @ w int8 [N, K]^T -> int32 [M, N], exactly: a float64
+    product, whose sums of at most 127^2 K stay below 2^53."""
+    return (xq.double() @ w.double().T).to(torch.int32)
+
+
+def int8_mm(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The s8×s8→s32 product of ``int8_mm_plain``: on the card
+    ``torch._int_mm(xq, w.T)`` (cuBLASLt; ``w.T`` is the column-major [K, N]
+    operand it takes, no copy), with fewer than INT_MM_MIN_ROWS rows padded
+    by zero rows; on the CPU the plain version.  Raises on the card where K
+    or N is not a multiple of 8, and on any other device."""
+    if xq.device.type == "cpu":
+        return int8_mm_plain(xq, w)
+    if xq.device.type != "cuda":
+        raise ValueError(f"int8_mm: unsupported device {xq.device}")
+    if xq.shape[1] % 8 or w.shape[0] % 8:
+        raise ValueError(f"int8_mm: K {xq.shape[1]} and N {w.shape[0]} must be multiples of 8 "
+                         "on the card")
+    return int_mm_rows(xq, w)
+
+
+def int_mm_rows(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm(xq, w.T)``, fewer than INT_MM_MIN_ROWS rows padded with
+    zero rows and sliced off again."""
+    M = xq.shape[0]
+    if M < INT_MM_MIN_ROWS:
+        return torch._int_mm(F.pad(xq, (0, 0, 0, INT_MM_MIN_ROWS - M)), w.T)[:M]
+    return torch._int_mm(xq, w.T)
+
+
+def int8_dot(xq: torch.Tensor, s_x: torch.Tensor, lin: "QuantLinear",
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 linear on quantised rows (``quantize_rows``): the int32 sums
+    of ``int8_mm``, then ``acc * s_x * s_w (+ b)`` in f32, in the JAX
+    ``_int8_dot``'s order, cast to ``out_dtype``."""
+    acc = int8_mm(xq.reshape(-1, xq.shape[-1]), lin.weight)
+    y = acc.view(*xq.shape[:-1], -1).float() * s_x * lin.scale.float()
+    if lin.bias is not None:
+        y = y + lin.bias.float()
+    return y.to(out_dtype)
+
+
 class QuantLinear(nn.Module):
     """An int8 weight-only linear, in ``nn.Linear``'s place where
     ``models.quantize.quantize_params`` puts it (the JAX ``linear`` with an
@@ -265,7 +337,8 @@ class QuantLinear(nn.Module):
     output channel, and ``bias`` in the compute dtype, all parameters
     without gradient (``.to(dtype)`` leaves the weight int8).  In the JAX
     order: ``x @ w.to(x.dtype).T``, then ``* s.to(x.dtype)``, then
-    ``+ b.to(x.dtype)``."""
+    ``+ b.to(x.dtype)``; with ``int8_matmul_enabled()``, ``int8_dot`` on
+    ``x``'s quantised rows."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -274,6 +347,8 @@ class QuantLinear(nn.Module):
         self.bias = _frozen(torch.empty(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if int8_matmul_enabled():
+            return int8_dot(*quantize_rows(x), self, x.dtype)
         y = (x @ self.weight.to(x.dtype).T) * self.scale.to(x.dtype)
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
@@ -303,10 +378,17 @@ class MultiHeadAttention(nn.Module):
         encoder routes it: on merged heads where ``merged_kernel_takes`` the
         shape (head dim 64, an even head count), else on split heads
         ([B, T, D] -> [B, H, T, dh] and back; views, which the split kernel
-        reads at their strides)."""
+        reads at their strides).  Int8 q, k and v linears under
+        ``int8_matmul_enabled()`` share one quantisation of ``x_ln`` (the
+        JAX ``_int8_qkv``)."""
         H = self.n_head
         dh = x_ln.shape[-1] // H
-        q, k, v = self.query(x_ln), self.key(x_ln), self.value(x_ln)
+        qkv = (self.query, self.key, self.value)
+        if all(isinstance(m, QuantLinear) for m in qkv) and int8_matmul_enabled():
+            xq, s_x = quantize_rows(x_ln)
+            q, k, v = (int8_dot(xq, s_x, m, x_ln.dtype) for m in qkv)
+        else:
+            q, k, v = (m(x_ln) for m in qkv)
         if merged_kernel_takes(H, dh):
             fn = encoder_attention_merged if kernels else encoder_attention_merged_plain
             return self.out(fn(q, k, v, H, dh**-0.5))
@@ -586,7 +668,7 @@ class TextDecoder(nn.Module):
                 B, cross_group, D // self.blocks[0].attn.n_head, cross_kv.kv.shape[-1],
                 cache.k.shape[3], D, x.element_size()):
             if kernels and dev.type != "cpu":
-                LAUNCHES["decoder_step_fused:append"] += 1
+                count_launch("decoder_step_fused:append")
             step_kernel = "append"
         if step_kernel == "layer":
             if step_weights is None:

@@ -11,11 +11,15 @@ route where the whole-step kernel refuses a step.
 
 ``LAUNCHES`` counts the launches of each wrapper, so a run can show that the
 main path went through the kernels; the wrapper adds one right after its
-launch and nowhere else.  ``"decoder_step_fused:append"`` counts the layer
-route's steps that took the append route instead.
+launch (``count_launch``) and nowhere else.  ``"decoder_step_fused:append"``
+counts the layer route's steps that took the append route instead.  The
+count is taken under a lock: the serving engine launches the mel kernel on
+its clients' threads while its own thread decodes.
 """
 
 from __future__ import annotations
+
+import threading
 
 LAUNCHES = {
     "log_mel": 0,
@@ -34,9 +38,19 @@ LAUNCHES = {
 }
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``; a read-modify-write, so under a lock."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def use_kernel(name: str, kernel_takes: bool, device) -> bool:

@@ -12,6 +12,11 @@ Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, sizes as ``c_int`` (strides that may pass 2^31 as
 ``c_longlong``), launches on that stream and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
+
+Threads of one process may ask for a library at once (the serving engine
+runs the mel kernel on its clients' threads): ``build_all`` and
+``_library`` run under one lock, so a library is compiled once and loaded
+once, and each temporary output is named by process and thread.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -57,10 +63,19 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+_LOCK = threading.RLock()  # one build-and-load at a time in this process
+_LOADED: dict = {}  # name -> ctypes.CDLL
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile every source whose library is missing, all nvcc processes at
     once.  Returns {name: seconds} for what was compiled; raises with the
     compiler's output if any build fails."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -68,7 +83,7 @@ def build_all(names=SOURCES) -> dict:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(
@@ -115,13 +130,19 @@ def ptxas_report(name: str) -> list:
     return rows
 
 
-@functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    build_all((name,))
-    lib = ctypes.CDLL(str(library_path(name)))
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+    """``lib<name>``, built where missing and loaded once in this process."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LOADED:
+            build_all((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LOADED[name] = lib
+        return _LOADED[name]
 
 
 @functools.lru_cache(maxsize=None)

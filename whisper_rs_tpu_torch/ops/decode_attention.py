@@ -68,7 +68,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES, use_kernel
+from . import count_launch, use_kernel
 from .build import I, P, check, kernel_function
 
 HEAD_DIMS = (16, 64)  # the head dims the CUDA step and cross kernels are built for
@@ -262,7 +262,7 @@ def self_attention_append_step(
     out = _window_launch("self_attention_append", plan, int(layer), int(pos), int(window), q=q,
                          k_new=k_new, v_new=v_new, k_all=k_all, v_all=v_all,
                          key_start=key_start, out=torch.empty_like(q))
-    LAUNCHES["self_attention_append_step"] += 1
+    count_launch("self_attention_append_step")
     return out
 
 
@@ -322,7 +322,7 @@ def self_attention_fused_step(
     plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
     out = _window_launch("self_attention_fused", plan, int(layer), int(pos), int(window), q=q,
                          k_all=k_all, v_all=v_all, key_start=key_start, out=torch.empty_like(q))
-    LAUNCHES["self_attention_fused_step"] += 1
+    count_launch("self_attention_fused_step")
     return out
 
 
@@ -355,7 +355,7 @@ def self_attention_step(
                          k_new=k_new, v_new=v_new, k_all=k_all, v_all=v_all,
                          k_scale=k_scale if scaled else None, v_scale=v_scale,
                          key_start=key_start, out=torch.empty_like(q))
-    LAUNCHES["self_attention_step"] += 1
+    count_launch("self_attention_step")
     return out
 
 
@@ -441,7 +441,7 @@ def beam_self_attention_step(
                          v_new=v_new, k_all=k_all, v_all=v_all, k_scale=k_scale,
                          v_scale=v_scale, key_start=key_start, anc_local=anc_local,
                          out=torch.empty_like(q))
-    LAUNCHES["beam_self_attention_step"] += 1
+    count_launch("beam_self_attention_step")
     return out
 
 
@@ -676,5 +676,5 @@ def cross_attention_step(
     out = _cross_launch(q, kv_all, out=torch.empty_like(q), layer=int(layer),
                         plan=cross_launch_plan(A, G, H, Tk, dh, kv_all.element_size()),
                         k_scale=k_scale if scaled else None, v_scale=v_scale)
-    LAUNCHES["cross_attention_step"] += 1
+    count_launch("cross_attention_step")
     return out

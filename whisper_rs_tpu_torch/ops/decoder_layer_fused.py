@@ -52,7 +52,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES
+from . import count_launch
 from .build import F, I, P, check, kernel_function
 from .decode_attention import NEG
 from .decoder_mlp_fused import gelu
@@ -442,5 +442,5 @@ def decoder_step_fused(
         err = fn(*args, bar.data_ptr(), None if clock is None else clock.data_ptr(), *shape,
                  stream)
     check("decoder_layer", symbol, err)
-    LAUNCHES["decoder_step_fused"] += 1
+    count_launch("decoder_step_fused")
     return out

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, use_kernel
+from . import count_launch, use_kernel
 from .build import I, P, check, kernel_function
 
 ROWS_A_BLOCK = 8  # weight rows a block of the f32 kernel: 4 warps of 2
@@ -139,5 +139,5 @@ def decoder_mlp_step(h, w1, b1, w2) -> torch.Tensor:
         fn = kernel_function("decoder_mlp", symbol, (P,) * 6 + (I, I, P))
         err = fn(*pointers, stream)
     check("decoder_mlp", symbol, err)
-    LAUNCHES["decoder_mlp_step"] += 1
+    count_launch("decoder_mlp_step")
     return out

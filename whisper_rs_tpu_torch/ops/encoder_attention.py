@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, use_kernel
+from . import count_launch, use_kernel
 from .build import F, I, I64, P, check, kernel_function
 
 HEAD_DIM = 64  # the merged kernel's
@@ -130,7 +130,7 @@ def encoder_attention_merged(
         float(sm_scale), nv, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check("encoder_attention", symbol, err)
-    LAUNCHES["encoder_attention_merged"] += 1
+    count_launch("encoder_attention_merged")
     return out
 
 
@@ -162,5 +162,5 @@ def encoder_attention_split(
         float(sm_scale), nv, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check("encoder_attention", symbol, err)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out

@@ -17,7 +17,7 @@ import importlib.util
 
 import torch
 
-from . import LAUNCHES
+from . import count_launch
 from .build import CSRC
 
 EPS = 1e-5
@@ -88,7 +88,7 @@ def residual_ln(x, delta, scale, bias, eps: float = EPS):
     y = torch.empty_like(x)
     ln = torch.empty_like(x)
     _launch(x, delta, scale, bias, y, ln, eps, has_residual=True)
-    LAUNCHES["residual_ln"] += 1
+    count_launch("residual_ln")
     return y, ln
 
 
@@ -100,5 +100,5 @@ def ln_fused(x, scale, bias, eps: float = EPS):
     _check(x, scale, bias)
     ln = torch.empty_like(x)
     _launch(x, x, scale, bias, ln, ln, eps, has_residual=False)
-    LAUNCHES["ln_fused"] += 1
+    count_launch("ln_fused")
     return ln

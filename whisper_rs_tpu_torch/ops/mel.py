@@ -28,7 +28,7 @@ import torch
 from ..audio.constants import HOP_LENGTH, N_FFT, N_FRAMES, N_SAMPLES
 from ..audio.mel import _dft_basis, hann_window, log_mel_spectrogram, mel_filterbank, reflect_pad
 from ..device import resolve_device
-from . import LAUNCHES
+from . import count_launch
 from .build import I, P, check, kernel_function
 
 PADDED_LEN = N_SAMPLES + N_FFT  # 480400 samples after centred reflect padding
@@ -185,7 +185,7 @@ def raw_log10_mel(padded: torch.Tensor, n_mels: int) -> torch.Tensor:
         torch.cuda.current_stream(padded.device).cuda_stream,
     )
     check("mel", "log_mel_f32", err)
-    LAUNCHES["log_mel"] += 1
+    count_launch("log_mel")
     return out
 
 

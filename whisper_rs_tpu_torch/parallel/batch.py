@@ -33,31 +33,22 @@ from ..models.whisper import Whisper
 from ..ops.mel import log_mel_file
 from ..tokenize import Tokenizer
 from ..transcribe import (
-    QUANTUM,
     TranscribeOutput,
-    TranscribeSegment,
-    assign_words,
-    needs_fallback,
-    process_window_result,
-    sampling_options,
-    should_skip_no_speech,
+    Utterance,
+    advance_window,
+    initial_prompt,
+    rung_key,
+    sampling_task,
 )
 
 
 @dataclasses.dataclass
-class _UttState:
-    mel: torch.Tensor  # [n_mels, n_frames] on the model's device
-    seek: int = 0
-    tokens: List[int] = dataclasses.field(default_factory=list)
-    segments: List[TranscribeSegment] = dataclasses.field(default_factory=list)
-    avg_logprobs: List[float] = dataclasses.field(default_factory=list)
-    no_speech_probs: List[float] = dataclasses.field(default_factory=list)
-    temp_idx: int = 0  # the ladder rung of the current window
+class _UttState(Utterance):
     error: Optional[Exception] = None
 
     @property
     def done(self) -> bool:
-        return self.error is not None or self.seek >= self.mel.shape[-1]
+        return self.error is not None or super().done
 
 
 class BatchTranscriber:
@@ -89,11 +80,7 @@ class BatchTranscriber:
         """The one task of every rung above 0 (``transcribe.sampling_options``),
         inheriting ``quantize_kv`` from the primary task."""
         if self._sampling_task_cache is None:
-            self._sampling_task_cache = DecodeTask(
-                self.model, self.tokenizer, sampling_options(self.options),
-                keep_audio_features=self.options.word_timestamps, kernels=self.kernels,
-                quantize_kv=getattr(self.decode_task, "quantize_kv", False),
-            )
+            self._sampling_task_cache = sampling_task(self.decode_task, self.options)
         return self._sampling_task_cache
 
     def _decode(self, task: DecodeTask, windows: list, prompts: list, temperature) -> list:
@@ -120,23 +107,10 @@ class BatchTranscriber:
         (None for a failed one where ``raise_on_error`` is False)."""
         opts = self.options
         input_stride = N_FRAMES // self.dims.n_audio_ctx
-        time_precision = input_stride * QUANTUM
-        ts_begin = self.tokenizer.token_id_ts_begin
-        if opts.initial_prompt_tokens is not None:
-            init_tokens = list(opts.initial_prompt_tokens)
-            condition = True
-        elif opts.initial_prompt_text is not None:
-            init_tokens = list(self.tokenizer.encode(opts.initial_prompt_text))
-            condition = True
-        else:
-            init_tokens = []
-            condition = opts.condition_on_prev_text
-
+        init_tokens, condition = initial_prompt(opts, self.tokenizer)
         dev = self.model.device
-        states = [_UttState(mel=log_mel_file(a, self.dims.n_mels, device=dev,
-                                             kernels=self.kernels), tokens=list(init_tokens))
-                  for a in audios]
-        ladder = opts.temperatures or (0.0,)
+        states = [_UttState(log_mel_file(a, self.dims.n_mels, device=dev, kernels=self.kernels),
+                            list(init_tokens)) for a in audios]
         while True:
             chunk = [i for i, s in enumerate(states) if not s.done][: self.batch_size]
             if not chunk:
@@ -144,9 +118,7 @@ class BatchTranscriber:
             # rows by rung: None is the primary task, a float a sampling rung
             groups: dict = {}
             for i in chunk:
-                t = ladder[min(states[i].temp_idx, len(ladder) - 1)]
-                key = None if (opts.temperatures is None or t == 0.0) else float(t)
-                groups.setdefault(key, []).append(i)
+                groups.setdefault(rung_key(opts, states[i].temp_idx), []).append(i)
             results: dict = {}
             for key, rows in groups.items():
                 task = self.decode_task if key is None else self._sampling_task()
@@ -156,33 +128,11 @@ class BatchTranscriber:
                 results.update(zip(rows, self._decode(task, windows, prompts, key)))
 
             for i in chunk:
-                s, r = states[i], results[i]
-                if isinstance(r, Exception):
-                    s.error = r
-                    continue
-                if (opts.temperatures is not None and s.temp_idx < len(ladder) - 1
-                        and needs_fallback(opts, r.text, r.avg_logprob, r.no_speech_prob)):
-                    s.temp_idx += 1  # the same window at the next rung, next round
-                    continue
-                s.temp_idx = 0
-                s.avg_logprobs.append(r.avg_logprob)
-                s.no_speech_probs.append(r.no_speech_prob)
-                if should_skip_no_speech(opts, r.no_speech_prob, r.avg_logprob):
-                    s.seek += N_FRAMES
-                    continue
-                n_segs_before, n_tokens_before, seek_before = (len(s.segments), len(s.tokens),
-                                                               s.seek)
-                s.seek = process_window_result(
-                    s.tokens, s.segments, np.asarray(r.tokens, np.int64), r.text, s.seek,
-                    ts_begin, input_stride, time_precision, self.tokenizer.decode,
-                )
-                if self._aligner is not None and r.audio_features is not None:
-                    content = max(1, min(s.mel.shape[-1] - seek_before, N_FRAMES)
-                                  // input_stride)
-                    words = self._aligner.align_window(s.tokens[n_tokens_before:],
-                                                       r.audio_features,
-                                                       seek_before * QUANTUM, content)
-                    assign_words(s.segments[n_segs_before:], words)
+                if isinstance(results[i], Exception):
+                    states[i].error = results[i]
+                else:
+                    advance_window(states[i], results[i], opts, self.tokenizer, self._aligner,
+                                   input_stride)
 
         outputs: List[Optional[TranscribeOutput]] = []
         for s in states:
@@ -190,10 +140,6 @@ class BatchTranscriber:
                 if raise_on_error:
                     raise s.error
                 outputs.append(None)
-                continue
-            arr = np.asarray(s.tokens, np.int64)
-            outputs.append(TranscribeOutput(
-                tokens=arr, text=self.tokenizer.decode(arr), segments=s.segments,
-                avg_logprobs=s.avg_logprobs, no_speech_probs=s.no_speech_probs,
-            ))
+            else:
+                outputs.append(s.output(self.tokenizer))
         return outputs

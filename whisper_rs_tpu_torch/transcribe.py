@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +133,34 @@ def sampling_options(options: TranscribeOptions):
     return dataclasses.replace(options.decode, mode=GreedyMode(group_size=max(n or 1, 1)))
 
 
+def initial_prompt(opts: TranscribeOptions, tokenizer) -> Tuple[List[int], bool]:
+    """(the tokens an utterance starts from, whether each window is prompted
+    with the tokens so far): an initial prompt, as tokens or text, switches
+    conditioning on; else ``condition_on_prev_text`` decides."""
+    if opts.initial_prompt_tokens is not None:
+        return list(opts.initial_prompt_tokens), True
+    if opts.initial_prompt_text is not None:
+        return list(tokenizer.encode(opts.initial_prompt_text)), True
+    return [], opts.condition_on_prev_text
+
+
+def rung_key(opts: TranscribeOptions, temp_idx: int) -> Optional[float]:
+    """The rung a window at ladder index ``temp_idx`` decodes at: None for the
+    primary task (no ladder, or temperature 0), else the temperature."""
+    ladder = opts.temperatures or (0.0,)
+    t = ladder[min(temp_idx, len(ladder) - 1)]
+    return None if (opts.temperatures is None or t == 0.0) else float(t)
+
+
+def sampling_task(primary: DecodeTask, opts: TranscribeOptions) -> DecodeTask:
+    """The one task of every rung above 0 (``sampling_options``), on the
+    primary task's model, with its ``kernels`` and ``quantize_kv``; the
+    temperature is passed at run time."""
+    return DecodeTask(primary.model, primary.tokenizer, sampling_options(opts),
+                      keep_audio_features=opts.word_timestamps, kernels=primary.kernels,
+                      quantize_kv=primary.quantize_kv)
+
+
 def process_window_result(
     tokens: List[int],
     segments: List[TranscribeSegment],
@@ -188,6 +216,72 @@ def process_window_result(
     return seek
 
 
+@dataclasses.dataclass
+class Utterance:
+    """One file's transcription state: its log-mel [n_mels, n_frames] on the
+    model's device, the seek, the tokens so far (the next window's prompt
+    where prompts are conditioned), the segments, each window's quality
+    metrics, and the ladder rung of the window in flight."""
+
+    mel: torch.Tensor
+    tokens: List[int]
+    seek: int = 0
+    segments: List[TranscribeSegment] = dataclasses.field(default_factory=list)
+    avg_logprobs: List[float] = dataclasses.field(default_factory=list)
+    no_speech_probs: List[float] = dataclasses.field(default_factory=list)
+    temp_idx: int = 0
+
+    @property
+    def done(self) -> bool:
+        return self.seek >= self.mel.shape[-1]
+
+    def output(self, tokenizer) -> TranscribeOutput:
+        tokens = np.asarray(self.tokens, np.int64)
+        return TranscribeOutput(tokens=tokens, text=tokenizer.decode(tokens),
+                                segments=self.segments, avg_logprobs=self.avg_logprobs,
+                                no_speech_probs=self.no_speech_probs)
+
+
+def record_window(u: Utterance, r, opts: TranscribeOptions, tokenizer, aligner,
+                  input_stride: int) -> None:
+    """Apply one accepted window ``r`` (a ``DecodeOutput``) to ``u``: its
+    quality metrics, then the no-speech skip, or its segments, consumed
+    tokens and seek (``process_window_result``) and, with an ``aligner``,
+    its words."""
+    u.avg_logprobs.append(r.avg_logprob)
+    u.no_speech_probs.append(r.no_speech_prob)
+    if should_skip_no_speech(opts, r.no_speech_prob, r.avg_logprob):
+        u.seek += N_FRAMES
+        return
+    n_segs_before, n_tokens_before, seek_before = len(u.segments), len(u.tokens), u.seek
+    u.seek = process_window_result(
+        u.tokens, u.segments, np.asarray(r.tokens, np.int64), r.text, u.seek,
+        tokenizer.token_id_ts_begin, input_stride, input_stride * QUANTUM, tokenizer.decode,
+    )
+    if aligner is not None and r.audio_features is not None:
+        content = max(1, min(u.mel.shape[-1] - seek_before, N_FRAMES) // input_stride)
+        # align only the tokens this window consumed: the tail past the last
+        # timestamp pair is decoded (and aligned) again by the next window
+        words = aligner.align_window(u.tokens[n_tokens_before:], r.audio_features,
+                                     seek_before * QUANTUM, content)
+        assign_words(u.segments[n_segs_before:], words)
+
+
+def advance_window(u: Utterance, r, opts: TranscribeOptions, tokenizer, aligner,
+                   input_stride: int) -> None:
+    """Apply one decoded window to a row of the batch driver or the serving
+    engine: a window that ``needs_fallback`` below the ladder's last rung
+    moves to the next rung, its seek held and nothing recorded; else
+    ``record_window``, and the next window starts at rung 0."""
+    ladder = opts.temperatures
+    if (ladder is not None and u.temp_idx < len(ladder) - 1
+            and needs_fallback(opts, r.text, r.avg_logprob, r.no_speech_prob)):
+        u.temp_idx += 1  # the same window at the next rung, next round
+        return
+    u.temp_idx = 0
+    record_window(u, r, opts, tokenizer, aligner, input_stride)
+
+
 class TranscribeTask:
     """Transcribes whole files with ``model`` on its device; ``kernels``
     passes through to the mel and the window decode (``decode_task``,
@@ -218,11 +312,7 @@ class TranscribeTask:
         """The one task of every rung above 0 (``sampling_options``); the
         temperature is passed at run time."""
         if "sampling" not in self._fallback_tasks:
-            self._fallback_tasks["sampling"] = DecodeTask(
-                self.model, self.tokenizer, sampling_options(self.options),
-                keep_audio_features=self.options.word_timestamps, kernels=self.kernels,
-                quantize_kv=getattr(self.decode_task, "quantize_kv", False),
-            )
+            self._fallback_tasks["sampling"] = sampling_task(self.decode_task, self.options)
         return self._fallback_tasks["sampling"]
 
     def run(self, audio, mel: Optional[torch.Tensor] = None) -> TranscribeOutput:
@@ -231,69 +321,22 @@ class TranscribeTask:
         if mel is None:
             mel = log_mel_file(audio, self.dims.n_mels, device=self.model.device,
                                kernels=self.kernels)
-        mel = torch.as_tensor(mel).to(self.model.device)
-        n_frames = mel.shape[-1]
-        input_stride = N_FRAMES // self.dims.n_audio_ctx  # mel frames a timestamp step (2)
-        time_precision = input_stride * QUANTUM  # 0.02 s
-
         opts = self.options
-        if opts.initial_prompt_tokens is not None:
-            tokens: List[int] = list(opts.initial_prompt_tokens)
-            condition = True
-        elif opts.initial_prompt_text is not None:
-            tokens = list(self.tokenizer.encode(opts.initial_prompt_text))
-            condition = True
-        else:
-            tokens = []
-            condition = opts.condition_on_prev_text
-
-        ts_begin = self.tokenizer.token_id_ts_begin
-        segments: List[TranscribeSegment] = []
-        avg_logprobs: List[float] = []
-        no_speech_probs: List[float] = []
-        seek = 0
-        while seek < n_frames:
-            window = pad_or_trim(mel[:, seek:], N_FRAMES)
-            # the fallback ladder (None: one pass with the primary task)
-            ladder = opts.temperatures or (0.0,)
-            for idx, t in enumerate(ladder):
-                if opts.temperatures is None or t == 0.0:
-                    task, temp = self.decode_task, None
-                else:
-                    task, temp = self._sampling_task(), t
+        tokens, condition = initial_prompt(opts, self.tokenizer)
+        u = Utterance(torch.as_tensor(mel).to(self.model.device), tokens)
+        input_stride = N_FRAMES // self.dims.n_audio_ctx  # mel frames a timestamp step (2)
+        n_rungs = len(opts.temperatures or (0.0,))
+        while not u.done:
+            window = pad_or_trim(u.mel[:, u.seek:], N_FRAMES)
+            # the fallback ladder (without one: one pass with the primary task)
+            for idx in range(n_rungs):
+                temp = rung_key(opts, idx)
+                task = self.decode_task if temp is None else self._sampling_task()
                 if condition:
-                    task.set_prompt(tokens)
+                    task.set_prompt(u.tokens)
                 result = task.run(window, temperature=temp)[0]
-                if idx == len(ladder) - 1 or opts.temperatures is None:
+                if idx == n_rungs - 1 or not needs_fallback(
+                        opts, result.text, result.avg_logprob, result.no_speech_prob):
                     break
-                if not needs_fallback(opts, result.text, result.avg_logprob,
-                                      result.no_speech_prob):
-                    break
-            avg_logprobs.append(result.avg_logprob)
-            no_speech_probs.append(result.no_speech_prob)
-            if should_skip_no_speech(opts, result.no_speech_prob, result.avg_logprob):
-                seek += N_FRAMES
-                continue
-            n_segs_before, n_tokens_before, seek_before = len(segments), len(tokens), seek
-            seek = process_window_result(
-                tokens, segments, np.asarray(result.tokens, np.int64), result.text, seek,
-                ts_begin, input_stride, time_precision, self.tokenizer.decode,
-            )
-            if self._aligner is not None and result.audio_features is not None:
-                content = max(1, min(n_frames - seek_before, N_FRAMES) // input_stride)
-                # align only the tokens this window consumed: the tail past
-                # the last timestamp pair is decoded (and aligned) again by
-                # the next window
-                words = self._aligner.align_window(tokens[n_tokens_before:],
-                                                   result.audio_features,
-                                                   seek_before * QUANTUM, content)
-                assign_words(segments[n_segs_before:], words)
-
-        tokens_arr = np.asarray(tokens, np.int64)
-        return TranscribeOutput(
-            tokens=tokens_arr,
-            text=self.tokenizer.decode(tokens_arr),
-            segments=segments,
-            avg_logprobs=avg_logprobs,
-            no_speech_probs=no_speech_probs,
-        )
+            record_window(u, result, opts, self.tokenizer, self._aligner, input_stride)
+        return u.output(self.tokenizer)

@@ -1,5 +1,16 @@
-"""Output formats and the command line's logging."""
+"""Output formats, the command line's logging, WER and CSV helpers."""
 
+from .csvio import read_csv_2d, write_csv_2d
 from .formats import to_srt, to_text, to_vtt
+from .wer import edit_distance, iter_librispeech, wer
 
-__all__ = ["to_srt", "to_text", "to_vtt"]
+__all__ = [
+    "edit_distance",
+    "iter_librispeech",
+    "read_csv_2d",
+    "to_srt",
+    "to_text",
+    "to_vtt",
+    "wer",
+    "write_csv_2d",
+]
