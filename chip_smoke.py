@@ -33,11 +33,15 @@ best-of-5 sampling with the JAX package's threefry noise above it), the
 no-speech threshold and word timestamps, over a seeded FLAC file read back
 by the port's ``load_audio``, through ``TranscribeTask`` and through
 ``cli.main`` (``--batch 2``, ``--format srt``) on a seeded OpenAI-format
-checkpoint written by the script; the serving engine (``ServingEngine``,
+checkpoint written by the script (base.en's width, its depth cut to
+CLI_DEPTH + CLI_DEPTH layers); the serving engine (``ServingEngine``,
 continuous batching at batch 4) at base.en; base.en b128 greedy with int8
 weights and K/V under the int8×int8 matmuls (``WHISPER_INT8_MATMUL=1``);
 and the evaluation tools (``tools.validate_checkpoint``, ``tools.eval_wer``)
-on a synthetic split.
+on a synthetic split; and the parallel layer (``parallel``): base.en on two
+ranks that share the card through gloo, tensor, sequence (Ulysses),
+pipeline and data parallel, the TP 2 serving engine, TP 1 on NCCL and the
+command line under torchrun.
 Phases, in order; any mismatch raises and the script exits nonzero:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
@@ -146,7 +150,8 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               the segments; row 6 launched n_audio_layer times an encoder
               call, row 4 never, the cross, MLP and append (greedy) or beam
               kernels n_text_layer times a step;
-  6. e2e      each path in bf16, timed 3 times (large-v3, the ctx and the
+  6. e2e      each path in bf16 (weights drawn on the card, e2e_model),
+              timed 3 times (large-v3, the ctx and the
               append routes once each, E2E_REPS_CUT), after a 4-token
               warm-up run, with every launch count set to 0 just before each
               run and read just after: each kernel launched as expected
@@ -165,14 +170,16 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               step; on the int8-weight path, the device time of one step's
               int8 weight casts alone.  Then the main transcription path:
               the whole-file mel through row 1 against its plain version;
-              f32 through the kernels against the plain versions, window
+              f32 on the file's first TRANSCRIBE_PARITY_SECONDS through
+              the kernels against the plain versions, window
               by window as above, with the kernel run's launch counts
               checked; bf16 through the kernels, timed
               (E2E_REPS_CUT), each run's launch counts checked (every
               kernel of the path, and no other), audio-s/s, windows,
               ms a step; one window under torch.profiler (launches, idle
-              share).  Then OpenAI's recipe (transcribe_recipe): f32
-              through the kernels against the plain versions call by call
+              share).  Then OpenAI's recipe (transcribe_recipe): f32 at
+              RECIPE_PARITY_DEPTH + RECIPE_PARITY_DEPTH layers through the
+              kernels against the plain versions call by call
               (each rung of each window; tokens equal unless the plain
               margin, for a sampling rung the top-2 gap of logits / T +
               noise times T, is below 1e-3), then the segments and each
@@ -197,10 +204,22 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               the int8 path with the switch on, f32 parity at full depth and
               bf16 timed and profiled beside the path without it.  Then the
               evaluation tools (eval_phase): validate_checkpoint exits 3 with
-              the JAX tool's verdict keys, eval_wer exits 0 with a WER;
+              the JAX tool's verdict keys, eval_wer exits 0 with a WER.  Then
+              the parallel layer (parallel_phase; its kernels at their
+              sharded shapes in the kernels phase, kernel_checks_parallel):
+              two ranks (run_ranks, gloo, on the one card), f32 greedy
+              base.en b8 on TP 2, Ulysses 2, PP 2 and DP 2 against the
+              single-process kernel path (encoder output, tokens by the
+              margin rule, each rank's launches), the bf16 TP 2 serving
+              engine against the unsharded sequential task (compare_calls),
+              TP 1 on a one-card NCCL group against the unsharded model,
+              and the CLI under torchrun (--tp 2 --dist-backend gloo)
+              against the unsharded CLI; each path's launches, collectives
+              a step, bytes staged and ms a step;
   7. profile  one more e2e run of each under torch.profiler (the first three
               paths cut to PROFILE_STEPS tokens, which keeps the trace's
-              processing short; the layer route in full): its idle share
+              processing short; the layer route in full; the trace read
+              raw, device_events): its idle share
               and where its device time goes;
   8. the kernels line (JSON), the card line, and last the contract line.
 
@@ -211,6 +230,7 @@ CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import itertools
@@ -268,6 +288,7 @@ from whisper_rs_tpu_torch.models import (
     quantize_kv,
     quantize_params,
 )
+from whisper_rs_tpu_torch.models.params import _empty_model
 from whisper_rs_tpu_torch.ops import LAUNCHES, reset_launches
 from whisper_rs_tpu_torch.ops.build import SOURCES, _nvcc, build_all, library_path, ptxas_report
 from whisper_rs_tpu_torch.ops.decode_attention import (
@@ -366,7 +387,7 @@ SCORE_RTOL = 2e-6  # beam parity scores: |d| <= 1e-4 + SCORE_RTOL |plain|
 E2E_REPS = 3
 # timed e2e runs of a path where E2E_REPS is more than the script's time
 # allows: large-v3 takes 13 s a run and is compared with nothing in the run;
-# the recipe's 40 s file takes 69-109 s a run (H100 80GB HBM3, 700 W).  The
+# the recipe's file (40 s then) took 69-109 s a run (H100 80GB HBM3, 700 W).  The
 # serving, int8×int8 and evaluation phases (128 s) took the time of two more
 # runs of the medium.en beam paths (9-12 s a run), of the 95 s transcription
 # (about 11 s a run) and of base.en b128 with and without int8 (3-6 s)
@@ -549,53 +570,10 @@ def kernel_checks(dims, B: int, dtypes, group: int = 1) -> dict:
 
     for dtype in dtypes:
         tag = "f32" if dtype == torch.float32 else "bf16"
-        isz = torch.tensor([], dtype=dtype).element_size()
         print(f"[kernels] LayerNorm pair ({tag})", flush=True)
-        x, d = randn(B, T, D, dtype=dtype), randn(B, T, D, dtype=dtype)
-        s, b = randn(D, dtype=dtype), randn(D, dtype=dtype)
-        rows["ln_fused"][tag] = check_kernel(
-            "ln_fused", dtype, lambda: ln_fused(x, s, b), lambda: ln_fused_plain(x, s, b),
-            lambda: F.layer_norm(x, (D,), s, b, 1e-5),
-            nbytes=2 * x.numel() * isz + 2 * D * isz, flops=8 * x.numel(), reps=20,
-        )
-        rows["residual_ln"][tag] = check_kernel(
-            "residual_ln", dtype, lambda: residual_ln(x, d, s, b),
-            lambda: residual_ln_plain(x, d, s, b),
-            lambda: F.layer_norm(x + d, (D,), s, b, 1e-5),
-            nbytes=4 * x.numel() * isz + 2 * D * isz, flops=9 * x.numel(), reps=20,
-        )
-        del x, d
-
-        # unit-scale q and k: scores of std 1 after the d^-0.5 scale, so the
-        # softmax is peaked and the Q.K part of the kernel matters
+        rows["ln_fused"][tag], rows["residual_ln"][tag] = check_ln_pair((B, T, D), dtype, randn)
         print(f"[kernels] encoder_attention_merged ({tag})", flush=True)
-        q, k, v = (randn(B, T, D, dtype=dtype) for _ in range(3))
-        scale = dh**-0.5
-
-        def sdpa():
-            split = lambda t: t.view(B, T, H, dh).transpose(1, 2)
-            return F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale)
-
-        # keys past n_valid masked: compared, not timed
-        nv = T - 37
-        masked = compare(f"encoder_attention_merged {tag} n_valid {nv}",
-                         (encoder_attention_merged(q, k, v, H, scale, nv),),
-                         (encoder_attention_merged_plain(q, k, v, H, scale, nv),),
-                         tolerance("encoder_attention_merged", dtype))
-        row = rows["encoder_attention_merged"][tag] = check_kernel(
-            "encoder_attention_merged", dtype,
-            lambda: encoder_attention_merged(q, k, v, H, scale),
-            lambda: encoder_attention_merged_plain(q, k, v, H, scale),
-            sdpa, nbytes=4 * q.numel() * isz, flops=4 * B * T * T * D,
-            reps=3 if dtype == torch.float32 else 10, graph=False,
-        )
-        row["max_abs_err"] = max(row["max_abs_err"], masked[0])
-        row["tol_share"] = max(row["tol_share"], masked[1])
-        if dtype == torch.bfloat16:
-            check_deterministic("encoder_attention_merged",
-                                lambda: encoder_attention_merged(q, k, v, H, scale), row)
-        del q, k, v
-        torch.cuda.empty_cache()
+        rows["encoder_attention_merged"][tag] = check_merged(B, T, H, dh, dtype, randn)
 
     step = "self_attention_append_step" if group == 1 else "beam_self_attention_step"
     for dtype in (torch.float32, torch.bfloat16):
@@ -610,6 +588,68 @@ def kernel_checks(dims, B: int, dtypes, group: int = 1) -> dict:
     if group > 1:
         time_beam_ranking(dims, B, group, randn)
     return rows
+
+
+def check_ln_pair(shape, dtype, randn) -> tuple:
+    """Rows 3 and 2 (``ln_fused``, ``residual_ln``) on x [..., D] of
+    ``shape`` against their plain versions; the library call is
+    F.layer_norm (of x + delta for the residual kernel)."""
+    D = shape[-1]
+    isz = torch.tensor([], dtype=dtype).element_size()
+    x, d = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+    s, b = randn(D, dtype=dtype), randn(D, dtype=dtype)
+    ln = check_kernel(
+        "ln_fused", dtype, lambda: ln_fused(x, s, b), lambda: ln_fused_plain(x, s, b),
+        lambda: F.layer_norm(x, (D,), s, b, 1e-5),
+        nbytes=2 * x.numel() * isz + 2 * D * isz, flops=8 * x.numel(), reps=20,
+    )
+    res = check_kernel(
+        "residual_ln", dtype, lambda: residual_ln(x, d, s, b),
+        lambda: residual_ln_plain(x, d, s, b),
+        lambda: F.layer_norm(x + d, (D,), s, b, 1e-5),
+        nbytes=4 * x.numel() * isz + 2 * D * isz, flops=9 * x.numel(), reps=20,
+    )
+    return ln, res
+
+
+def check_merged(B: int, T: int, H: int, dh: int, dtype, randn) -> dict:
+    """Row 4 on merged q, k, v [B, T, H * dh] against its plain version,
+    also with n_valid < T (compared, not timed); the library call is SDPA
+    on the heads of the same tensors.  In bf16 also two calls
+    bit-identical."""
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    isz = torch.tensor([], dtype=dtype).element_size()
+    D = H * dh
+    # unit-scale q and k: scores of std 1 after the d^-0.5 scale, so the
+    # softmax is peaked and the Q.K part of the kernel matters
+    q, k, v = (randn(B, T, D, dtype=dtype) for _ in range(3))
+    scale = dh**-0.5
+
+    def sdpa():
+        split = lambda t: t.view(B, T, H, dh).transpose(1, 2)
+        return F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale)
+
+    # keys past n_valid masked: compared, not timed
+    nv = T - 37
+    masked = compare(f"encoder_attention_merged {tag} n_valid {nv}",
+                     (encoder_attention_merged(q, k, v, H, scale, nv),),
+                     (encoder_attention_merged_plain(q, k, v, H, scale, nv),),
+                     tolerance("encoder_attention_merged", dtype))
+    row = check_kernel(
+        "encoder_attention_merged", dtype,
+        lambda: encoder_attention_merged(q, k, v, H, scale),
+        lambda: encoder_attention_merged_plain(q, k, v, H, scale),
+        sdpa, nbytes=4 * q.numel() * isz, flops=4 * B * T * T * D,
+        reps=3 if dtype == torch.float32 else 10, graph=False,
+    )
+    row["max_abs_err"] = max(row["max_abs_err"], masked[0])
+    row["tol_share"] = max(row["tol_share"], masked[1])
+    if dtype == torch.bfloat16:
+        check_deterministic("encoder_attention_merged",
+                            lambda: encoder_attention_merged(q, k, v, H, scale), row)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_mel(rows, n_mels: int, in_bytes: int) -> dict:
@@ -1043,19 +1083,22 @@ def check_deterministic(name: str, kernel, row: dict) -> None:
     print(f"  {name}: two calls bit-identical", flush=True)
 
 
-def check_mlp(dims, B: int, dtype, randn) -> dict:
+def check_mlp(dims, B: int, dtype, randn, hidden: int | None = None) -> dict:
     """The fused decode MLP at the step shapes: unit-scale h [B, D],
-    weights N(0, 1/n_in) as in init_random, b1 N(0, 0.1^2).  In bf16 also
+    weights N(0, 1/n_in) as in init_random, b1 N(0, 0.1^2), the hidden
+    width ``hidden`` (default 4D; a tensor-parallel shard's 4D / tp, whose
+    partial fc2 sums the caller adds over the model group).  In bf16 also
     two calls bit-identical, and the kernel and the library calls timed
     cold in L2 (``cold_ms``, ``library_cold_ms``): rotating through
     n_text_layer weight sets, as a decode step finds a layer's weights (a
     medium.en layer's 16.8 MB and a large-v3 layer's 26 MB stay resident in
     the 50 MB L2 when one set is replayed)."""
     D, L = dims.n_text_state, dims.n_text_layer
+    Fh = hidden or 4 * D
     isz = torch.tensor([], dtype=dtype).element_size()
     h = randn(B, D, dtype=dtype)
-    layers = [(randn(4 * D, D, dtype=dtype, scale=D**-0.5), randn(4 * D, dtype=dtype, scale=0.1),
-               randn(D, 4 * D, dtype=dtype, scale=(4 * D) ** -0.5))
+    layers = [(randn(Fh, D, dtype=dtype, scale=D**-0.5), randn(Fh, dtype=dtype, scale=0.1),
+               randn(D, Fh, dtype=dtype, scale=Fh**-0.5))
               for _ in range(L if dtype == torch.bfloat16 else 1)]
     w1, b1, w2 = layers[0]
     approximate = "none" if dtype == torch.float32 else "tanh"
@@ -1066,7 +1109,7 @@ def check_mlp(dims, B: int, dtype, randn) -> dict:
     row = check_kernel(
         "decoder_mlp_step", dtype,
         lambda: decoder_mlp_step(h, w1, b1, w2), lambda: decoder_mlp_step_plain(h, w1, b1, w2),
-        three_calls, nbytes=(8 * D * D + 4 * D + 2 * B * D) * isz, flops=16 * B * D * D,
+        three_calls, nbytes=(2 * Fh * D + Fh + 2 * B * D) * isz, flops=4 * B * D * Fh,
         reps=50,
     )
     if dtype == torch.bfloat16:
@@ -1808,9 +1851,24 @@ def e2e_routes(dims, name: str, batch: int) -> dict:
 
 @functools.lru_cache(maxsize=1)
 def e2e_model(dims):
-    """The seed-0 bf16 model of ``dims`` at full width and depth, kept for the
-    next e2e phase of the same model (medium.en's three share one)."""
-    return init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+    """A seed-0 bf16 model of ``dims`` at full width and depth, kept for the
+    next e2e phase of the same model (medium.en's three share one): the
+    scales of ``init_random`` (linear weights N(0, 1/n_in), conv and
+    embedding weights N(0, 0.02^2), biases 0, LayerNorms 1 and 0), drawn
+    on the card by torch's CUDA generator, where ``init_random`` draws
+    every weight with numpy on the host (large-v3's 1.55 B in tens of
+    seconds).  The e2e paths hold no result to a reference, so any seeded
+    weights serve."""
+    model = _empty_model(dims, torch.bfloat16, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.fill_(1.0 if name.endswith(("ln.weight", "ln_post.weight")) else 0.0)
+            else:
+                std = 0.02 if "conv" in name or "embedding" in name else p.shape[1] ** -0.5
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * std)
+    return model
 
 
 def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
@@ -1963,6 +2021,7 @@ GOLDEN_DIMS = ModelDims(80, 51864, 1500, 64, 4, 2, 448, 64, 4, 2)
 GOLDEN_SAMPLE_LEN = 16
 TRANSCRIBE_MODEL = "base.en"  # the slice's main path: TranscribeOptions() defaults
 TRANSCRIBE_SECONDS = 95  # four windows at least, the last one partial
+TRANSCRIBE_PARITY_SECONDS = 60  # the f32 parity's: three windows, the last partial
 TRANSCRIBE_LABEL = f"{TRANSCRIBE_MODEL} b1 beam5 transcribe"
 GOLDEN_LABEL = "golden dims transcribe"
 GOLDEN_BEAM_LABEL = "golden dims beam3"
@@ -2347,9 +2406,10 @@ def transcribe_main_path() -> dict:
     """The slice's main path: base.en at full width and depth,
     ``TranscribeOptions()`` defaults (beam 5, patience 1, timestamps, blank
     and non-speech suppression, max_initial_timestamp 1, conditioned on the
-    previous text), a seeded 95 s file.  (a) f32 through the kernels and
-    through the plain versions, window by window (compare_windows), and the
-    whole-file mel through row 1 against its plain version; (b) bf16
+    previous text), a seeded 95 s file.  (a) f32 on the file's first
+    TRANSCRIBE_PARITY_SECONDS through the kernels and through the plain
+    versions, window by window (compare_windows), and the whole-file mel
+    through row 1 against its plain version; (b) bf16
     through the kernels, E2E_REPS timed runs with the launch counts of each,
     then one window under torch.profiler.  Returns the last timed run's
     launches."""
@@ -2368,7 +2428,9 @@ def transcribe_main_path() -> dict:
     del mel_k, mel_p
 
     model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
-    _, windows, launches = transcribe_both(model, tok, options, audio, "f32 beam-5 transcription")
+    _, windows, launches = transcribe_both(
+        model, tok, options, audio[: 16000 * TRANSCRIBE_PARITY_SECONDS],
+        f"f32 beam-5 transcription, the file's first {TRANSCRIBE_PARITY_SECONDS} s")
     check_route_counts("f32 transcription", launches, path_launches(dims, windows))
     del model
     torch.cuda.empty_cache()
@@ -2418,14 +2480,20 @@ def transcribe_main_path() -> dict:
 # --word-timestamps with TranscribeOptions' no-speech threshold 0.6), on a
 # seeded FLAC file of RECIPE_SECONDS written and read back by the port
 LADDER = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
-RECIPE_SECONDS = 40  # two windows at least: a sampled window prompts the next
-# The f32 parity runs on the file's first RECIPE_PARITY_SECONDS (two windows
-# of six rungs each), cut for the script's time: the whole file's four
-# windows took 230 s of f32 (H100 80GB HBM3, 700 W)
-RECIPE_PARITY_SECONDS = 20
+RECIPE_SECONDS = 20  # two windows at least: a sampled window prompts the next
+# The recipe's f32 parity keeps RECIPE_PARITY_DEPTH layers of base.en's 6 + 6
+# (the kernels' shapes are the full width's), and its timed bf16 run, at
+# full depth, takes the file's first RECIPE_TIMED_SECONDS: each window runs
+# all six rungs, 15.9 ms a step at full depth (H100 80GB HBM3, 700 W)
+RECIPE_PARITY_DEPTH = 2
+RECIPE_TIMED_SECONDS = 10
 RECIPE_LABEL = f"{TRANSCRIBE_MODEL} b1 recipe"
 CLI_LABEL = f"{TRANSCRIBE_MODEL} b2 CLI --batch 2"
 CLI_SECONDS = (6, 4)  # the CLI's two files, a WAV and a FLAC: a window each
+# Layers of the seeded checkpoint (base.en's width, of its 6 + 6) that the
+# command line, the evaluation tools and the torchrun CLI load: they check
+# exit codes, output and launch counts, not throughput
+CLI_DEPTH = 2
 WORD_TIME_TOL = 0.02  # one encoder frame: DTW may meet a near-tie the other way
 # The Gumbel noise's two logs may round apart between the card and the CPU:
 # the CPU tests measured at most 2 ulps of max(|g|, 1) between torch and XLA
@@ -2728,10 +2796,12 @@ def transcribe_recipe(rng_row: dict) -> dict:
     word_timestamps=True)`` with the default beam 5 at rung 0 and best-of-5
     sampling above it, over a seeded RECIPE_SECONDS file written as FLAC by
     the port's ``encode_flac`` and read back by its ``load_audio``.  (a) f32
-    on the file's first RECIPE_PARITY_SECONDS (two windows at least)
-    through the kernels and through the plain versions, call by call
+    with the depth cut to RECIPE_PARITY_DEPTH + RECIPE_PARITY_DEPTH layers
+    (two windows at least) through the kernels and through the plain
+    versions, call by call
     (``compare_calls``), then the segments and words (``compare_words``),
-    and the kernel run's launch counts; (b) bf16 through the kernels, timed
+    and the kernel run's launch counts; (b) bf16 at full depth through the
+    kernels on the file's first RECIPE_TIMED_SECONDS, timed
     (E2E_REPS, cut by E2E_REPS_CUT), each run's launch counts checked:
     audio-s/s, windows, the rungs of each, steps by rung kind, launches a
     window, the draw's launches and ms a step ([rng]) and the alignment
@@ -2754,24 +2824,26 @@ def transcribe_recipe(rng_row: dict) -> dict:
           f"{options.decode.mode.beam_size} at rung 0; a {RECIPE_SECONDS} s FLAC "
           f"({path.stat().st_size} bytes) read back by load_audio", flush=True)
 
-    model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    cut = dataclasses.replace(dims, n_audio_layer=RECIPE_PARITY_DEPTH,
+                              n_text_layer=RECIPE_PARITY_DEPTH)
+    model = init_random(cut, seed=0, dtype=torch.float32, device="cuda")
     out = {}
     for kernels in (True, False):
         task = TranscribeTask(model, tok, options, kernels=kernels)
         with recorded_calls(margins=not kernels) as calls:
             reset_launches()
-            res = task.run(audio[: 16000 * RECIPE_PARITY_SECONDS])
+            res = task.run(audio)
             torch.cuda.synchronize()
             out[kernels] = (res, calls, dict(LAUNCHES))
     (res_k, calls_k, launches), (res_p, calls_p, _) = out[True], out[False]
     if len(rungs_per_window(calls_k)) < 2:
         raise AssertionError("f32 recipe: one window: no sampled text prompted a window")
-    print(f"  f32, the file's first {RECIPE_PARITY_SECONDS} s: kernel path {len(calls_k)} "
+    print(f"  f32, {RECIPE_PARITY_DEPTH} + {RECIPE_PARITY_DEPTH} layers: kernel path {len(calls_k)} "
           f"calls, rungs by window "
           f"{rungs_per_window(calls_k)}; plain path {len(calls_p)} calls", flush=True)
     if compare_calls("f32 recipe", calls_k, calls_p):
         compare_words("f32 recipe", res_k, res_p)
-    check_route_counts("f32 recipe", launches, recipe_launches(dims, calls_k))
+    check_route_counts("f32 recipe", launches, recipe_launches(cut, calls_k))
     del model, task
     torch.cuda.empty_cache()
 
@@ -2812,7 +2884,7 @@ def transcribe_recipe(rng_row: dict) -> dict:
             try:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                res = task.run(audio)
+                res = task.run(audio[: 16000 * RECIPE_TIMED_SECONDS])
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             finally:
@@ -2832,7 +2904,7 @@ def transcribe_recipe(rng_row: dict) -> dict:
     print(f"  bf16: {n_win} windows, rungs by window {rungs}; {len(calls)} decode calls; steps "
           f"beam {beam_steps}, sampling {sampled_steps}; {len(res.segments)} segments, "
           f"{len(words)} words; runs {', '.join(f'{t:.3f}' for t in times)} s (median of "
-          f"{reps}); {RECIPE_SECONDS / elapsed:.2f} audio-s/s; wall over the steps "
+          f"{reps}); {RECIPE_TIMED_SECONDS / elapsed:.2f} audio-s/s; wall over the steps "
           f"{elapsed / (beam_steps + sampled_steps) * 1e3:.2f} ms a step", flush=True)
     print(f"  launches of the last run (checked against recipe_launches): {launches}; the "
           f"port's kernels {sum(v for k, v in launches.items() if ':' not in k) / n_win:.1f} a "
@@ -2861,7 +2933,8 @@ def transcribe_recipe(rng_row: dict) -> dict:
 
 def cli_phase() -> dict:
     """[cli] The command line in process (``cli.main``) on a seeded
-    OpenAI-format checkpoint of base.en (seed 0, written here) and two
+    OpenAI-format checkpoint of base.en's width at CLI_DEPTH + CLI_DEPTH
+    layers (seed 0, written here) and two
     seeded files, a WAV and a FLAC: ``--batch 2 --language en
     --temperatures 0,0.2,...,1.0 --word-timestamps --json`` (bf16 on the
     card, its defaults) must exit 0 with one JSON entry a file, each
@@ -2877,7 +2950,7 @@ def cli_phase() -> dict:
     import io
     import re
 
-    dims = dims_for(TRANSCRIBE_MODEL)
+    dims = cli_dims()
     ckpt = seeded_checkpoint()
     rng = np.random.default_rng(41)
     files = [ARTIFACTS / "cli0.wav", ARTIFACTS / "cli1.flac"]
@@ -3323,22 +3396,29 @@ def int8_matmul_phase(rows: dict, int8_summary: dict) -> dict:
     return launches
 
 
+def cli_dims():
+    """base.en with its depth cut to CLI_DEPTH + CLI_DEPTH layers."""
+    return dataclasses.replace(dims_for(TRANSCRIBE_MODEL), n_audio_layer=CLI_DEPTH,
+                               n_text_layer=CLI_DEPTH)
+
+
+@functools.lru_cache(maxsize=1)
 def seeded_checkpoint() -> pathlib.Path:
-    """An OpenAI-format checkpoint of base.en with seed-0 weights, written
-    once under ARTIFACTS."""
-    dims = dims_for(TRANSCRIBE_MODEL)
+    """An OpenAI-format checkpoint of ``cli_dims()`` with seed-0 weights,
+    written under ARTIFACTS once a run (a file left there by another run
+    may hold other weights)."""
+    dims = cli_dims()
     ARTIFACTS.mkdir(parents=True, exist_ok=True)
-    ckpt = ARTIFACTS / f"{TRANSCRIBE_MODEL}-seed0.pt"
-    if not ckpt.exists():
-        torch.save({"dims": dataclasses.asdict(dims),
-                    "model_state_dict": init_random(dims, 0, device="cpu").state_dict()}, ckpt)
+    ckpt = ARTIFACTS / f"{TRANSCRIBE_MODEL}-{CLI_DEPTH}+{CLI_DEPTH}-seed0.pt"
+    torch.save({"dims": dataclasses.asdict(dims),
+                "model_state_dict": init_random(dims, 0, device="cpu").state_dict()}, ckpt)
     return ckpt
 
 
 def eval_phase() -> None:
     """[eval] The evaluation tools on the card: a synthetic LibriSpeech split
     (two seeded 2 s FLACs and a trans.txt, as the JAX tools' tests write
-    it) and the seeded base.en checkpoint.  ``validate_checkpoint`` (greedy,
+    it) and the [cli] phase's checkpoint.  ``validate_checkpoint`` (greedy,
     batch 2, 16 tokens a window, the recipe) must print a verdict with
     every key of the JAX tool's and return 3 (random weights fail the
     quality gates); ``eval_wer`` (greedy, batch 2, one pass a window) must
@@ -3386,6 +3466,397 @@ def eval_phase() -> None:
     print(f"[eval] eval_wer on the card: exit 0; {line}; {wall:.2f} s", flush=True)
 
 
+# -- [parallel]: tensor, sequence, pipeline and data parallelism on the card ----
+
+# Two ranks share the one card through gloo, which stages every collective's
+# tensors through pinned host memory (NCCL takes one card a rank): the times
+# are those of two processes time-sharing a card, not a scaling figure.
+PAR_MODEL = TRANSCRIBE_MODEL  # base.en at full width and depth
+PAR_BATCH = 8
+PAR_RANKS = 2
+PAR_PATHS = ("tp", "ulysses", "pp", "dp")
+PAR_TEXT = {"tp": "TP 2", "ulysses": "Ulysses 2", "pp": "PP 2", "dp": "DP 2"}
+PAR_TP_LABEL = f"{PAR_MODEL} b{PAR_BATCH} TP 2 greedy"
+PAR_ULYSSES_LABEL = f"{PAR_MODEL} b{PAR_BATCH} Ulysses 2"
+PAR_SERVE_LABEL = f"{PAR_MODEL} serve b{SERVE_BATCH} beam5 TP 2"
+PAR_TP4_LABEL = "large-v3 b12 TP 4 split heads"  # checked in the kernels phase only
+PAR_SERVE_SECONDS = (8, 12, 20)
+PAR_ENC_TOL = 1e-3  # |d| of an f32 encoder output of a parallel path against one process
+PAR_TIMEOUT = 900
+PAR_CLI_SAMPLE_LEN = 32  # the torchrun CLI's tokens a window (beam 5, f32)
+PAR_SERVE_SAMPLE_LEN = 96  # the TP 2 engine's tokens a window (beam 5, bf16)
+
+
+def tp_dims(dims, n: int):
+    """The attention shapes of one tensor-parallel rank: n times fewer heads
+    and as many times narrower q, k and v (the head dim stays)."""
+    return dataclasses.replace(
+        dims, n_audio_head=dims.n_audio_head // n, n_audio_state=dims.n_audio_state // n,
+        n_text_head=dims.n_text_head // n, n_text_state=dims.n_text_state // n)
+
+
+def kernel_checks_parallel(rows: dict) -> None:
+    """The kernels at the shapes that [parallel] gives them for the first
+    time, into ``rows``, each against its plain version, timed: TP 2 at
+    base.en batch 8 (the mel kernel at 8 windows; the LayerNorm pair at the
+    whole D; row 4 on 4 heads [8, 1500, 256]; the cross kernel at 4 heads,
+    G 1; the append kernel at 8 rows of 4 heads; the MLP at D 512 and the
+    shard's hidden 1024); Ulysses 2 at batch 8 (the LayerNorm pair at
+    [8, 750, 512]; row 6 on 4 of the 8 heads, [8, 4, 1500, 64]); the TP 2
+    serving engine at batch 4, beam 5 (row 4 on 4 heads, the cross and beam
+    kernels at 4 heads, A 4, G 5, the MLP at 20 rows, hidden 1024; its mel
+    and LayerNorm shapes are the unsharded engine's); and row 6 at
+    large-v3 b12's TP 4 shape, 5 heads a rank [12, 5, 1500, 64], which row 4
+    refuses (an odd head count)."""
+    dims = dims_for(PAR_MODEL)
+    local = tp_dims(dims, 2)
+    T, D, H, dh = dims.n_audio_ctx, dims.n_audio_state, dims.n_audio_head, dims.head_dim
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    tp, uly, srv, tp4 = ({name: {} for name in KERNELS} for _ in range(4))
+    rows.update({PAR_TP_LABEL: tp, PAR_ULYSSES_LABEL: uly, PAR_SERVE_LABEL: srv,
+                 PAR_TP4_LABEL: tp4})
+    print(f"[kernels] TP 2: log_mel (f32, {PAR_BATCH} windows)", flush=True)
+    padded = reflect_pad(randn(PAR_BATCH, N_SAMPLES, scale=0.1)).contiguous()
+    tp["log_mel"]["f32"] = check_mel(padded, dims.n_mels, padded.numel() * 4)
+    del padded
+    for name in ("log_mel", "ln_fused", "residual_ln"):
+        srv[name] = rows[SERVE_LABEL][name]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"[kernels] TP 2 b{PAR_BATCH} ({tag}): the LayerNorm pair at D {D}, row 4 on "
+              f"{H // 2} heads, the cross and append kernels at {H // 2} heads, the MLP at "
+              f"hidden {2 * D}", flush=True)
+        tp["ln_fused"][tag], tp["residual_ln"][tag] = check_ln_pair((PAR_BATCH, T, D), dtype,
+                                                                     randn)
+        tp["encoder_attention_merged"][tag] = check_merged(PAR_BATCH, T, H // 2, dh, dtype,
+                                                           randn)
+        tp["cross_attention_step"][tag] = check_cross(local, PAR_BATCH, 1, dtype, randn)
+        tp["self_attention_append_step"][tag] = check_step_attention(local, PAR_BATCH, 1, dtype,
+                                                                     randn, gen)
+        tp["decoder_mlp_step"][tag] = check_mlp(dims, PAR_BATCH, dtype, randn, hidden=2 * D)
+        print(f"[kernels] Ulysses 2 b{PAR_BATCH} ({tag}): the LayerNorm pair at "
+              f"[{PAR_BATCH}, {T // 2}, {D}], row 6 on {H // 2} heads", flush=True)
+        uly["ln_fused"][tag], uly["residual_ln"][tag] = check_ln_pair((PAR_BATCH, T // 2, D),
+                                                                       dtype, randn)
+        uly["encoder_attention_split"][tag] = check_split_attention((PAR_BATCH, H // 2, T, dh),
+                                                                    dtype, randn)
+        print(f"[kernels] TP 2 serve b{SERVE_BATCH} beam 5 ({tag})", flush=True)
+        srv["encoder_attention_merged"][tag] = check_merged(SERVE_BATCH, T, H // 2, dh, dtype,
+                                                            randn)
+        srv["cross_attention_step"][tag] = check_cross(local, SERVE_BATCH, 5, dtype, randn)
+        srv["beam_self_attention_step"][tag] = check_step_attention(local, SERVE_BATCH, 5, dtype,
+                                                                    randn, gen)
+        srv["decoder_mlp_step"][tag] = check_mlp(dims, SERVE_BATCH * 5, dtype, randn,
+                                                 hidden=2 * D)
+        print(f"[kernels] large-v3 b12 TP 4 ({tag}): row 6 on 5 heads a rank", flush=True)
+        tp4["encoder_attention_split"][tag] = check_split_attention((12, 5, 1500, 64), dtype,
+                                                                    randn)
+        torch.cuda.empty_cache()
+
+
+def par_serve_options() -> TranscribeOptions:
+    """``TranscribeOptions()`` (beam 5, timestamps, conditioned), each window
+    cut to PAR_SERVE_SAMPLE_LEN tokens for the script's time."""
+    return TranscribeOptions(decode=DecodeOptions(sample_len=PAR_SERVE_SAMPLE_LEN))
+
+
+def _par_greedy(name: str, model, audio, encoder_fn=None) -> dict:
+    """One greedy path of ``parallel_rank``: the mel kernel, the decode, f32,
+    SAMPLE_LEN steps, with every launch count and the collectives' counts
+    set to 0 just before and read just after."""
+    from whisper_rs_tpu_torch.parallel import collectives
+
+    dims = model.dims
+    initial = np.full((audio.shape[0], 1), SOT, np.int64)
+    torch.cuda.synchronize()
+    reset_launches()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    mel = log_mel_frontend(audio, dims.n_mels)
+    res = decode_greedy(model, mel, initial, 1, 0, filter_config(dims), GreedyMode(), SAMPLE_LEN,
+                        NO_SPEECH, encoder_fn=encoder_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"tokens": res.candidates[:, 0].cpu(), "scores": res.scores.cpu(),
+            "xa": res.audio_features.float().cpu(), "steps": res.steps, "wall": wall,
+            "launches": dict(LAUNCHES), "stats": dict(collectives.STATS)}
+
+
+def parallel_rank(rank: int, audio: np.ndarray, serve_audios: list) -> dict:
+    """One of PAR_RANKS ranks of [parallel], sharing the card under gloo:
+    base.en f32 greedy at batch 8 on four meshes (TP 2, Ulysses 2, PP 2,
+    DP 2; each a model of its own, seed 0), then the bf16 TP 2 serving
+    engine (rank 0) and its follower (rank 1), then, on rank 0, TP 1 on a
+    one-card NCCL group.  Returns rank 0's outputs and every rank's counts."""
+    import torch.distributed as dist
+
+    from whisper_rs_tpu_torch.parallel import (
+        collectives, make_mesh, pp_encoder_fn, shard_model, ulysses_encoder_fn,
+    )
+    from whisper_rs_tpu_torch.parallel.distributed import rank_device
+    from whisper_rs_tpu_torch.parallel.mesh import Mesh
+    from whisper_rs_tpu_torch.serve import serve_follower
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device("cuda")
+    dims = dims_for(PAR_MODEL)
+    whole = init_random(dims, seed=0, dtype=torch.float32, device=dev)
+
+    def model_of(dtype=torch.float32):  # a copy of the seed-0 model, to shard in place
+        return copy.deepcopy(whole).to(dtype)
+
+    out = {}
+    tp_mesh = make_mesh(n_model=2)
+    meshes = {"tp": tp_mesh, "ulysses": tp_mesh, "pp": make_mesh(n_stage=2),
+              "dp": make_mesh(n_data=2)}
+    for name in PAR_PATHS:
+        mesh = meshes[name]
+        model = shard_model(model_of(), mesh, tensor_parallel=name != "ulysses")
+        fn = {"ulysses": ulysses_encoder_fn(mesh), "pp": pp_encoder_fn(mesh)}.get(name)
+        out[name] = _par_greedy(name, model, audio, fn)
+        if rank:
+            del out[name]["xa"]  # rank 0's stands for both: the encoder output is replicated
+        del model
+        torch.cuda.empty_cache()
+
+    # bf16 serving: the engine on rank 0 leads the follower on rank 1
+    model = shard_model(model_of(torch.bfloat16), tp_mesh)
+    tok = Tokenizer.for_dims(dims)
+    options = par_serve_options()
+    if rank:
+        dist.barrier()
+        out["serve"] = {"follower_calls": serve_follower(model, tok, options)}
+    else:
+        engine = ServingEngine(model, tok, options, batch_size=SERVE_BATCH)
+        dist.barrier()  # the kernels are built: no warmup()
+        with serving_recorded(engine) as (calls, rounds, gate, started):
+            reset_launches()
+            collectives.reset_stats()
+            t0 = time.perf_counter()
+            handles = [engine.submit(a) for a in serve_audios]
+            gate.set()
+            outs = [h.result(timeout=600) for h in handles]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, stats = dict(LAUNCHES), dict(collectives.STATS)
+            engine_stats = engine.stats()
+        engine.close()
+        keep = ("temperature", "rows", "outputs", "steps", "candidates", "sample_begin", "rids")
+        out["serve"] = {"calls": [{k: c[k] for k in keep} for c in calls],
+                        "rids": [h.request_id for h in handles], "wall": wall,
+                        "segments": [[(s.seek, s.text) for s in o.segments] for o in outs],
+                        "launches": launches, "stats": stats, "engine": engine_stats}
+    del model
+    torch.cuda.empty_cache()
+
+    # TP 1 on a one-card NCCL group (rank 0 its only member): the NCCL branch
+    # of every collective runs on the card
+    nccl = dist.new_group([0], backend="nccl")
+    if rank == 0:
+        unsharded = _par_greedy("unsharded", model_of(), audio)
+        mesh = Mesh(n_model=1, model_group=nccl, data_group=nccl, backend="nccl")
+        one = _par_greedy("nccl", shard_model(model_of(), mesh), audio)
+        out["nccl"] = {"whole": unsharded, "tp1": one}
+    dist.barrier()
+    return out
+
+
+def compare_greedy(what: str, tokens, want, model, mel, cfg) -> None:
+    """Tokens [B, n_ctx] equal to ``want`` per row, unless the reference's
+    plain top-2 margin at the row's first divergent position is below
+    1e-3 (``plain_margin``)."""
+    for r in range(want.shape[0]):
+        diff = (tokens[r] != want[r]).nonzero()
+        if diff.numel() == 0:
+            continue
+        pos = int(diff[0])
+        margin = plain_margin(model, mel, r, want[r].to(mel.device), pos, cfg)
+        print(f"  {what}: row {r} apart at position {pos}; the reference's top-2 margin "
+              f"{margin:.3e}", flush=True)
+        if margin >= 1e-3:
+            raise AssertionError(f"{what}: row {r} diverges at {pos} with margin {margin:.3e}")
+
+
+def parallel_cli(ckpt: pathlib.Path) -> dict:
+    """The command line under torchrun: ``--tp 2 --dist-backend gloo`` on two
+    processes (``python -m torch.distributed.run --standalone``) over the
+    [cli] phase's files and checkpoint, f32, against the unsharded CLI in
+    this process: exit 0, and the JSON equal, or apart only where the
+    unsharded run's smallest beam selection margin or ranking gap was below
+    1e-3 (``compare_calls``' rule).  Returns the seconds of each."""
+    import io
+
+    files = [ARTIFACTS / "cli0.wav", ARTIFACTS / "cli1.flac"]
+    argv = [*map(str, files), "--checkpoint", str(ckpt), "--language", "en", "--json",
+            "--dtype", "float32", "--sample-len", str(PAR_CLI_SAMPLE_LEN)]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with recorded_calls(margins=True) as calls, contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli (one process): exit code {rc}")
+    want = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(PAR_RANKS), "-m", "whisper_rs_tpu_torch.cli", *argv, "--tp", str(PAR_RANKS),
+           "--dist-backend", "gloo"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root, env=env)
+    run_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun cli --tp 2: exit code {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    got = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    if got != want:
+        margins = [m for c in calls for m in (c["margin"], c["rank_gap"]) if m is not None]
+        smallest = min(margins, default=float("inf"))
+        print(f"  torchrun cli --tp 2: JSON apart from the unsharded CLI's; its smallest margin "
+              f"{smallest:.3e}", flush=True)
+        if smallest >= 1e-3 or [p["file"] for p in got] != [p["file"] for p in want]:
+            raise AssertionError("torchrun cli --tp 2: JSON differs from the unsharded CLI's")
+    print(f"[parallel] torchrun --nproc-per-node {PAR_RANKS} -m whisper_rs_tpu_torch.cli --tp "
+          f"{PAR_RANKS} --dist-backend gloo (f32, {len(files)} files): exit 0, JSON "
+          f"{'equal to' if got == want else 'apart below the margin from'} the unsharded CLI's "
+          f"({len(calls)} decode calls); {run_s:.1f} s wall with start-up and the checkpoint's "
+          f"load on each rank, against {whole_s:.1f} s in one process", flush=True)
+    return {"torchrun_s": run_s, "one_process_s": whole_s}
+
+
+def parallel_phase() -> dict:
+    """[parallel] Two ranks share the card through gloo (``run_ranks(...,
+    backend="gloo", device="cuda")``; NCCL takes one card a rank), base.en
+    at full width and depth, seed-0 weights.  f32 greedy at batch 8 (8
+    seeded 30 s windows, SAMPLE_LEN steps) on TP 2, Ulysses 2 (then greedy
+    through ``encoder_fn``), PP 2 (likewise) and DP 2, each held to the
+    single-process kernel path: the encoder output within PAR_ENC_TOL, the
+    tokens equal per row unless the reference's top-2 margin at the first
+    divergence is below 1e-3, both ranks' tokens equal, and each rank's
+    launches as the path gives them; then the bf16 TP 2 ServingEngine on
+    PAR_SERVE_SECONDS requests (``par_serve_options``),
+    each request's calls held to the unsharded sequential TranscribeTask by
+    ``compare_calls``' rule and its launches to ``recipe_launches``; then
+    TP 1 on a one-card NCCL group against the unsharded model in the same
+    process (tokens, encoder output and scores bit-equal); then the
+    torchrun CLI (``parallel_cli``).  Prints each path's launches by kernel,
+    its collectives a step, the bytes staged and ms a step: two processes
+    time-sharing one card through host-staged collectives, not a scaling
+    figure.  Returns the launches of the TP, Ulysses and serving paths."""
+    from whisper_rs_tpu_torch.parallel.launch import run_ranks
+    from whisper_rs_tpu_torch.parallel.pipeline import _default_n_micro
+
+    dims = dims_for(PAR_MODEL)
+    cfg = filter_config(dims)
+    rng = np.random.default_rng(61)
+    audio = np.stack([(rng.standard_normal(N_SAMPLES) * 0.05 * (i % 4 + 1)).astype(np.float32)
+                      for i in range(PAR_BATCH)])
+    serve_audios = seeded_audio(PAR_SERVE_SECONDS, 63)
+    print(f"[parallel] {card_line()}: {PAR_MODEL} full width and depth, {PAR_RANKS} ranks on "
+          f"one card through gloo (host-staged collectives); f32 greedy b{PAR_BATCH} "
+          f"{SAMPLE_LEN} steps on {', '.join(PAR_TEXT.values())}; bf16 TP 2 serving of "
+          f"{PAR_SERVE_SECONDS} s; TP 1 on NCCL; the torchrun CLI", flush=True)
+
+    # the references: one process, the kernel path
+    model = init_random(dims, seed=0, dtype=torch.float32, device="cuda")
+    ref = _par_greedy("one process", model, audio)
+    mel = log_mel_frontend(audio, dims.n_mels)
+    model16 = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+    tok = Tokenizer.for_dims(dims)
+    seq = []
+    for a in serve_audios:
+        with recorded_calls(margins=True) as calls:
+            TranscribeTask(model16, tok, par_serve_options()).run(a)
+        seq.append(calls)
+    del model16
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PAR_RANKS, backend="gloo", device="cuda",
+                      args=(audio, serve_audios), timeout=PAR_TIMEOUT, threads=0)
+    print(f"  {PAR_RANKS} ranks spawned, run and joined in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    L, Lt = dims.n_audio_layer, dims.n_text_layer
+    n_micro = _default_n_micro(PAR_BATCH, 2)
+    ref_ms = ref["wall"] / max(ref["steps"], 1) * 1e3
+    print(f"  one process (the reference): {ref['steps']} steps, {ref_ms:.2f} ms a step "
+          f"(mel, encoder and prefill included)", flush=True)
+    launches = {}
+    for name in PAR_PATHS:
+        what = f"{PAR_TEXT[name]} greedy"
+        got = ranks[0][name]
+        d = (got["xa"] - ref["xa"]).abs().max().item()
+        print(f"  {what}: encoder output max_abs_err {d:.3e} (tolerance {PAR_ENC_TOL:g})",
+              flush=True)
+        if not d <= PAR_ENC_TOL:
+            raise AssertionError(f"{what}: encoder output off by {d:.3e}")
+        compare_greedy(what, got["tokens"], ref["tokens"], model, mel, cfg)
+        if not torch.equal(ranks[1][name]["tokens"], got["tokens"]):
+            raise AssertionError(f"{what}: the two ranks' tokens differ")
+        for r, res in enumerate(ranks):
+            steps = res[name]["steps"]
+            expect = expected_launches(dims, steps, steps + 1, "append")
+            if name == "ulysses":
+                expect.update(encoder_attention_merged=0, encoder_attention_split=L)
+            if name == "pp":  # the stage's L / 2 blocks, once a microbatch
+                expect.update({k: L // 2 * n_micro for k in
+                               ("ln_fused", "residual_ln", "encoder_attention_merged")})
+            if name == "dp":  # each rank's own loop: its steps are not the gathered count
+                expect = {k: True for k, v in expect.items() if v}
+            check_route_counts(f"{what} rank {r}", res[name]["launches"], expect)
+            ms = res[name]["wall"] / max(steps, 1) * 1e3
+            st = res[name]["stats"]
+            print(f"  {what} rank {r}: {steps} steps, {ms:.2f} ms a step (mel, encoder and "
+                  f"prefill included); {st['collectives']} collectives "
+                  f"({st['collectives'] / max(steps, 1):.1f} a step), "
+                  f"{st['bytes_staged'] / 1e6:.2f} MB staged through host memory; launches "
+                  f"{ {k: v for k, v in res[name]['launches'].items() if v} }", flush=True)
+        launches[name] = ranks[0][name]["launches"]
+
+    srv = ranks[0]["serve"]
+    for rid, calls in zip(srv["rids"], seq):
+        compare_calls(f"bf16 TP 2 serve request {rid} against the unsharded sequential task",
+                      *trimmed(request_calls(srv["calls"], rid), request_calls(calls)))
+    check_route_counts("bf16 TP 2 serve", srv["launches"],
+                       recipe_launches(dims, srv["calls"], len(PAR_SERVE_SECONDS)))
+    steps = sum(c["steps"] for c in srv["calls"])
+    st = srv["stats"]
+    print(f"  bf16 TP 2 serve: {len(PAR_SERVE_SECONDS)} requests, {len(srv['calls'])} calls of "
+          f"{SERVE_BATCH} rows, {steps} steps; each request's calls held to the unsharded "
+          f"sequential task; {sum(PAR_SERVE_SECONDS) / srv['wall']:.2f} audio-s/s; "
+          f"{srv['wall'] / max(steps, 1) * 1e3:.2f} ms a step; {st['collectives']} collectives "
+          f"({st['collectives'] / max(steps, 1):.1f} a step), {st['bytes_staged'] / 1e6:.2f} MB "
+          f"staged; the follower mirrored {ranks[1]['serve']['follower_calls']} calls; launches "
+          f"{ {k: v for k, v in srv['launches'].items() if v} }", flush=True)
+    launches["serve"] = srv["launches"]
+
+    whole, tp1 = ranks[0]["nccl"]["whole"], ranks[0]["nccl"]["tp1"]
+    if not torch.equal(whole["tokens"], tp1["tokens"]):
+        raise AssertionError("TP 1 on NCCL: tokens differ from the unsharded model's")
+    dx = (whole["xa"] - tp1["xa"]).abs().max().item()
+    ds = (whole["scores"] - tp1["scores"]).abs().max().item()
+    if dx or ds:
+        raise AssertionError(f"TP 1 on NCCL: encoder output off by {dx:.3e}, scores by {ds:.3e}")
+    st = tp1["stats"]
+    if st["collectives"] < 1 or st["bytes_staged"]:
+        raise AssertionError(f"TP 1 on NCCL: collectives {st}: none ran on the card")
+    print(f"  TP 1 on a one-card NCCL group: tokens, encoder output and scores bit-equal to "
+          f"the unsharded model's; {st['collectives']} collectives on the card, none staged",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    parallel_cli(seeded_checkpoint())
+    return launches
+
+
 # substrings of the device kernel names of the port's own kernels
 OWN_KERNELS = {
     "log_mel_kernel": "log_mel",
@@ -3424,6 +3895,34 @@ def device_kind(name: str) -> str:
     return "library: elementwise/other"
 
 
+def device_events(prof) -> dict:
+    """{name: (device us, count)} of the kernels and copies of a finished
+    ``torch.profiler`` run, less the profiler's own "Activity Buffer
+    Request": what ``prof.key_averages()`` gives for its device-side events,
+    read from the raw Kineto events without building the profiler's Python
+    object and tree of every event, which take seconds for the 10^5 events
+    of a traced e2e run.  An asynchronous event counts with no time, as in
+    ``key_averages()``."""
+    device = torch.autograd.DeviceType.CUDA
+    names: dict = {}
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != device or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            name = torch._C._demangle(raw) if len(raw) > 1 else raw
+            names[raw] = name = "ProfilerStep*" if name.startswith("ProfilerStep#") else name
+        if name == "Activity Buffer Request":
+            continue
+        timed = not (e.is_async() or e.start_thread_id() != e.end_thread_id())
+        us = (e.end_ns() - e.start_ns()) / 1e3 if timed else 0.0
+        t, n = out.get(name, (0.0, 0))
+        out[name] = (t + us, n + 1)
+    return out
+
+
 def device_launches(fn, warmup: int = 2) -> int:
     """Device launches (kernels and copies on the card) of one call of
     ``fn`` under torch.profiler.  The profiler records ``warmup`` calls
@@ -3440,10 +3939,7 @@ def device_launches(fn, warmup: int = 2) -> int:
             fn()
             torch.cuda.synchronize()
             prof.step()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.key != "Activity Buffer Request"]
-    return sum(e.count for e in events)
+    return sum(n for _, n in device_events(prof).values())
 
 
 def profile_run(run, audio, what: str, passes: int = 0) -> dict:
@@ -3452,43 +3948,38 @@ def profile_run(run, audio, what: str, passes: int = 0) -> dict:
     not overlap) and idle share, device time by kind, the top kernels, and
     (given its ``passes`` width-1 decoder passes) its device launches a
     pass.  Returns those numbers (empty where the trace holds no device
-    time).  The profiler records the device's activity alone: with the
-    host's operators too, processing the trace took twice as long (15.3
-    against 7.0 s at base.en b128, H100 80GB HBM3, 700 W) for the same
-    device numbers."""
+    time).  The profiler records the device's activity alone (with the
+    host's operators too, processing the trace took twice as long for the
+    same device numbers), and the trace is read raw (``device_events``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(audio)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events, less the profiler's own buffer bookkeeping
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "Activity Buffer Request"
-    ]
+    events = device_events(prof)
     if not events:
         print("[profile] the trace holds no device time: not measured", flush=True)
         return {}
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    busy_ms = sum(t for t, _ in events.values()) / 1e3
     out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1 - busy_ms / wall_ms}
     print(f"[profile] {what} under torch.profiler: wall {wall_ms:.1f} ms; "
           f"device busy {busy_ms:.1f} ms; idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     if passes:
-        n = sum(e.count for e in events)
+        n = sum(n for _, n in events.values())
         out.update(launches_per_pass=n / passes, busy_ms_per_pass=busy_ms / passes)
         print(f"  device launches (kernels and copies): {n} in all, {n / passes:.1f} a width-1 "
               f"decoder pass over {passes} (the encoder's and prefill's included); device busy "
               f"{busy_ms / passes:.3f} ms a pass", flush=True)
     by_kind: dict = {}
-    for e in events:
-        t, n = by_kind.get(device_kind(e.key), (0.0, 0))
-        by_kind[device_kind(e.key)] = (t + e.self_device_time_total, n + e.count)
+    for name, (us, count) in events.items():
+        t, n = by_kind.get(device_kind(name), (0.0, 0))
+        by_kind[device_kind(name)] = (t + us, n + count)
     for kind, (t, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
         print(f"  {kind:40s} {t / 1e3:9.2f} ms {n:7d} launches")
     print("  top kernels by device time:")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+    for name, (us, count) in sorted(events.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {us / 1e3:9.2f} ms {count:7d}x  {name[:90]}")
     return out
 
 
@@ -3640,6 +4131,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_checks_serve(rows)
     phase_done("kernels serving shapes", t0)
+    t0 = time.perf_counter()
+    kernel_checks_parallel(rows)
+    phase_done("kernels parallel shapes", t0)
 
     for m, _, beam in PATHS + ((routes_model, 0, None),):
         t0 = time.perf_counter()
@@ -3703,6 +4197,11 @@ def main() -> int:
     t0 = time.perf_counter()
     eval_phase()
     phase_done("eval", t0)
+    t0 = time.perf_counter()
+    par = parallel_phase()
+    launches.update({PAR_TP_LABEL: par["tp"], PAR_ULYSSES_LABEL: par["ulysses"],
+                     PAR_SERVE_LABEL: par["serve"]})
+    phase_done("parallel", t0)
 
     # each kernel's headline numbers come from the path of the slice that
     # runs it: the whole-step kernel's from the layer route, the fused
@@ -3721,7 +4220,8 @@ def main() -> int:
                + [c for c in rows if c.endswith("bf16 cache") or c == "large-v3 b12 int8"]
                + list(SPLIT_SHAPES) + [GOLDEN_BEAM_LABEL, *GOLDEN_OFF_LABELS, TRANSCRIBE_LABEL,
                                        MLP_TILES_LABEL, G10_LABEL, RECIPE_LABEL, CLI_LABEL,
-                                       SERVE_LABEL, INT8_MM_LABEL])
+                                       SERVE_LABEL, INT8_MM_LABEL, PAR_TP_LABEL,
+                                       PAR_ULYSSES_LABEL, PAR_SERVE_LABEL, PAR_TP4_LABEL])
     extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "phase_bound_us",
                   "phase_gbps", "library_call", "read_only_ms", "column_write_ms",
                   "cold_ms", "library_cold_ms", "bit_identical", "plan", "one_window",

@@ -5,7 +5,9 @@ recipe (the six-rung ladder, the no-speech threshold, word timestamps) as
 JSON equal to the JAX CLI's; ``--format srt|vtt|txt`` equal; ``--batch 2``
 equal to the JAX ``--batch 2`` and to the port's own sequential run; a
 missing file (exit 1, the other files still transcribed); ``--tp 2`` and
-``--pp 2`` refused (exit 2); ``python -m whisper_rs_tpu_torch.cli``."""
+``--pp 2`` refused in one process (exit 2, naming torchrun); ``--tp 2`` on
+two gloo processes under torchrun equal to one process;
+``python -m whisper_rs_tpu_torch.cli``."""
 
 import json
 import subprocess
@@ -135,10 +137,36 @@ def test_missing_file_fails_alone(files, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp"])
-def test_parallel_flags_are_refused(files, capsys, flag):
+def test_parallel_flags_are_refused(files, capsys, monkeypatch, flag):
+    """--tp 2 or --pp 2 in one process, with no process group: exit 2 and a
+    message that names torchrun, which starts a process a rank."""
     ckpt, wavs = files
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     rc, out = _run(main, [wavs[1], "--checkpoint", ckpt, flag, "2", "--device", "cpu"], capsys)
-    assert rc == 2 and "not ported" in out.err and out.out == ""
+    assert rc == 2 and "torchrun --nproc-per-node 2" in out.err and out.out == ""
+
+
+def test_tp_under_torchrun_matches_one_process(files, capsys):
+    """``torchrun --nproc-per-node 2 -m whisper_rs_tpu_torch.cli ... --tp 2
+    --dist-backend gloo``: exit 0, and rank 0 alone prints the JSON of the
+    one-process CLI."""
+    import os
+    import pathlib
+
+    ckpt, wavs = files
+    argv = [*wavs, "--checkpoint", ckpt, "--greedy", "--sample-len", "6", "--dtype", "float32",
+            "--json", "--language", "en", "--device", "cpu"]
+    rc, want = _run(main, argv, capsys)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "whisper_rs_tpu_torch.cli", *argv, "--tp", "2", "--dist-backend", "gloo"],
+        capture_output=True, text=True, timeout=240, cwd=root, env=env)
+    assert rc == 0 and proc.returncode == 0, proc.stderr[-2000:]
+    assert len(_json_lines(proc.stdout)) == len(wavs)
+    _assert_payloads_equal(_json_lines(proc.stdout), _json_lines(want.out))
 
 
 def test_runs_as_a_module(files):

@@ -337,7 +337,8 @@ def test_refused_shapes_raise_off_the_cpu(name):
     ("mlp D 512", True), ("mlp D 1280", True), ("mlp D 576", True), ("mlp D 64", True),
     ("mlp D 60", False),
     ("split dh 16", True), ("split dh 64", True), ("split dh 128", False),
-    ("split dh 24", False),
+    ("split dh 24", False), ("mlp D 512 hidden 1024", True), ("mlp D 1280 hidden 1280", True),
+    ("mlp D 512 hidden 1020", False),
     ("merged H 8 dh 64", True), ("merged H 5 dh 64", False), ("merged H 4 dh 16", False),
     ("layer 16 rows", True), ("layer 17 rows", False), ("layer G 8", True),
     ("layer G 5", False), ("layer dh 16", False), ("layer Tk 1502", False),
@@ -368,6 +369,9 @@ def test_route_predicates(case, takes):
         "mlp D 576": lambda: mlp_kernel_takes(576),
         "mlp D 64": lambda: mlp_kernel_takes(64),
         "mlp D 60": lambda: mlp_kernel_takes(60),
+        "mlp D 512 hidden 1024": lambda: mlp_kernel_takes(512, 1024),  # base.en at TP 2
+        "mlp D 1280 hidden 1280": lambda: mlp_kernel_takes(1280, 1280),  # large-v3 at TP 4
+        "mlp D 512 hidden 1020": lambda: mlp_kernel_takes(512, 1020),
         "split dh 16": lambda: split_kernel_takes(16),
         "split dh 64": lambda: split_kernel_takes(64),
         "split dh 128": lambda: split_kernel_takes(128),
@@ -885,3 +889,106 @@ def test_chip_smoke_route_counts(chip_smoke):
     ):
         with pytest.raises(AssertionError):
             chip_smoke.check_route_counts("x", bad, want)
+
+
+@pytest.mark.parametrize("device_type,backend,want", [
+    ("cuda", "gloo", "stage"), ("cuda", "nccl", "device"), ("cpu", "gloo", "host"),
+    ("cpu", "nccl", None), ("meta", "gloo", None),
+])
+def test_collective_routes(device_type, backend, want):
+    """Under gloo a card's tensor is staged through host memory (gloo has no
+    CUDA all-to-all, all-gather or send/recv), a CPU tensor taken as it is;
+    under NCCL a card's tensor stays on the card, and a CPU tensor is
+    refused."""
+    from whisper_rs_tpu_torch.parallel.collectives import route
+
+    if want is None:
+        with pytest.raises(ValueError):
+            route(device_type, backend)
+    else:
+        assert route(device_type, backend) == want
+
+
+def test_initialize_multihost_does_nothing_for_one_process(monkeypatch):
+    import torch.distributed as dist
+
+    from whisper_rs_tpu_torch.parallel.distributed import initialize_multihost
+    from whisper_rs_tpu_torch.parallel.mesh import make_mesh
+
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    assert initialize_multihost() is False
+    assert initialize_multihost("127.0.0.1:1", 1, 0) is False
+    assert not dist.is_initialized()
+    mesh = make_mesh()
+    assert (mesh.n_stage, mesh.n_data, mesh.n_model, mesh.model_group) == (1, 1, 1, None)
+    with pytest.raises(ValueError, match="not divisible"):
+        make_mesh(n_model=2)
+
+
+def test_initialize_multihost_refuses_nccl_beyond_the_cards(monkeypatch):
+    import torch.distributed as dist
+
+    from whisper_rs_tpu_torch.parallel.distributed import initialize_multihost
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        initialize_multihost("127.0.0.1:1", 2, 0, backend="nccl")
+    assert not dist.is_initialized()
+
+
+def test_ranks_keep_the_environment_they_started_with(monkeypatch):
+    """``Ranks`` returns once every rank has started, so a setting the
+    caller changes while the ranks run (a test's own single-process run
+    switching WHISPER_INT8_MATMUL) never reaches a rank."""
+    import torch_ranks
+
+    from whisper_rs_tpu_torch.parallel.launch import Ranks
+
+    name = "WHISPER_RANKS_ENV_PROBE"
+    monkeypatch.setenv(name, "before")
+    ranks = Ranks(torch_ranks.env_rank, 2, args=(name,))
+    monkeypatch.setenv(name, "after")
+    assert ranks.wait(120) == ["before", "before"]
+
+
+def test_layer_route_refuses_a_tensor_parallel_model():
+    """The whole-step kernel cannot sum a layer's partial products over the
+    model group: a split decoder refuses the layer route, the append and
+    ctx routes take it."""
+    from whisper_rs_tpu_torch.config import ModelDims
+    from whisper_rs_tpu_torch.models import init_random
+    from whisper_rs_tpu_torch.parallel.mesh import Mesh
+
+    model = init_random(ModelDims(80, 1000, 1500, 64, 4, 2, 448, 64, 4, 2), 0, device="cpu")
+    model.decoder.tp = Mesh(n_model=2)
+    with pytest.raises(ValueError, match="tensor-parallel"):
+        model.decoder.check_route("layer")
+    model.decoder.check_route("append")
+    model.decoder.check_route("ctx")
+
+
+def test_debug_helpers(tmp_path, monkeypatch, caplog):
+    """``start_profiler``/``stop_profiler`` write a Chrome trace holding a
+    ``profiler_trace`` span; ``tensor_dbg`` logs only under
+    WHISPER_DEBUG_TENSORS=1."""
+    import json
+    import logging
+
+    from whisper_rs_tpu_torch.utils import debug
+
+    debug.start_profiler(str(tmp_path))
+    with pytest.raises(RuntimeError, match="already running"):
+        debug.start_profiler(str(tmp_path))
+    with debug.profiler_trace("whisper-span"):
+        torch.ones(4).sum()
+    path = debug.stop_profiler()
+    assert path.parent == tmp_path
+    assert any(e.get("name") == "whisper-span" for e in json.loads(path.read_text())["traceEvents"])
+    with caplog.at_level(logging.INFO, logger="whisper_rs_tpu_torch"):
+        debug.tensor_dbg("x", torch.ones(3))
+        assert not caplog.records
+        monkeypatch.setattr(debug, "_DEBUG_TENSORS", True)
+        debug.tensor_dbg("x", torch.full((3,), -2.0))
+    assert "x: shape=(3,) mean=-2.0 absmax=2.0" in caplog.text

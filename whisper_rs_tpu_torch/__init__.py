@@ -3,9 +3,10 @@
 layer, long-audio transcription with the temperature fallback ladder and
 word timestamps, audio file input, the batch driver (``parallel``), the
 serving engine (``serve``: continuous batching), the int8×int8 matmuls
-(``WHISPER_INT8_MATMUL=1``), the command line (``cli``) and the evaluation
-tools (``tools``), with hand-written Hopper kernels (``csrc/``) on the hot
-path.
+(``WHISPER_INT8_MATMUL=1``), the command line (``cli``), the evaluation
+tools (``tools``) and tensor, pipeline, sequence and data parallelism on
+``torch.distributed`` (``parallel``), with hand-written Hopper kernels
+(``csrc/``) on the hot path.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no ``device`` they raise (``device.resolve_device``).

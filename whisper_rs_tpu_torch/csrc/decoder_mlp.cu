@@ -430,11 +430,11 @@ cudaError_t launch_tc(const bf16* x, const bf16* w, const bf16* bias, bf16* out,
 
 template <typename T>
 int launch(const void* h, const void* w1, const void* b1, const void* w2, void* g, void* out,
-           int B, int D, void* stream) {
-    // whole 4-element loads, and whole warps of ROWS rows over D and 4D
-    if (B < 1 || D < WARPS * ROWS || D % (WARPS * ROWS))
+           int B, int D, int H4, void* stream) {
+    // whole 4-element loads, and whole warps of ROWS rows over D and the hidden width
+    if (B < 1 || D < WARPS * ROWS || D % (WARPS * ROWS) || H4 < WARPS * ROWS ||
+        H4 % (WARPS * ROWS))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int H4 = 4 * D;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int btiles = (B + MB - 1) / MB;
     const dim3 fc1_grid(H4 / (WARPS * ROWS), btiles), fc2_grid(D / (WARPS * ROWS), btiles);
@@ -459,16 +459,17 @@ int launch(const void* h, const void* w1, const void* b1, const void* w2, void* 
 
 }  // namespace
 
-// h, out: [B, D]; w1: [4D, D]; b1: [4D]; w2: [D, 4D]; g: [B, 4D] scratch;
-// all contiguous, 16-byte aligned; D % 8 == 0.  (nt1, ntiles1, splits1) and
+// h, out: [B, D]; w1: [F, D]; b1: [F]; w2: [D, F]; g: [B, F] scratch, F the
+// hidden width (4D, or a tensor-parallel shard's 4D / tp); all contiguous,
+// 16-byte aligned; D % 8 == 0 and F % 8 == 0.  (nt1, ntiles1, splits1) and
 // (nt2, ntiles2, splits2) are fc1's and fc2's launch plans
 // (ops/decoder_mlp_fused.py::mlp_launch_plan).
 extern "C" int decoder_mlp_bf16(const void* h, const void* w1, const void* b1, const void* w2,
-                                void* g, void* out, int B, int D, int nt1, int ntiles1,
+                                void* g, void* out, int B, int D, int H4, int nt1, int ntiles1,
                                 int splits1, int nt2, int ntiles2, int splits2, void* stream) {
-    if (B < 1 || D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (B < 1 || D < 8 || D % 8 || H4 < 8 || H4 % 8)
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int H4 = 4 * D;
     cudaError_t err = launch_tc<true>(static_cast<const bf16*>(h), static_cast<const bf16*>(w1),
                                       static_cast<const bf16*>(b1), static_cast<bf16*>(g), B, H4,
                                       D, nt1, ntiles1, splits1, s);
@@ -481,6 +482,6 @@ extern "C" int decoder_mlp_bf16(const void* h, const void* w1, const void* b1, c
 
 // The same at f32 on the FMA pipes (no plan: its grid is fixed by shape).
 extern "C" int decoder_mlp_f32(const void* h, const void* w1, const void* b1, const void* w2,
-                               void* g, void* out, int B, int D, void* stream) {
-    return launch<float>(h, w1, b1, w2, g, out, B, D, stream);
+                               void* g, void* out, int B, int D, int H4, void* stream) {
+    return launch<float>(h, w1, b1, w2, g, out, B, D, H4, stream);
 }

@@ -17,6 +17,11 @@
      piece in scripts written without spaces), punctuation glued to the
      word before.
 
+Under tensor parallelism each rank holds ``n_text_head / tp`` heads of a
+layer, while ``alignment_heads`` names global (layer, head) pairs: the f32
+cross logits of each named layer are gathered over the model group before
+the heads are picked, so every rank aligns the same words.
+
 The pass is the decoder's own prefill on the model's device, its plain path
 in ``torch.matmul`` (the JAX package computes it outside any Pallas
 kernel), the products of the alignment logits in f32
@@ -35,6 +40,7 @@ import torch
 
 from ..config import ModelDims
 from ..models.whisper import KVCache, Whisper, precompute_cross_kv
+from ..parallel.collectives import all_gather_model
 
 TIME_PER_FRAME = 0.02  # seconds per encoder frame: 2 mel hops of 10 ms
 
@@ -70,14 +76,16 @@ def _alignment_qk(
     heads: Tuple[Tuple[int, int], ...],
 ) -> torch.Tensor:  # [n_heads, T, Tk] f32 pre-softmax cross-attention logits
     """One teacher-forced prefill of the decoder (its plain path, a cache of
-    T slots, unquantised cross K/V) that keeps each layer's cross logits."""
+    T slots, unquantised cross K/V) that keeps each layer's cross logits,
+    the heads of a tensor-parallel model gathered over its model group."""
     T = tokens.shape[0]
     cross_kv = precompute_cross_kv(model, xa[None].to(model.dtype))
-    cache = KVCache.init(model.dims, 1, model.dtype, model.device)
+    cache = KVCache.init(model.dims, 1, model.dtype, model.device, n_head=model.decoder.n_head)
     logits = {layer: None for layer, _ in heads}
     model.decoder(tokens[None], 0, cross_kv, cache, ctx_window=T, kernels=False,
                   logit_positions=torch.tensor([T - 1], device=tokens.device),
                   cross_logits=logits)
+    logits = {layer: all_gather_model(qk, model.decoder.tp, dim=1) for layer, qk in logits.items()}
     return torch.stack([logits[layer][0, h] for layer, h in heads])
 
 

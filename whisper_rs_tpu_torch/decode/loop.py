@@ -24,18 +24,32 @@ which moves with the prompt bucket), so an audio draws the same noise
 alone or inside a batch.  Every key of a decode is made once before the
 step loop (``rng.row_keys``); a step hashes only its noise on the device
 and adds no host sync.
+
+Data parallelism: on a model with a mesh of more than one data rank
+(``parallel.sharding.shard_model``), ``decode_greedy`` and ``decode_beam``
+split the batch by audio into one contiguous block a data rank (padded
+with repeats of the last audio to a multiple of the ranks, as the JAX
+driver pads), decode the rank's block, and gather every block's outputs
+over the data group, so every rank returns the whole batch.  An audio's
+beams or sampled rows stay on one rank; a row's noise depends on its index
+modulo the group only, so the draws are the single process's.
+``encoder_fn(model, mel, kernels)`` replaces the encoder (the pipeline
+and Ulysses encoders of ``parallel``), as the JAX loop's ``encoder_fn``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from ..config import BeamSearchMode, GreedyMode
-from ..models.whisper import CrossKV, KVCache, Whisper, precompute_cross_kv
+from ..models.whisper import CrossKV, KVCache, Whisper, encoder_forward, precompute_cross_kv
 from ..ops.decoder_layer_fused import decoder_step_weights
+from ..parallel.collectives import all_gather_data
+from ..parallel.sharding import shard_batch
 from . import rng
 from .filters import FilterConfig, apply_filters, log_softmax
 
@@ -56,13 +70,15 @@ class DecodeResult:
 def _encode_and_prefill(
     model: Whisper, mel, initial_tokens, sample_begin: int, sot_idx: int, group: int,
     cfg: FilterConfig, no_speech_id: int, key_start, kernels: bool, quantize_kv: bool = False,
+    encoder_fn=None,
 ):
-    """Encoder forward, group repeat, prefill pass; with ``quantize_kv`` the
+    """Encoder forward (``encoder_fn(model, mel, kernels)`` in its place
+    where given), group repeat, prefill pass; with ``quantize_kv`` the
     cross K/V and the cache are int8 with per-position scales.  Returns
     (tokens [B, n_ctx], first-step filtered logits [B, V], cache, cross_kv,
     no_speech_probs [n_audio], audio features, key_start)."""
     dims = model.dims
-    xa = model.encoder(mel.to(model.dtype), kernels=kernels)
+    xa = encoder_forward(model, mel.to(model.dtype), kernels=kernels, encoder_fn=encoder_fn)
     if group > 1:
         initial_tokens = initial_tokens.repeat_interleave(group, dim=0)
         if key_start is not None:
@@ -70,7 +86,8 @@ def _encode_and_prefill(
     B = initial_tokens.shape[0]
 
     cross_kv = precompute_cross_kv(model, xa, quantize=quantize_kv)
-    cache = KVCache.init(dims, B, xa.dtype, xa.device, quantize=quantize_kv)
+    cache = KVCache.init(dims, B, xa.dtype, xa.device, quantize=quantize_kv,
+                         n_head=model.decoder.n_head)
 
     # only the SOT row (no-speech probability) and the last prompt row (the
     # first sampled position) need logits
@@ -139,6 +156,33 @@ def _greedy_update(logits, tokens, pos: int, sum_logprobs, finished, eot: int,
     return sum_logprobs, finished
 
 
+def data_parallel(decode):
+    """``decode`` (``decode_greedy`` or ``decode_beam``) split by audio over
+    the data ranks of ``model.mesh`` and gathered (see the module
+    docstring); as it is on one data rank."""
+
+    @functools.wraps(decode)
+    def run(model, mel, initial_tokens, *args, key_start=None, **kwargs) -> DecodeResult:
+        mesh = getattr(model, "mesh", None)
+        if mesh is None or (mesh.n_data == 1 and mesh.data_group is None):
+            return decode(model, mel, initial_tokens, *args, key_start=key_start, **kwargs)
+        dev = model.device
+        mel = torch.as_tensor(mel).to(dev)
+        initial_tokens = torch.as_tensor(initial_tokens, dtype=torch.long, device=dev)
+        n_audio = mel.shape[0]
+        if key_start is not None:
+            key_start = shard_batch(torch.as_tensor(key_start, dtype=torch.long, device=dev), mesh)
+        res = decode(model, shard_batch(mel, mesh), shard_batch(initial_tokens, mesh), *args,
+                     key_start=key_start, **kwargs)
+        steps = all_gather_data(torch.tensor([res.steps], device=dev), mesh)
+        gathered = (all_gather_data(t, mesh)[:n_audio] for t in (
+            res.candidates, res.scores, res.no_speech_probs, res.audio_features))
+        return DecodeResult(*gathered, steps=int(steps.max()))
+
+    return run
+
+
+@data_parallel
 def decode_greedy(
     model: Whisper,
     mel: torch.Tensor,  # [n_audio, n_mels, 3000] on the model's device
@@ -155,6 +199,7 @@ def decode_greedy(
     quantize_kv: bool = False,
     rng_key: Optional[torch.Tensor] = None,  # [2] threefry key (rng.PRNGKey)
     temperature: Optional[float] = None,  # overrides mode.temperature
+    encoder_fn=None,  # (model, mel, kernels) -> xa in the encoder's place
 ) -> DecodeResult:
     """Greedy decode of one batch of 30 s windows.  ``kernels=False`` runs
     every kernel's plain version instead (the reference path on the card).
@@ -184,7 +229,7 @@ def decode_greedy(
 
     tokens, logits, cache, cross_kv, no_speech, feats, key_start = _encode_and_prefill(
         model, mel.to(dev), initial_tokens, sample_begin, sot_idx, group, cfg,
-        no_speech_id, key_start, kernels, quantize_kv,
+        no_speech_id, key_start, kernels, quantize_kv, encoder_fn,
     )
     B = tokens.shape[0]
     n_audio = B // group
@@ -317,6 +362,7 @@ def _beam_step(logits, s: _BeamState, pos: int, beam: int, cap: int, eot: int) -
     )
 
 
+@data_parallel
 def decode_beam(
     model: Whisper,
     mel: torch.Tensor,  # [n_audio, n_mels, 3000] on the model's device
@@ -330,6 +376,7 @@ def decode_beam(
     key_start=None,  # [n_audio] first valid prompt slot per row
     kernels: bool = True,
     quantize_kv: bool = False,
+    encoder_fn=None,  # (model, mel, kernels) -> xa in the encoder's place
 ) -> DecodeResult:
     """Beam-search decode of one batch of 30 s windows: ``beam_size`` rows
     per audio share one cross K/V, and every step reads the self-attention
@@ -348,7 +395,7 @@ def decode_beam(
 
     tokens, logits, cache, cross_kv, no_speech, feats, key_start = _encode_and_prefill(
         model, mel.to(dev), initial_tokens, sample_begin, sot_idx, beam, cfg,
-        no_speech_id, key_start, kernels, quantize_kv,
+        no_speech_id, key_start, kernels, quantize_kv, encoder_fn,
     )
     B = tokens.shape[0]
     n_audio = B // beam

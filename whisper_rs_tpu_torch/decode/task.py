@@ -9,7 +9,11 @@ candidates and detokenizes the chosen one of each audio.  A greedy task
 takes a temperature override at run time (the JAX package's traced
 temperature: one task serves every rung of the fallback ladder);
 ``keep_audio_features`` hands each audio's encoder output to the caller,
-on the model's device, for word alignment.
+on the model's device, for word alignment.  ``encoder_fn`` routes the
+encoder through the pipeline or Ulysses (``parallel``), as the JAX task's
+``encoder_fn``; on a model with data ranks the decode splits the batch
+over them and gathers the outputs (``decode.loop.data_parallel``), so every
+rank assembles the same outputs.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ class DecodeTask:
     sampled at a temperature above 0) or beam search, as ``options.mode``
     says.  ``kernels``, ``step_kernel`` (greedy only) and ``quantize_kv``
     pass through to the decode loop; with ``keep_audio_features`` each
-    output carries its audio's encoder output."""
+    output carries its audio's encoder output.  ``encoder_fn(model, mel,
+    kernels)``, where given, runs in the encoder's place."""
 
     def __init__(
         self,
@@ -59,6 +64,7 @@ class DecodeTask:
         quantize_kv: bool = False,
         kernels: bool = True,
         step_kernel: str = "append",
+        encoder_fn=None,
     ):
         dims = model.dims
         self.model = model
@@ -69,6 +75,7 @@ class DecodeTask:
         self.quantize_kv = quantize_kv
         self.kernels = kernels
         self.step_kernel = step_kernel
+        self.encoder_fn = encoder_fn
 
         suppress: tuple = tuple(options.suppress_tokens or ())
         if options.suppress_non_speech:
@@ -130,7 +137,8 @@ class DecodeTask:
         )
         args = (self.model, mel.to(self.model.device), tokens, sample_begin, sot_idx,
                 self.filter_cfg, mode, self.sample_len, tok.token_id_no_speech)
-        kwargs = dict(key_start=key_start, kernels=self.kernels, quantize_kv=self.quantize_kv)
+        kwargs = dict(key_start=key_start, kernels=self.kernels, quantize_kv=self.quantize_kv,
+                      encoder_fn=self.encoder_fn)
         if greedy:
             result = decode_greedy(*args, step_kernel=self.step_kernel,
                                    temperature=temperature, **kwargs)

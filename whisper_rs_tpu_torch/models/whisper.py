@@ -65,6 +65,21 @@ branch.  The ctx and layer
 routes take no int8 cache, and the layer route no int8 weights: the JAX
 package switches them off there.
 
+Tensor parallelism (``parallel.sharding.shard_model``, the JAX package's
+Megatron rules): each rank of the model group holds its shard of the
+weights as plain tensors, and the modules call the collectives of
+``parallel/collectives.py`` where GSPMD puts them.  q, k, v and fc1 are
+split by output rows (heads and the 4D hidden split; their biases and int8
+scales follow), attention out and fc2 by input columns, each followed by
+one sum over the group (``row_linear``); conv1 by output channels and
+conv2 by input channels, summed before its GELU; the tied token table by
+vocab rows (padded to a multiple of the group), its lookup masked to the
+rank's rows and summed, its logits gathered to the whole vocab before the
+filters.  Head counts are the shard's
+(``MultiHeadAttention.n_head``), never ``dims``'; the layer route takes no
+split model.  ``AudioEncoder.stage_layers`` marks an encoder that holds one
+pipeline stage's blocks (``parallel/pipeline.py`` runs it).
+
 The KV cache is updated in place.  Its planes are ctx-major
 ``[L, B, H, n_ctx, dh]``; the cross K/V keeps the JAX fused layout
 ``[L, B, H, 2, dh, Tk]`` that the cross kernel reads.
@@ -111,6 +126,7 @@ from ..ops.encoder_attention import (
     merged_kernel_takes,
 )
 from ..ops.encoder_fused import ln_fused, ln_fused_plain, residual_ln, residual_ln_plain
+from ..parallel.collectives import all_gather_model, all_reduce_model
 
 
 STEP_KERNELS = ("append", "ctx", "layer")  # an incremental greedy step's routes
@@ -150,9 +166,10 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
-def conv1d_mm(x: torch.Tensor, conv: nn.Conv1d, stride: int) -> torch.Tensor:
+def conv1d_mm(x: torch.Tensor, conv: nn.Conv1d, stride: int, bias: bool = True) -> torch.Tensor:
     """k=3, pad=1 conv1d as three shifted matmuls: x [B, T, C_in] ->
-    [B, T // stride, C_out]; tap j adds ``shift(x, j - 1) @ W[:, :, j].T``."""
+    [B, T // stride, C_out]; tap j adds ``shift(x, j - 1) @ W[:, :, j].T``;
+    the bias last (none with ``bias=False``)."""
     w = conv.weight.to(x.dtype)  # [C_out, C_in, 3]
     T = x.shape[1]
     T_out = T // stride
@@ -162,7 +179,7 @@ def conv1d_mm(x: torch.Tensor, conv: nn.Conv1d, stride: int) -> torch.Tensor:
         xj = xp[:, j : j + T : stride][:, :T_out]
         part = xj @ w[:, :, j].T
         y = part if y is None else y + part
-    return y + conv.bias.to(x.dtype)
+    return y + conv.bias.to(x.dtype) if bias else y
 
 
 def attend(q, k, v, mask, k_scale=None, v_scale=None) -> torch.Tensor:
@@ -219,10 +236,13 @@ class KVCache:
         return self.k_scale is not None
 
     @staticmethod
-    def init(dims: ModelDims, batch: int, dtype, device, quantize: bool = False) -> "KVCache":
+    def init(dims: ModelDims, batch: int, dtype, device, quantize: bool = False,
+             n_head: Optional[int] = None) -> "KVCache":
         """Zeros in ``dtype``, or (``quantize``) int8 zeros with scales of
-        one, as in the JAX package."""
-        shape = (dims.n_text_layer, batch, dims.n_text_head, dims.n_text_ctx, dims.head_dim)
+        one, as in the JAX package; ``n_head`` heads (a tensor-parallel
+        shard's, ``TextDecoder.n_head``), by default ``dims.n_text_head``."""
+        shape = (dims.n_text_layer, batch, n_head or dims.n_text_head, dims.n_text_ctx,
+                 dims.head_dim)
         if not quantize:
             return KVCache(
                 torch.zeros(shape, dtype=dtype, device=device),
@@ -364,25 +384,55 @@ class QuantEmbedding(nn.Module):
         self.scale = _frozen(torch.empty(n_vocab))
 
 
+def row_linear(lin: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A linear split by input columns over the model group of ``mesh``: the
+    rank's partial product, then the sum over the group.  The bias of an
+    ``nn.Linear`` joins the first rank's product (``F.linear`` with it, so
+    one rank gives the unsplit linear bit for bit); an int8 linear takes
+    its scale and bias after the sum (GSPMD's order: the psum right after
+    the dot), and under ``int8_matmul_enabled()`` quantises x's rows with
+    their amax over the whole row (a max over the group) and sums the exact
+    int32 products, which gives the unsplit linear's result bit for bit.
+    Without a group (``mesh`` None, or one rank and no group) it is
+    ``lin(x)``."""
+    if mesh is None or (mesh.n_model == 1 and mesh.model_group is None):
+        return lin(x)
+    if not isinstance(lin, QuantLinear):
+        return all_reduce_model(F.linear(x, lin.weight, lin.bias if mesh.model == 0 else None),
+                                mesh)
+    if int8_matmul_enabled():
+        xf = x.float()
+        s_x = all_reduce_model(xf.abs().amax(dim=-1), mesh, op="max").clamp(min=1e-8) / 127.0
+        xq = torch.round(xf / s_x[..., None]).clamp(-127, 127).to(torch.int8)
+        acc = all_reduce_model(int8_mm(xq.reshape(-1, xq.shape[-1]), lin.weight), mesh)
+        y = acc.view(*x.shape[:-1], -1).float() * s_x[..., None] * lin.scale.float()
+        if lin.bias is not None:
+            y = y + lin.bias.float()
+        return y.to(x.dtype)
+    y = all_reduce_model(x @ lin.weight.to(x.dtype).T, mesh) * lin.scale.to(x.dtype)
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, n_state: int, n_head: int):
         super().__init__()
-        self.n_head = n_head
+        self.n_head = n_head  # a tensor-parallel shard's own (parallel.sharding)
+        self.head_dim = n_state // n_head
         self.query = nn.Linear(n_state, n_state)
         self.key = nn.Linear(n_state, n_state, bias=False)
         self.value = nn.Linear(n_state, n_state)
         self.out = nn.Linear(n_state, n_state)
 
-    def encoder_self(self, x_ln: torch.Tensor, kernels: bool) -> torch.Tensor:
+    def encoder_self(self, x_ln: torch.Tensor, kernels: bool, tp=None) -> torch.Tensor:
         """Full non-causal self-attention (the encoder's), routed as the JAX
         encoder routes it: on merged heads where ``merged_kernel_takes`` the
         shape (head dim 64, an even head count), else on split heads
         ([B, T, D] -> [B, H, T, dh] and back; views, which the split kernel
         reads at their strides).  Int8 q, k and v linears under
         ``int8_matmul_enabled()`` share one quantisation of ``x_ln`` (the
-        JAX ``_int8_qkv``)."""
-        H = self.n_head
-        dh = x_ln.shape[-1] // H
+        JAX ``_int8_qkv``).  Under tensor parallelism (``tp``, the mesh) the
+        heads are the shard's and the out projection is ``row_linear``."""
+        H, dh = self.n_head, self.head_dim
         qkv = (self.query, self.key, self.value)
         if all(isinstance(m, QuantLinear) for m in qkv) and int8_matmul_enabled():
             xq, s_x = quantize_rows(x_ln)
@@ -391,10 +441,10 @@ class MultiHeadAttention(nn.Module):
             q, k, v = (m(x_ln) for m in qkv)
         if merged_kernel_takes(H, dh):
             fn = encoder_attention_merged if kernels else encoder_attention_merged_plain
-            return self.out(fn(q, k, v, H, dh**-0.5))
+            return row_linear(self.out, fn(q, k, v, H, dh**-0.5), tp)
         fn = encoder_attention_split if kernels else encoder_attention_split_plain
         out = fn(*(split_heads(t, H) for t in (q, k, v)), dh**-0.5)
-        return self.out(merge_heads(out))
+        return row_linear(self.out, merge_heads(out), tp)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -408,9 +458,10 @@ class ResidualAttentionBlock(nn.Module):
             nn.Linear(n_state, 4 * n_state), nn.GELU(), nn.Linear(4 * n_state, n_state)
         )
         self.mlp_ln = nn.LayerNorm(n_state)
+        self.tp = None  # the mesh, where the block is split (parallel.sharding)
 
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
-        return self.mlp[2](gelu(self.mlp[0](h)))
+        return row_linear(self.mlp[2], gelu(self.mlp[0](h)), self.tp)
 
     def encoder_forward(self, x: torch.Tensor, kernels: bool) -> torch.Tensor:
         """Encoder block: LN kernel, merged-head attention kernel, fused
@@ -418,7 +469,7 @@ class ResidualAttentionBlock(nn.Module):
         ln, res_ln = (ln_fused, residual_ln) if kernels else (ln_fused_plain, residual_ln_plain)
         a = ln(x, self.attn_ln.weight, self.attn_ln.bias)
         x, h = res_ln(
-            x, self.attn.encoder_self(a, kernels), self.mlp_ln.weight, self.mlp_ln.bias
+            x, self.attn.encoder_self(a, kernels, self.tp), self.mlp_ln.weight, self.mlp_ln.bias
         )
         return x + self._mlp(h)
 
@@ -438,9 +489,8 @@ class ResidualAttentionBlock(nn.Module):
         int8.  A prefill pass whose ``cross_logits`` holds ``layer`` sets it
         to the block's pre-softmax cross-attention logits [B, H, T, Tk] from
         f32 products (q and k upcast, as ``preferred_element_type=f32``)."""
-        B, T, D = x.shape
-        H = self.attn.n_head
-        dh = D // H
+        B, T, _ = x.shape
+        H, dh = self.attn.n_head, self.attn.head_dim
         scale = dh**-0.5
         scales = {"k_scale": cache.k_scale, "v_scale": cache.v_scale} if cache.quantized else {}
 
@@ -466,7 +516,7 @@ class ResidualAttentionBlock(nn.Module):
             else:
                 fn = self_attention_append_step if kernels else self_attention_append_step_plain
                 attn = fn(q, k_new, v_new, *read[1:], window=window)
-            attn = attn.reshape(B, 1, D)
+            attn = attn.reshape(B, 1, H * dh)
         else:
             q = split_heads(self.attn.query(h), H) * scale
             cache.write(layer, pos_offset, split_heads(self.attn.key(h), H),
@@ -475,7 +525,7 @@ class ResidualAttentionBlock(nn.Module):
                 q, cache.k[layer, :, :, :window], cache.v[layer, :, :, :window], mask,
                 **{k: s[layer, :, :, :window] for k, s in scales.items()},
             ))
-        x = x + self.attn.out(attn)
+        x = x + row_linear(self.attn.out, attn, self.tp)
 
         # cross-attention against the precomputed encoder K/V
         h = layer_norm(x, self.cross_attn_ln)
@@ -496,13 +546,14 @@ class ResidualAttentionBlock(nn.Module):
                                                    kv[:, :, 0].float())
             attn = attend_grouped(qx, kv[:, :, 0], kv[:, :, 1], cross_group,
                                   **{k: s[layer] for k, s in cross_scales.items()})
-        x = x + self.cross_attn.out(merge_heads(attn))
+        x = x + row_linear(self.cross_attn.out, merge_heads(attn), self.tp)
 
         h = layer_norm(x, self.mlp_ln)
         if mask is not None or isinstance(self.mlp[0], QuantLinear):
             return x + self._mlp(h)
         fn = decoder_mlp_step if kernels else decoder_mlp_step_plain
         out = fn(h[:, 0], self.mlp[0].weight, self.mlp[0].bias, self.mlp[2].weight)
+        out = all_reduce_model(out, self.tp)
         return x + (out + self.mlp[2].bias.to(out.dtype))[:, None, :]
 
 
@@ -519,13 +570,28 @@ class AudioEncoder(nn.Module):
             ResidualAttentionBlock(n_state, n_head) for _ in range(n_layer)
         )
         self.ln_post = nn.LayerNorm(n_state)
+        self.tp = None  # the mesh, where the stem is split (parallel.sharding)
+        self.stage_layers = None  # (first, end) of a pipeline stage's blocks
+
+    def stem(self, mel: torch.Tensor) -> torch.Tensor:
+        """[B, n_mels, 3000] -> [B, 1500, n_state]: the conv stem (conv2's
+        partial sums summed over the model group, before its bias and
+        GELU, where it is split) and the positional table."""
+        x = mel.transpose(1, 2)  # [B, 3000, n_mels]
+        x = gelu(conv1d_mm(x, self.conv1, stride=1))
+        if self.tp is None:
+            x = gelu(conv1d_mm(x, self.conv2, stride=2))
+        else:
+            x = all_reduce_model(conv1d_mm(x, self.conv2, stride=2, bias=False), self.tp)
+            x = gelu(x + self.conv2.bias.to(x.dtype))
+        return (x + self.positional_embedding.to(x.dtype)).contiguous()
 
     def forward(self, mel: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         """[B, n_mels, 3000] log-mel -> [B, 1500, n_state]."""
-        x = mel.transpose(1, 2)  # [B, 3000, n_mels]
-        x = gelu(conv1d_mm(x, self.conv1, stride=1))
-        x = gelu(conv1d_mm(x, self.conv2, stride=2))
-        x = (x + self.positional_embedding.to(x.dtype)).contiguous()
+        if self.stage_layers is not None:
+            raise ValueError(f"this encoder holds the blocks {self.stage_layers} of one pipeline "
+                             "stage: run it with parallel.pipeline.encoder_forward_pp")
+        x = self.stem(mel)
         for block in self.blocks:
             x = block.encoder_forward(x, kernels)
         return layer_norm(x, self.ln_post)
@@ -541,6 +607,45 @@ class TextDecoder(nn.Module):
             for _ in range(n_layer)
         )
         self.ln = nn.LayerNorm(n_state)
+        self.n_vocab = n_vocab
+        self.tp = None  # the mesh, where the decoder is split (parallel.sharding)
+
+    @property
+    def n_head(self) -> int:
+        """Heads a layer holds: a tensor-parallel shard's own."""
+        return self.blocks[0].attn.n_head
+
+    def embed(self, tokens: torch.Tensor, dtype) -> torch.Tensor:
+        """Token embeddings [..., D] in ``dtype`` (an int8 table dequantised
+        row by row).  A vocab-split table looks up the rank's own rows,
+        zeros elsewhere, and sums over the model group: exactly one rank
+        holds each token."""
+        W = self.token_embedding.weight
+        scale = getattr(self.token_embedding, "scale", None)  # int8 table
+        if self.tp is not None:
+            local = tokens - self.tp.model * W.shape[0]
+            inside = (local >= 0) & (local < W.shape[0])
+            tokens = local.clamp(0, W.shape[0] - 1)
+        emb = W[tokens].to(dtype)
+        if scale is not None:
+            emb = emb * scale[tokens][..., None].to(dtype)
+        if self.tp is None:
+            return emb
+        return all_reduce_model(torch.where(inside[..., None], emb, torch.zeros_like(emb)),
+                                self.tp)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits ``x @ W^T`` of the tied table (an int8 table's rows
+        scaled after the product); a vocab-split table's are gathered over
+        the model group and cut to ``n_vocab`` (its pad rows dropped)."""
+        W = self.token_embedding.weight
+        scale = getattr(self.token_embedding, "scale", None)
+        logits = x.float() @ W.float().T
+        if scale is not None:
+            logits = logits * scale.float()
+        if self.tp is None:
+            return logits
+        return all_gather_model(logits, self.tp, dim=-1)[..., : self.n_vocab]
 
     @staticmethod
     def _mask(q_pos: torch.Tensor, W: int, key_start) -> torch.Tensor:
@@ -563,9 +668,9 @@ class TextDecoder(nn.Module):
                     int8_kv: bool = False) -> None:
         """Raise ``ValueError`` where a pass cannot take ``step_kernel``: an
         unknown route; ctx or layer outside an incremental greedy step, or
-        over int8 K/V; layer over int8 weights.  The JAX package switches
-        both routes off under int8 K/V and the layer route under int8
-        weights (``decode/loop.py``, ``models/whisper.py``)."""
+        over int8 K/V; layer over int8 weights or a tensor-parallel model.  The JAX package
+        switches both routes off under int8 K/V and the layer route under
+        int8 weights (``decode/loop.py``, ``models/whisper.py``)."""
         if step_kernel not in STEP_KERNELS:
             raise ValueError(f"step_kernel must be one of {STEP_KERNELS}, not {step_kernel!r}")
         if step_kernel == "append":
@@ -581,6 +686,9 @@ class TextDecoder(nn.Module):
         if step_kernel == "layer" and any(
                 isinstance(m, QuantLinear) for m in self.blocks.modules()):
             raise ValueError("step_kernel 'layer' takes no int8 weights (quantize_params)")
+        if step_kernel == "layer" and self.tp is not None:
+            raise ValueError("step_kernel 'layer' takes no tensor-parallel model: the whole-step "
+                             "kernel cannot sum a layer's partial products over the model group")
 
     def forward(
         self,
@@ -658,14 +766,10 @@ class TextDecoder(nn.Module):
                          int8_kv=cache.quantized or cross_kv.k_scale is not None)
 
         dtype = self.positional_embedding.dtype
-        emb = self.token_embedding.weight[tokens].to(dtype)
-        emb_scale = getattr(self.token_embedding, "scale", None)  # int8 table
-        if emb_scale is not None:
-            emb = emb * emb_scale[tokens][..., None].to(dtype)
-        x = emb + pos.to(dtype)
+        x = self.embed(tokens, dtype) + pos.to(dtype)
         D = x.shape[-1]
         if step_kernel == "layer" and not layer_kernel_takes(
-                B, cross_group, D // self.blocks[0].attn.n_head, cross_kv.kv.shape[-1],
+                B, cross_group, self.blocks[0].attn.head_dim, cross_kv.kv.shape[-1],
                 cache.k.shape[3], D, x.element_size()):
             if kernels and dev.type != "cpu":
                 count_launch("decoder_step_fused:append")
@@ -686,9 +790,7 @@ class TextDecoder(nn.Module):
                 )
         if logit_positions is not None:
             x = x[:, logit_positions]
-        x = layer_norm(x, self.ln)
-        logits = x.float() @ self.token_embedding.weight.float().T
-        return logits if emb_scale is None else logits * emb_scale.float()
+        return self.logits(layer_norm(x, self.ln))
 
 
 class Whisper(nn.Module):
@@ -703,6 +805,7 @@ class Whisper(nn.Module):
             dims.n_vocab, dims.n_text_ctx, dims.n_text_state, dims.n_text_head,
             dims.n_text_layer,
         )
+        self.mesh = None  # the process mesh (parallel.sharding.shard_model)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -718,8 +821,13 @@ class Whisper(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def encoder_forward(model: Whisper, mel: torch.Tensor, *, kernels: bool = True) -> torch.Tensor:
-    """[B, n_mels, 3000] log-mel -> [B, 1500, n_state] audio features."""
+def encoder_forward(model: Whisper, mel: torch.Tensor, *, kernels: bool = True,
+                    encoder_fn=None) -> torch.Tensor:
+    """[B, n_mels, 3000] log-mel -> [B, 1500, n_state] audio features;
+    ``encoder_fn(model, mel, kernels)`` in the encoder's place where given
+    (``parallel``'s pipeline and Ulysses encoders)."""
+    if encoder_fn is not None:
+        return encoder_fn(model, mel, kernels)
     return model.encoder(mel, kernels=kernels)
 
 
@@ -727,10 +835,10 @@ def precompute_cross_kv(model: Whisper, xa: torch.Tensor, *, quantize: bool = Fa
     """xa [B, Tk, D] -> the stacked cross K/V of every decoder layer; with
     ``quantize``, int8 with f32 per-position scales, each K and V
     quantised per position before the transpose (``quantize_kv``)."""
-    B, Tk, D = xa.shape
+    B, Tk, _ = xa.shape
     blocks = model.decoder.blocks
-    H = blocks[0].cross_attn.n_head
-    kv = torch.empty((len(blocks), B, H, 2, D // H, Tk),
+    H, dh = blocks[0].cross_attn.n_head, blocks[0].cross_attn.head_dim
+    kv = torch.empty((len(blocks), B, H, 2, dh, Tk),
                      dtype=torch.int8 if quantize else xa.dtype, device=xa.device)
     scales = torch.empty((2, len(blocks), B, H, Tk), device=xa.device) if quantize else None
     for layer, block in enumerate(blocks):

@@ -4,8 +4,10 @@ decoder_mlp_step``).
 
   decoder_mlp_step(h, w1, b1, w2) -> gelu(h w1^T + b1) w2^T   # no fc2 bias
 
-h [B, D] in the compute dtype; w1 = ``mlp.0.weight`` [4D, D], b1 [4D],
-w2 = ``mlp.2.weight`` [D, 4D], read in place (no packing).  Rounding
+h [B, D] in the compute dtype; w1 = ``mlp.0.weight`` [F, D], b1 [F],
+w2 = ``mlp.2.weight`` [D, F], read in place (no packing), F the hidden
+width: 4D, or a tensor-parallel shard's 4D / tp (whose partial fc2 sums
+the caller adds up over the model group).  Rounding
 points, as in the Pallas kernel: fc1 summed in f32 with b1, rounded to the
 compute dtype; GELU (exact erf in f32, the tanh form in half precision)
 computed in f32 and rounded; fc2 summed in f32 and cast.  The caller adds
@@ -76,18 +78,21 @@ def gemm_plan(rows: int, depth: int, batch: int) -> GemmPlan:
     return GemmPlan(rows, depth, batch, mtiles, nt, ntiles, chunks, splits)
 
 
-def mlp_launch_plan(batch: int, d_model: int) -> tuple:
-    """(fc1, fc2) plans of the bf16 kernel: fc1 is [4D] rows deep D, fc2 [D]
-    rows deep 4D."""
-    return gemm_plan(4 * d_model, d_model, batch), gemm_plan(d_model, 4 * d_model, batch)
+def mlp_launch_plan(batch: int, d_model: int, hidden: int | None = None) -> tuple:
+    """(fc1, fc2) plans of the bf16 kernel: fc1 is [F] rows deep D, fc2 [D]
+    rows deep F, F the hidden width (default 4D)."""
+    hidden = hidden or 4 * d_model
+    return gemm_plan(hidden, d_model, batch), gemm_plan(d_model, hidden, batch)
 
 
-def mlp_kernel_takes(d_model: int) -> bool:
-    """Whether the MLP kernel takes this width: D a multiple of 8 (the f32
-    kernel's whole blocks of rows over D and 4D, with a tail instance for a
-    D that is not a multiple of its 128-wide chunks; the bf16 kernel's
-    16-byte rows for TMA, zeros past the edges)."""
-    return d_model >= ROWS_A_BLOCK and d_model % ROWS_A_BLOCK == 0
+def mlp_kernel_takes(d_model: int, hidden: int | None = None) -> bool:
+    """Whether the MLP kernel takes these widths: D and the hidden width F
+    (default 4D) multiples of 8 (the f32 kernel's whole blocks of rows over
+    D and F, with a tail instance for a width that is not a multiple of its
+    128-wide chunks; the bf16 kernel's 16-byte rows for TMA, zeros past the
+    edges)."""
+    hidden = hidden or 4 * d_model
+    return all(n >= ROWS_A_BLOCK and n % ROWS_A_BLOCK == 0 for n in (d_model, hidden))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -105,13 +110,15 @@ def decoder_mlp_step_plain(h, w1, b1, w2) -> torch.Tensor:
 
 def decoder_mlp_step(h, w1, b1, w2) -> torch.Tensor:
     """The decode step's MLP without the fc2 bias: the kernel on the card
-    (``mlp_kernel_takes``: D a multiple of 8; any other raises; bf16 at the
-    plan of ``mlp_launch_plan``), the plain version on the CPU."""
+    (``mlp_kernel_takes``: D and the hidden width ``w1.shape[0]`` multiples
+    of 8; any other raises; bf16 at the plan of ``mlp_launch_plan``), the
+    plain version on the CPU."""
     name = "decoder_mlp_step"
-    if not use_kernel(name, mlp_kernel_takes(h.shape[-1]), h.device):
+    if not use_kernel(name, mlp_kernel_takes(h.shape[-1], w1.shape[0]), h.device):
         return decoder_mlp_step_plain(h, w1, b1, w2)
     B, D = h.shape
-    if w1.shape != (4 * D, D) or b1.shape != (4 * D,) or w2.shape != (D, 4 * D):
+    F4 = w1.shape[0]
+    if w1.shape != (F4, D) or b1.shape != (F4,) or w2.shape != (D, F4):
         raise ValueError(
             f"{name}: h {tuple(h.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
             f"w2 {tuple(w2.shape)}"
@@ -124,19 +131,19 @@ def decoder_mlp_step(h, w1, b1, w2) -> torch.Tensor:
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned")
-    g = torch.empty((B, 4 * D), dtype=h.dtype, device=h.device)
+    g = torch.empty((B, F4), dtype=h.dtype, device=h.device)
     out = torch.empty_like(h)
     pointers = (h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(),
-                out.data_ptr(), B, D)
+                out.data_ptr(), B, D, F4)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     if h.dtype == torch.bfloat16:
         symbol = "decoder_mlp_bf16"
-        plan = [n for p in mlp_launch_plan(B, D) for n in (p.nt, p.ntiles, p.splits)]
-        fn = kernel_function("decoder_mlp", symbol, (P,) * 6 + (I,) * 8 + (P,))
+        plan = [n for p in mlp_launch_plan(B, D, F4) for n in (p.nt, p.ntiles, p.splits)]
+        fn = kernel_function("decoder_mlp", symbol, (P,) * 6 + (I,) * 9 + (P,))
         err = fn(*pointers, *plan, stream)
     else:
         symbol = "decoder_mlp_f32"
-        fn = kernel_function("decoder_mlp", symbol, (P,) * 6 + (I, I, P))
+        fn = kernel_function("decoder_mlp", symbol, (P,) * 6 + (I, I, I, P))
         err = fn(*pointers, stream)
     check("decoder_mlp", symbol, err)
     count_launch("decoder_mlp_step")

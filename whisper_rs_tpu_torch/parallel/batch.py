@@ -1,5 +1,5 @@
 """Batched transcription of many files (counterpart of
-``whisper_rs_tpu/parallel/batch.py``, without its mesh): each round takes
+``whisper_rs_tpu/parallel/batch.py``): each round takes
 the next 30 s window of up to ``batch_size`` unfinished files, decodes them
 in one ``DecodeTask.run_batch`` call on the model's device with a prompt per
 utterance, and advances each file's seek, segments and prompt on its own.
@@ -14,6 +14,12 @@ dropped.  A failed call is retried one utterance at a time, so one bad
 input does not fail its batchmates (``run(raise_on_error=False)`` returns
 None for it).  The windows, prompts and sampling keys of every row are
 those of the sequential ``TranscribeTask``, so both give the same output.
+
+On a sharded model (``parallel.sharding.shard_model``) every rank runs the
+driver on the same files: each call's batch is split over the data ranks
+and gathered by the decode, the model ranks split each layer, and every
+rank advances the same seek state.  ``encoder_fn`` routes the encoder
+through the pipeline or Ulysses (the CLI's ``--pp``).
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ class _UttState(Utterance):
 
 class BatchTranscriber:
     """Transcribes files ``batch_size`` windows a call with ``model`` on its
-    device; ``kernels`` passes through to the mel and the decode."""
+    device; ``kernels`` passes through to the mel and the decode,
+    ``encoder_fn`` to the decode."""
 
     def __init__(
         self,
@@ -63,6 +70,7 @@ class BatchTranscriber:
         batch_size: int = 8,
         *,
         kernels: bool = True,
+        encoder_fn=None,
     ):
         self.model = model
         self.dims = model.dims
@@ -71,7 +79,8 @@ class BatchTranscriber:
         self.batch_size = batch_size
         self.kernels = kernels
         self.decode_task = DecodeTask(model, tokenizer, options.decode, kernels=kernels,
-                                      keep_audio_features=options.word_timestamps)
+                                      keep_audio_features=options.word_timestamps,
+                                      encoder_fn=encoder_fn)
         self._sampling_task_cache: Optional[DecodeTask] = None
         self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
                          if options.word_timestamps else None)

@@ -24,6 +24,18 @@ conditioning between them.
     device; the job keeps it there.  Clients and the engine share the
     device's current stream, which orders a mel before its first decode.
 
+On a sharded model (``parallel.sharding.shard_model``: tensor-parallel
+over the model ranks, and the batch of each call over the data ranks)
+every rank must make the same decode calls in the same order, but
+admission depends on when clients submit, so engines on two ranks would
+form different batches and wait in different collectives.  Rank 0 alone
+runs the engine: before each decode call (and each word alignment, whose
+decoder pass is split too) it broadcasts the call's inputs (the padded
+mels, the prompts, the rung and temperature), and every other rank runs
+``serve_follower``, which makes the same calls on what it receives, until
+``close()`` broadcasts the end.  ``encoder_fn`` routes the encoder
+through the pipeline or Ulysses, as for the other drivers.
+
 Rows are independent in the decode (per-row end-aligned prompts), so on the
 CPU every request's output equals the sequential ``TranscribeTask``'s
 whatever the batch holds.  On the card the prefill bucket (the batch's
@@ -48,6 +60,7 @@ import time
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .audio.constants import N_FRAMES, SAMPLE_RATE
 from .audio.mel import pad_or_trim
@@ -56,6 +69,7 @@ from .decode.align import WordAligner
 from .decode.task import DecodeTask
 from .models.whisper import Whisper
 from .ops.mel import log_mel_file
+from .parallel.collectives import broadcast_object, broadcast_world
 from .tokenize import Tokenizer
 from .transcribe import (
     TranscribeOutput,
@@ -120,6 +134,78 @@ class RequestHandle:
         self._done.set()
 
 
+def _spmd() -> bool:
+    """Whether this process is one rank of several (the engine on rank 0
+    leads ``serve_follower`` on the others)."""
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _decode_tasks(model, tokenizer, options, kernels, encoder_fn):
+    """(the primary task, the word aligner or None) of an engine or a
+    follower."""
+    task = DecodeTask(model, tokenizer, options.decode, kernels=kernels,
+                      keep_audio_features=options.word_timestamps, encoder_fn=encoder_fn)
+    aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
+               if options.word_timestamps else None)
+    return task, aligner
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name.removeprefix("torch."))
+
+
+class _LeadingAligner:
+    """The engine's word aligner on rank 0 of several: each window's
+    inputs go to the followers before it aligns."""
+
+    def __init__(self, aligner: WordAligner):
+        self.aligner = aligner
+
+    def align_window(self, tokens, xa, time_offset, content_frames):
+        broadcast_object(("align", list(tokens), tuple(xa.shape), str(xa.dtype), time_offset,
+                          content_frames))
+        broadcast_world(xa.contiguous())
+        return self.aligner.align_window(tokens, xa, time_offset, content_frames)
+
+
+def serve_follower(model: Whisper, tokenizer: Tokenizer,
+                   options: TranscribeOptions = TranscribeOptions(), *, kernels: bool = True,
+                   encoder_fn=None) -> int:
+    """A rank > 0 beside a ``ServingEngine`` on rank 0 (same model shard
+    layout, options and ``encoder_fn``): makes every decode call and word
+    alignment that the engine broadcasts, until its ``close()``.  A call
+    that raises here raised on the engine too, which isolates the request.
+    Returns the number of calls made."""
+    task, aligner = _decode_tasks(model, tokenizer, options, kernels, encoder_fn)
+    sampling = None
+    n = 0
+    while True:
+        msg = broadcast_object()
+        if msg[0] == "stop":
+            return n
+        n += 1
+        if msg[0] == "align":
+            _, tokens, shape, dtype, offset, content = msg
+            xa = broadcast_world(torch.empty(shape, dtype=_dtype(dtype), device=model.device))
+            try:
+                aligner.align_window(tokens, xa, offset, content)
+            except Exception:  # the engine's request fails on rank 0
+                pass
+            continue
+        _, key, prompts, temperature, shape, dtype, quantize_kv = msg
+        mel = broadcast_world(torch.empty(shape, dtype=_dtype(dtype), device=model.device))
+        if key is None:
+            run_task = task
+        else:
+            sampling = sampling or sampling_task(task, options)
+            run_task = sampling
+        run_task.quantize_kv = quantize_kv
+        try:
+            run_task.run_batch(mel, prompts, temperature=temperature)
+        except Exception:  # the engine's request fails on rank 0
+            pass
+
+
 class _Job(Utterance):
     """The engine's state of one utterance (one batch row) and its handle."""
 
@@ -132,9 +218,11 @@ class ServingEngine:
     """Continuously batched transcription with ``model`` on its device, one
     engine thread decoding ``batch_size`` rows a call; requests beyond the
     active rows wait in a FIFO queue of at most ``max_queue``.  ``kernels``
-    passes through to the mel and the decode; ``decode_task``'s own fields
-    (``quantize_kv``) may be set after construction, and the sampling task
-    inherits ``quantize_kv`` when it is first made."""
+    passes through to the mel and the decode, ``encoder_fn`` to the decode;
+    ``decode_task``'s own fields (``quantize_kv``) may be set after
+    construction, and the sampling task inherits ``quantize_kv`` when it is
+    first made.  In a group of several processes only rank 0 makes an
+    engine; the others run ``serve_follower``."""
 
     def __init__(
         self,
@@ -145,7 +233,12 @@ class ServingEngine:
         max_queue: int = 1024,
         *,
         kernels: bool = True,
+        encoder_fn=None,
     ):
+        self._spmd = _spmd()
+        if self._spmd and dist.get_rank() != 0:
+            raise RuntimeError("in a group of several processes rank 0 runs the ServingEngine "
+                               "and every other rank runs serve_follower")
         self.model = model
         self.dims = model.dims
         self.tokenizer = tokenizer
@@ -153,11 +246,12 @@ class ServingEngine:
         self.batch_size = batch_size
         self.max_queue = max_queue
         self.kernels = kernels
-        self.decode_task = DecodeTask(model, tokenizer, options.decode, kernels=kernels,
-                                      keep_audio_features=options.word_timestamps)
+        self.decode_task, self._aligner = _decode_tasks(model, tokenizer, options, kernels,
+                                                        encoder_fn)
+        if self._spmd and self._aligner is not None:
+            self._aligner = _LeadingAligner(self._aligner)
         self._sampling_task_cache: Optional[DecodeTask] = None
-        self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
-                         if options.word_timestamps else None)
+        self._stopped = False
 
         self._init_tokens, self._condition = initial_prompt(options, tokenizer)
 
@@ -201,7 +295,7 @@ class ServingEngine:
         if self._condition:
             prompts.append([self.tokenizer.token_id_space] * (self.dims.n_text_ctx // 2))
         for prompt in prompts:
-            self.decode_task.run_batch(windows, [prompt] * self.batch_size)
+            self._run_batch(None, windows, [prompt] * self.batch_size)
 
     def submit(self, audio) -> RequestHandle:
         """Enqueue one utterance ([n_samples] f32 at 16 kHz, numpy or tensor).
@@ -246,11 +340,14 @@ class ServingEngine:
 
     def close(self, timeout: float = 60.0) -> None:
         """Stop accepting requests, finish the work in flight, join the
-        engine thread."""
+        engine thread; in a group, then end the followers."""
         with self._lock:
             self._closed = True
             self._wakeup.notify_all()
         self._thread.join(timeout)
+        if self._spmd and not self._stopped and not self._thread.is_alive():
+            self._stopped = True
+            broadcast_object(("stop",))
 
     def stats(self) -> dict:
         with self._lock:
@@ -314,6 +411,16 @@ class ServingEngine:
             self._sampling_task_cache = sampling_task(self.decode_task, self.options)
         return self._sampling_task_cache
 
+    def _run_batch(self, key, windows: torch.Tensor, prompts, temperature=None):
+        """One decode call of the primary task (``key`` None) or the sampling
+        task, its inputs broadcast to the followers first in a group."""
+        task = self.decode_task if key is None else self._sampling_task()
+        if self._spmd:
+            broadcast_object(("decode", key, prompts, temperature, tuple(windows.shape),
+                              str(windows.dtype), task.quantize_kv))
+            windows = broadcast_world(windows.contiguous())
+        return task.run_batch(windows, prompts, temperature=temperature)
+
     def _decode_round(self, jobs) -> None:
         """One round: the active rows grouped by ladder rung, one padded call
         a rung, then each row advanced."""
@@ -326,7 +433,6 @@ class ServingEngine:
         n_padded = 0
         t0 = time.monotonic()
         for key, group in groups.items():
-            task = self.decode_task if key is None else self._sampling_task()
             windows = [pad_or_trim(job.mel[:, job.seek:], N_FRAMES) for _, job in group]
             prompts = [job.tokens if self._condition else None for _, job in group]
             n_real = len(windows)
@@ -336,12 +442,12 @@ class ServingEngine:
             n_calls += 1
             n_padded += self.batch_size - n_real
             try:
-                results = task.run_batch(torch.stack(windows), prompts, temperature=key)
+                results = self._run_batch(key, torch.stack(windows), prompts, temperature=key)
             except Exception:  # isolate the failing utterance: each real row alone
                 results = []
                 for w, p in zip(windows[:n_real], prompts[:n_real]):
                     try:
-                        results.append(task.run_batch(w[None], [p], temperature=key)[0])
+                        results.append(self._run_batch(key, w[None], [p], temperature=key)[0])
                     except Exception as e:  # this request's error, reported on its handle
                         results.append(e)
             for (slot, _), r in zip(group, results):

@@ -1,11 +1,22 @@
-"""Logging and wall-clock spans for the command line (the parts of
-``whisper_rs_tpu/utils/debug.py`` that the CLI uses, without JAX)."""
+"""Logging, wall-clock spans, tensor statistics and the profiler
+(counterpart of ``whisper_rs_tpu/utils/debug.py``, without JAX):
+
+  * ``step_timer``: a logged wall-clock span;
+  * ``tensor_dbg``: a tensor's shape, mean and absmax, logged only with
+    ``WHISPER_DEBUG_TENSORS=1`` in the environment (read at import);
+  * ``profiler_trace``: a named span (``torch.profiler.record_function``)
+    that shows in a trace;
+  * ``start_profiler`` / ``stop_profiler``: a ``torch.profiler.profile``
+    of the CPU and the card (where present) between the two calls, written
+    to ``logdir`` as a Chrome trace.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import logging
 import os
+import pathlib
 import time
 
 import torch
@@ -16,6 +27,9 @@ if not log.handlers:
     _handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s"))
     log.addHandler(_handler)
     log.setLevel(os.environ.get("WHISPER_LOG", "INFO"))
+
+_DEBUG_TENSORS = os.environ.get("WHISPER_DEBUG_TENSORS") == "1"
+_PROFILE: dict = {}
 
 
 @contextlib.contextmanager
@@ -36,3 +50,46 @@ def step_timer(name: str, audio_seconds: float | None = None, device=None):
         log.info("%s: %.3fs (%.1f audio-s/s)", name, dt, audio_seconds / dt)
     else:
         log.info("%s: %.3fs", name, dt)
+
+
+def tensor_dbg(name: str, x: torch.Tensor) -> None:
+    """Log ``x``'s shape, mean and absmax (a host sync); nothing unless
+    ``WHISPER_DEBUG_TENSORS=1``."""
+    if not _DEBUG_TENSORS:
+        return
+    xf = x.detach().float()
+    log.info("%s: shape=%s mean=%s absmax=%s", name, tuple(x.shape), xf.mean().item(),
+             xf.abs().max().item())
+
+
+@contextlib.contextmanager
+def profiler_trace(name: str):
+    """A named span in a ``torch.profiler`` trace."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+def start_profiler(logdir: str) -> None:
+    """Start profiling the CPU and, where present, the card; the trace is
+    written by ``stop_profiler``."""
+    if _PROFILE:
+        raise RuntimeError("the profiler is already running")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    _PROFILE.update(prof=prof, logdir=pathlib.Path(logdir))
+
+
+def stop_profiler() -> pathlib.Path:
+    """Stop the profiler of ``start_profiler`` and write its Chrome trace to
+    ``<logdir>/trace-<pid>.json``; returns the path."""
+    if not _PROFILE:
+        raise RuntimeError("the profiler is not running")
+    prof, logdir = _PROFILE.pop("prof"), _PROFILE.pop("logdir")
+    prof.stop()
+    logdir.mkdir(parents=True, exist_ok=True)
+    path = logdir / f"trace-{os.getpid()}.json"
+    prof.export_chrome_trace(str(path))
+    return path
