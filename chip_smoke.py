@@ -153,8 +153,9 @@ Phases, in order; any mismatch raises and the script exits nonzero:
   6. e2e      each path in bf16 (weights drawn on the card, e2e_model),
               timed 3 times (large-v3, the ctx and the
               append routes once each, E2E_REPS_CUT), after a 4-token
-              warm-up run, with every launch count set to 0 just before each
-              run and read just after: each kernel launched as expected
+              warm-up run and a first call that captures (timed apart),
+              with every launch count set to 0 just before each run and
+              read just after: each kernel launched as expected
               (cross attention n_text_layer times a width-1 decoder pass,
               the step self-attention and the fused MLP n_text_layer times
               an incremental step, the beam kernel and never the append
@@ -221,7 +222,30 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               processing short; the layer route in full; the trace read
               raw, device_events): its idle share
               and where its device time goes;
-  8. the kernels line (JSON), the card line, and last the contract line.
+  8. graphs   every decode path above runs the decode loop as it runs for
+              a user: each phase's step captured as a CUDA graph and
+              replayed, ``decode.loop.CHECK_EVERY`` (k) steps between two
+              reads of the termination test (the parity phases and the
+              plain paths, whose margins are read at every step, take
+              ``graphs=False``; the gloo meshes of [parallel] the eager
+              loop by rule).  Each decode path (the e2e paths and routes,
+              the recipe's rungs, serving at batch 4, TP 1 on NCCL) also
+              runs with ``graphs=False``, the same kernels, and its
+              candidates, scores, no-speech probabilities and steps must be
+              bit-equal to the captured loop's (the e2e paths at a cut
+              budget, LOOP_CMP_STEPS, that crosses the first phase
+              boundary; serving's first SERVE_EAGER_CALLS calls and the
+              recipe's first window's rung 0 and first sampled rung on
+              their inputs: the eager loop costs the script's time, and a
+              slow host's most); the [graphs] lines print ms a step both
+              ways, the
+              host's syncs a window (at most ceil(steps / k) + 3 captured),
+              its runtime launch calls over a PROFILE_STEPS-token window
+              (torch.profiler), the captures and their seconds, k, and the
+              memory the cached window adds; serving prints its first
+              request's latency with and without ``warmup()``;
+  9. the [graphs] summary (JSON), the kernels line (JSON), the card line,
+     and last the contract line.
 
 Every phase prints its seconds.  Exits nonzero, printing no result, where
 CUDA is absent.
@@ -233,6 +257,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import os
@@ -267,6 +292,7 @@ from whisper_rs_tpu_torch.config import (
     dims_for,
 )
 from whisper_rs_tpu_torch.decode import (
+    PREFILL_BUCKETS,
     FilterConfig,
     apply_filters,
     build_batch_prompts,
@@ -278,7 +304,13 @@ from whisper_rs_tpu_torch.decode import loop as decode_loop
 from whisper_rs_tpu_torch.decode import rng as decode_rng
 from whisper_rs_tpu_torch.decode import task as decode_task_module
 from whisper_rs_tpu_torch.decode.filters import log_softmax
-from whisper_rs_tpu_torch.decode.loop import _encode_and_prefill
+from whisper_rs_tpu_torch.decode.loop import (
+    DecodeWindow,
+    WindowCache,
+    _encode_and_prefill,
+    beam_shape,
+    greedy_shape,
+)
 from whisper_rs_tpu_torch.models import (
     CrossKV,
     KVCache,
@@ -377,6 +409,11 @@ LAYER_BF16_DEPTH = 4  # decoder layers of the whole-step kernel's bf16 check
 PHASES = ("ln1+qkv", "self-attention", "out-proj", "ln2+cross-q", "cross-attention",
           "cross-out", "ln3+fc1+gelu", "fc2")
 PROFILE_STEPS = 48  # incremental steps of the profiled run of the first three paths
+# The budget of the comparison of a path's captured loop with graphs=False
+# (the eager loop costs the script's time, and a slow host's most): enough
+# tokens to cross the first phase boundary, unprompted (128) or prompted
+# at the 232 bucket (256), so that every phase's graph is compared
+LOOP_CMP_STEPS = {"unprompted": 136, "prompted": 40}
 PARITY_DEPTH = {"large-v3": 4, "medium.en": 4}  # layers kept in the parity phase
 SAMPLE_LEN = 224
 PARITY_WINDOWS = 4
@@ -509,6 +546,12 @@ def rotating(n_layer: int):
     step does (the same layer replayed stays resident where its K/V fits)."""
     layers = itertools.cycle(range(n_layer))
     return lambda: next(layers)
+
+
+def device_pos(pos: int) -> torch.Tensor:
+    """A step kernel's slot as the decode loop hands it over: a 0-d int64
+    tensor on the card, which the kernel reads from device memory."""
+    return torch.full((), pos, dtype=torch.int64, device="cuda")
 
 
 def check_kernel(name, dtype, kernel, plain, library, nbytes, flops, reps, graph=True,
@@ -855,17 +898,18 @@ def check_step_attention(dims, A: int, G: int, dtype, randn, gen, fused: bool = 
               f"ancestors, of {B * n} (row, slot) reads", flush=True)
     vectors = 2 if fused else 6  # q in, out; and k_new, v_new in, the column out
     nxt = rotating(L)
+    at = device_pos(pos)  # read by the kernel from device memory, as the decode loop's
     row = check_kernel(
         name, dtype,
-        lambda: run(kernel, (k_all, v_all), pos, None, W, nxt()),
-        lambda: run(plain, (k_all, v_all), pos, None, W, nxt()),
+        lambda: run(kernel, (k_all, v_all), at, None, W, nxt()),
+        lambda: run(plain, (k_all, v_all), at, None, W, nxt()),
         lambda: sdpa(nxt()),
         nbytes=(2 * kv_rows * H * dh + vectors * B * H * dh) * isz + table,
         flops=4 * B * H * n * dh, reps=50, checked=worst,
     )
-    row["plan"] = step_launch_plan(B, H, n, W, dh, isz, beam=G > 1)._asdict()
+    row["plan"] = step_launch_plan(B, H, W, W, dh, isz, beam=G > 1)._asdict()
     if dtype == torch.bfloat16:
-        check_deterministic(name, lambda: run(kernel, (k_all, v_all), pos, ks_nonzero, W), row)
+        check_deterministic(name, lambda: run(kernel, (k_all, v_all), at, ks_nonzero, W), row)
     return row
 
 
@@ -996,9 +1040,10 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
     # scales counted once, as written)
     vectors = 4 if write else 2
     nxt = rotating(L)
+    at = device_pos(pos)  # read by the kernel from device memory, as the decode loop's
     row = check_kernel(
-        name, dtype, lambda: run(kernel, pos, None, W, nxt(), writes=write),
-        lambda: run(plain, pos, None, W, nxt(), writes=write), lambda: library(nxt()),
+        name, dtype, lambda: run(kernel, at, None, W, nxt(), writes=write),
+        lambda: run(plain, at, None, W, nxt(), writes=write), lambda: library(nxt()),
         nbytes=kv_rows * row_bytes + vectors * B * H * dh * isz + table,
         flops=4 * B * H * n * dh, reps=50, checked=worst,
         library_call=None if not int8 else (
@@ -1009,14 +1054,14 @@ def check_read_step(dims, A: int, G: int, dtype, randn, gen, int8: bool = True) 
             "multiply and F.scaled_dot_product_attention, four calls as one CUDA graph"),
     )
     if write:
-        row["read_only_ms"] = timed_ms(lambda: run(kernel, pos, None, W, nxt()), 50, graph=True)
+        row["read_only_ms"] = timed_ms(lambda: run(kernel, at, None, W, nxt()), 50, graph=True)
         row["column_write_ms"] = timed_ms(lambda: column_write(nxt()), 50, graph=True)
         print(f"    the kernel read only (the caller's column) {row['read_only_ms']:.4f} ms | "
               f"the torch column write alone {row['column_write_ms']:.4f} ms", flush=True)
-    row["plan"] = step_launch_plan(B, H, n, W, dh, 1 if int8 else isz, beam=G > 1)._asdict()
+    row["plan"] = step_launch_plan(B, H, W, W, dh, 1 if int8 else isz, beam=G > 1)._asdict()
     if dtype == torch.bfloat16:
         check_deterministic(f"{name} ({'int8' if int8 else 'bf16'} cache)",
-                            lambda: run(kernel, pos, ks, W, writes=write), row)
+                            lambda: run(kernel, at, ks, W, writes=write), row)
     return row
 
 
@@ -1251,11 +1296,12 @@ def check_layer_step(dims, B: int, dtype, gen) -> dict:
     nbytes = (sum(t.numel() for layer in weights.layers for t in layer) + kv.numel()
               + 2 * L * B * H * (pos + 1) * 64 + 2 * L * B * D + 2 * B * D) * isz
     flops = 2 * B * 14 * D * D * L + 4 * B * H * 64 * ((pos + 1) + Tk) * L
+    at = device_pos(pos)  # read by the kernel from device memory, as the decode loop's
     row = check_kernel(
         name, dtype,
-        lambda: decoder_step_fused(x, weights, kv, kc, vc, pos, None, n_head=H, group=1,
+        lambda: decoder_step_fused(x, weights, kv, kc, vc, at, None, n_head=H, group=1,
                                    window=W),
-        lambda: decoder_step_fused_plain(x, weights, kv, kc, vc, pos, None, n_head=H, group=1,
+        lambda: decoder_step_fused_plain(x, weights, kv, kc, vc, at, None, n_head=H, group=1,
                                          window=W),
         None, nbytes=nbytes, flops=flops, reps=20, graph=False, checked=worst,
     )
@@ -1358,14 +1404,18 @@ def parity(dims, label: str) -> None:
     reset_launches()
     for kernels in (True, False):
         mel = log_mel_frontend(audio, dims.n_mels, kernels=kernels)
-        first = _encode_and_prefill(
-            model, mel, torch.as_tensor(initial, device="cuda"), 1, 0, 1, cfg,
-            NO_SPEECH, None, kernels,
-        )[1]
+        # the first step's logits from the prefill of the window the decode
+        # then runs on
+        windows = WindowCache()
+        win = windows.get(model, greedy_shape(GreedyMode(), PARITY_WINDOWS, 1, 1, SAMPLE_LEN,
+                                              False, cfg, kernels)[0])
+        first = _encode_and_prefill(win, mel, torch.as_tensor(initial, device="cuda"), 0,
+                                    NO_SPEECH, None)[0]
         res = decode_greedy(
             model, mel, initial, 1, 0, cfg, GreedyMode(), SAMPLE_LEN, NO_SPEECH,
-            kernels=kernels,
+            kernels=kernels, graphs=kernels, windows=windows,
         )
+        del windows, win
         out[kernels] = (mel, first, res)
         if kernels:
             print(f"  kernel-path launches: {dict(LAUNCHES)}", flush=True)
@@ -1470,7 +1520,8 @@ def checking_step_logits(logits_fn, check_pos, diffs: list, plain: dict | None =
     in ``plain["logits"]``."""
 
     def checking(model, tokens, pos, cross_kv, cache, *args, **kw):
-        if pos not in check_pos and plain is None:
+        at = int(pos)  # the eager loop's device pos, read on the host here
+        if at not in check_pos and plain is None:
             return logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
         *head, kernels = args
         plain_cache = clone_cache(cache)
@@ -1479,13 +1530,13 @@ def checking_step_logits(logits_fn, check_pos, diffs: list, plain: dict | None =
         got = logits_fn(model, tokens, pos, cross_kv, cache, *args, **kw)
         if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
             raise AssertionError(f"step at position {pos}: filtered-logit masks differ")
-        if pos in check_pos:
+        if at in check_pos:
             fin = torch.isfinite(want)
             flips = 0
             if cache.quantized:
-                flips = sum(int((a[:, :, :, pos - 1] != b[:, :, :, pos - 1]).sum())
+                flips = sum(int((a[:, :, :, at - 1] != b[:, :, :, at - 1]).sum())
                             for a, b in ((cache.k, plain_cache.k), (cache.v, plain_cache.v)))
-            diffs.append((pos, (got[fin] - want[fin]).abs().max().item(), flips))
+            diffs.append((at, (got[fin] - want[fin]).abs().max().item(), flips))
         if plain is not None:
             plain["logits"] = want
         return got
@@ -1578,7 +1629,7 @@ def parity_beam(dims, label: str, beam: int, int8_kv: bool = False) -> None:
         try:
             out[kernels] = decode_beam(
                 model, mel, initial, sample_begin, sot_idx, cfg, mode, sample_len, NO_SPEECH,
-                key_start=key_start, kernels=kernels, quantize_kv=int8_kv,
+                key_start=key_start, kernels=kernels, quantize_kv=int8_kv, graphs=False,
             )
         finally:
             decode_loop._beam_step, decode_loop._step_logits = step_fn, logits_fn
@@ -1667,7 +1718,7 @@ def parity_routes(dims, label: str, routes=("layer", "ctx"), int8: bool = False,
         def recording_update(logits, tokens, pos, *args):
             # the plain path's top-2 margin of every row at every position
             top = logits.topk(2, dim=-1).values
-            margins[pos] = (top[:, 0] - top[:, 1]).tolist()
+            margins[int(pos)] = (top[:, 0] - top[:, 1]).tolist()
             return update_fn(logits, tokens, pos, *args)
 
         out = {}
@@ -1682,7 +1733,7 @@ def parity_routes(dims, label: str, routes=("layer", "ctx"), int8: bool = False,
                 out[kernels] = decode_greedy(
                     model, mel, initial, sample_begin, sot_idx, cfg, GreedyMode(), sample_len,
                     NO_SPEECH, key_start=key_start, kernels=kernels, step_kernel=route,
-                    quantize_kv=int8,
+                    quantize_kv=int8, graphs=False,
                 )
             finally:
                 decode_loop._step_logits, decode_loop._greedy_update = logits_fn, update_fn
@@ -1713,14 +1764,18 @@ def parity_routes(dims, label: str, routes=("layer", "ctx"), int8: bool = False,
     torch.cuda.empty_cache()
 
 
-def expected_launches(dims, steps: int, n_passes: int, route: str,
+def expected_launches(dims, bodies: int, n_passes: int, route: str,
                       int8_weights: bool = False) -> dict:
-    """The launch count of each kernel on one e2e batch: cross attention
-    n_text_layer times a width-1 decoder pass, the step kernels of the route
-    n_text_layer times an incremental step (the beam kernel in the append
-    kernel's place on the beam path, row 10 on the greedy path over an int8
-    cache, route "int8"; no MLP kernel under int8 weights), the whole-step
-    kernel once a step."""
+    """The launch count of each kernel on one e2e batch of ``bodies``
+    incremental step bodies (``DecodeResult.bodies``: the live steps, the
+    no-op steps past the end of the last check interval and the warm-up
+    body of each phase a call captures, each of which launches the step's
+    kernels) and ``n_passes`` width-1 decoder passes: cross attention
+    n_text_layer times a width-1 pass, the step kernels of the route
+    n_text_layer times a body (the beam kernel in the append kernel's
+    place on the beam path, row 10 on the greedy path over an int8 cache,
+    route "int8"; no MLP kernel under int8 weights), the whole-step kernel
+    once a body."""
     L = dims.n_text_layer
     layered = route != "layer"
     expect = dict.fromkeys(LAUNCHES, 0)  # no other kernel, and no fallback route
@@ -1729,24 +1784,115 @@ def expected_launches(dims, steps: int, n_passes: int, route: str,
         "ln_fused": dims.n_audio_layer,
         "residual_ln": dims.n_audio_layer,
         "encoder_attention_merged": dims.n_audio_layer,
-        "cross_attention_step": L * (n_passes if layered else n_passes - steps),
-        "self_attention_append_step": L * steps if route == "append" else 0,
-        "beam_self_attention_step": L * steps if route == "beam" else 0,
-        "decoder_mlp_step": L * steps if layered and not int8_weights else 0,
-        "self_attention_fused_step": L * steps if route == "ctx" else 0,
-        "decoder_step_fused": steps if route == "layer" else 0,
-        "self_attention_step": L * steps if route == "int8" else 0,
+        "cross_attention_step": L * (n_passes if layered else n_passes - bodies),
+        "self_attention_append_step": L * bodies if route == "append" else 0,
+        "beam_self_attention_step": L * bodies if route == "beam" else 0,
+        "decoder_mlp_step": L * bodies if layered and not int8_weights else 0,
+        "self_attention_fused_step": L * bodies if route == "ctx" else 0,
+        "decoder_step_fused": bodies if route == "layer" else 0,
+        "self_attention_step": L * bodies if route == "int8" else 0,
     })
     return expect
 
 
+# The captured decode loop against the eager one, by decode path (printed
+# in [graphs] lines; the run's JSON line carries them too)
+LOOPS: dict = {}
+HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+              "cudaLaunchCooperativeKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+              "cudaMemsetAsync")
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def host_calls(fn) -> dict:
+    """The CUDA runtime calls the host makes in one call of ``fn`` (under
+    torch.profiler with the host's activity): launches (kernels, graphs,
+    copies, sets) and synchronising calls, by name; empty where the trace
+    holds no runtime call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in HOST_CALLS or name in HOST_SYNCS:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def same_decode(a, b) -> bool:
+    """Whether two DecodeResults are bit-equal: candidates, scores,
+    no-speech probabilities, steps."""
+    return (torch.equal(a.candidates, b.candidates) and torch.equal(a.scores, b.scores)
+            and torch.equal(a.no_speech_probs, b.no_speech_probs) and a.steps == b.steps)
+
+
+def loop_report(label: str, graph_res, eager_res, ms_graph: float, ms_eager: float, first=None,
+                t_first: float = 0.0, mem: dict | None = None, host: dict | None = None,
+                phases: int = 3, full: tuple | None = None) -> None:
+    """Holds a path's captured loop to its eager one (``graphs=False``, the
+    same kernels, the same budget): candidates, scores, no-speech
+    probabilities and steps bit-equal; the captured loop's host syncs at
+    most ceil(steps / k) + 3 (one more at most a phase, three phases), in
+    the compared run and in ``full`` (the timed full-budget captured run
+    and its ms a step); prints ms a step both ways, syncs and bodies a
+    window, the captures of the first call and their seconds, k, the memory
+    the cached window adds and the host's runtime calls of a cut window
+    (``host``: {"graphs": calls, "eager": calls})."""
+    if not same_decode(graph_res, eager_res):
+        raise AssertionError(f"{label}: the captured loop differs from graphs=False")
+    k = decode_loop.CHECK_EVERY
+    for res in (graph_res,) + (() if full is None else (full[0],)):
+        bound = -(-res.steps // k) + phases
+        if res.syncs > bound or res.loop != "graphs":
+            raise AssertionError(f"{label}: {res.syncs} syncs over {res.steps} steps (bound "
+                                 f"{bound}), loop {res.loop}")
+    steps = graph_res.steps
+    row = {"steps": steps, "ms_step_graphs": ms_graph, "ms_step_eager": ms_eager,
+           "syncs_graphs": graph_res.syncs, "syncs_eager": eager_res.syncs,
+           "bodies_graphs": graph_res.bodies, "k": k, "loop_eager": eager_res.loop}
+    text = (f"[graphs] {label}: captured loop bit-equal to graphs=False (candidates, scores, "
+            f"no-speech, {steps} steps); ms a step {ms_graph:.3f} captured, {ms_eager:.3f} "
+            f"eager ({ms_eager / ms_graph:.2f}x); host syncs a window {graph_res.syncs} "
+            f"captured (k {k}; bound {-(-steps // k) + phases}), {eager_res.syncs} eager; "
+            f"bodies {graph_res.bodies}")
+    if full is not None:
+        res, ms = full
+        row.update(full_steps=res.steps, full_ms_step_graphs=ms, full_syncs_graphs=res.syncs)
+        text += (f"; the full window captured: {res.steps} steps, {ms:.3f} ms a step, "
+                 f"{res.syncs} syncs")
+    if first is not None:
+        row.update(captures=first.captures, capture_s=first.capture_seconds, first_call_s=t_first)
+        text += (f"; first call {t_first:.3f} s with {first.captures} captures in "
+                 f"{first.capture_seconds:.3f} s")
+    if mem:
+        row.update(mem)
+        text += (f"; memory: the cached window holds {mem['held_mb']:.1f} MB, peak "
+                 f"+{mem['peak_graphs_mb']:.1f} MB over the call before it (eager call "
+                 f"+{mem['peak_eager_mb']:.1f} MB)")
+    if host:
+        row["host_calls"] = host
+        text += "; host runtime calls of a " + "; ".join(
+            f"{way} window: {sum(n for c, n in calls.items() if c in HOST_CALLS)} launches "
+            f"{calls}" for way, calls in host.items())
+    LOOPS[label] = row
+    print(text, flush=True)
+
+
 def e2e_routes(dims, name: str, batch: int) -> dict:
     """Greedy decode of ``batch`` audios in bf16 at full width and depth,
-    prompted as BENCH_PROMPTED, through each step route: ``layer`` timed
+    prompted as BENCH_PROMPTED, through each step route, the step captured
+    (one window cache a route: the first call captures): ``layer`` timed
     E2E_REPS times and profiled once, ``ctx`` and ``append`` timed once
-    each, on the same audios and prompts.  Returns {route: launches}."""
+    each, then each route once with ``graphs=False`` (the eager loop),
+    held to the captured loop bit for bit (``loop_report``), on the same
+    audios and prompts.  Returns {route: launches}."""
     print(f"[e2e] {name} bf16 batch {batch}, greedy, prompted: step_kernel layer {E2E_REPS} "
-          f"timed runs, ctx and append one each", flush=True)
+          f"timed runs, ctx and append one each; each route also eagerly", flush=True)
     t0 = time.perf_counter()
     model = e2e_model(dims)
     print(f"  init_random (or the model of the last e2e phase) {time.perf_counter() - t0:.1f} s",
@@ -1757,35 +1903,50 @@ def e2e_routes(dims, name: str, batch: int) -> dict:
     initial, key_start, sample_begin, sot_idx = bench_prompts(rng, batch, dims.n_text_ctx)
     sample_len = min(SAMPLE_LEN, dims.n_text_ctx - sample_begin)
     print(f"  sample_begin {sample_begin}, budget {sample_len} tokens", flush=True)
+    windows = {route: WindowCache() for route in ROUTES}
 
-    def run(a, route, budget=sample_len):
+    def run(a, route, budget=sample_len, graphs=True):
         mel = log_mel_frontend(a, dims.n_mels, dtype=torch.bfloat16)
         res = decode_greedy(model, mel, initial, sample_begin, sot_idx, cfg, GreedyMode(), budget,
-                            NO_SPEECH, key_start=key_start, step_kernel=route)
+                            NO_SPEECH, key_start=key_start, step_kernel=route, graphs=graphs,
+                            windows=windows[route] if graphs else None)
         torch.cuda.synchronize()
         return res
 
     for route in ROUTES:  # warm-up: kernel libraries, cuBLAS set-up
-        run(audio + np.float32(0.001), route, budget=4)
+        run(audio + np.float32(0.001), route, budget=4, graphs=False)
     prompt = torch.as_tensor(initial, device="cuda")
     ks = torch.as_tensor(key_start, device="cuda")
+    # the prefill into a window's buffers in place, as the decode runs it (a
+    # window of the routes' shape, made outside the timing and freed after)
+    split_win = DecodeWindow(model, greedy_shape(GreedyMode(), batch, prompt.shape[1],
+                                                 sample_begin, sample_len, True, cfg, True)[0])
 
     def timed_part(with_prefill: bool) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mel = log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16)
         if with_prefill:
-            _encode_and_prefill(model, mel, prompt, sample_begin, sot_idx, 1, cfg, NO_SPEECH, ks,
-                                True)
+            _encode_and_prefill(split_win, mel, prompt, sot_idx, NO_SPEECH, ks)
         else:
             model.encoder(mel)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     t_enc, t_pre = timed_part(False), timed_part(True)
-    print(f"  split: mel+encoder {t_enc:.3f} s; prefill {t_pre - t_enc:.3f} s", flush=True)
+    del split_win
+    torch.cuda.empty_cache()
+    print(f"  split: mel+encoder {t_enc:.3f} s; prefill {t_pre - t_enc:.3f} s (into a "
+          f"window's buffers)", flush=True)
     launches, results = {}, {}
     for route in ROUTES:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = run(audio, route)  # makes the route's window: its phases captured
+        t_first = time.perf_counter() - t0
+        mem = {"held_mb": (torch.cuda.memory_allocated() - base) / 1e6,
+               "peak_graphs_mb": (torch.cuda.max_memory_allocated() - base) / 1e6}
         times = []
         for _ in range(E2E_REPS if route == "layer" else 1):
             reset_launches()
@@ -1793,7 +1954,7 @@ def e2e_routes(dims, name: str, batch: int) -> dict:
             res = run(audio, route)
             times.append(time.perf_counter() - t0)
             launches[route] = dict(LAUNCHES)
-            expect = expected_launches(dims, res.steps, res.steps, route)
+            expect = expected_launches(dims, res.bodies, res.bodies, route)
             if res.steps < 1 or launches[route] != expect:
                 raise AssertionError(f"e2e {route}: launches {launches[route]}, expected {expect}")
         cand = res.candidates
@@ -1814,37 +1975,42 @@ def e2e_routes(dims, name: str, batch: int) -> dict:
               f"launches of the port's kernels a step "
               f"{sum(launches[route].values()) / steps:.2f}", flush=True)
         print(f"  {route} launches: {launches[route]}", flush=True)
-    # one incremental step of each route (the loop body of decode_greedy,
-    # its host sync included) under torch.profiler, from the same prefill
-    tokens, filtered, cache, cross_kv, _, _, ks_b = _encode_and_prefill(
-        model, log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16), prompt, sample_begin,
-        sot_idx, 1, cfg, NO_SPEECH, ks, True,
-    )
-    sum_lp = torch.zeros(batch, device="cuda")
-    done = torch.zeros(batch, dtype=torch.bool, device="cuda")
-    sum_lp, done = decode_loop._greedy_update(filtered, tokens, sample_begin, sum_lp, done,
-                                              cfg.token_id_eot)
-    weights = decoder_step_weights(model.decoder.blocks)
-    for route in ROUTES:
-        state = KVCache(cache.k.clone(), cache.v.clone())
 
-        def step():
-            pos = sample_begin + 1
-            logits = decode_loop._step_logits(
-                model, tokens, pos, cross_kv, state, cfg, sample_begin, ks_b, 1, 256, True,
-                step_kernel=route, step_weights=weights)
-            bool(decode_loop._greedy_update(logits, tokens, pos, sum_lp, done,
-                                            cfg.token_id_eot)[1].all())
-
-        print(f"  {route}: one step under torch.profiler: {device_launches(step)} device "
+        cmp_len = LOOP_CMP_STEPS["prompted"]
+        run(audio, route, cmp_len)  # the cut window's own capture
+        t0 = time.perf_counter()
+        cmp_graph = run(audio, route, cmp_len)
+        t_cmp = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        eager = run(audio, route, cmp_len, graphs=False)
+        t_eager = time.perf_counter() - t0
+        mem["peak_eager_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        if dict(LAUNCHES) != expected_launches(dims, eager.bodies, eager.bodies, route):
+            raise AssertionError(f"e2e {route} eager: launches {dict(LAUNCHES)}")
+        run(audio, route, PROFILE_STEPS)  # the profiled window's own capture
+        host = {way: host_calls(lambda g=g: run(audio, route, PROFILE_STEPS, graphs=g))
+                for way, g in (("captured", True), ("eager", False))}
+        loop_report(f"{name} b{batch} greedy prompted, {route}", cmp_graph, eager,
+                    (t_cmp - t_pre) / cmp_graph.steps * 1e3,
+                    (t_eager - t_pre) / eager.steps * 1e3, first, t_first, mem,
+                    {f"{way} {PROFILE_STEPS}-token": c for way, c in host.items()},
+                    full=(res, (elapsed - t_pre) / steps * 1e3))
+        # one incremental step of the route: a replay of its captured body
+        # (the window has ended, so the step is a no-op that launches every
+        # kernel of a step)
+        win = next(iter(windows[route]._windows.values()))
+        print(f"  {route}: one step (a replay of the captured body) under torch.profiler: "
+              f"{device_launches(lambda: win.run_phase_steps(win.phases[-1], 1))} device "
               f"launches (kernels and copies)", flush=True)
-        del state
     same = [int((results[r].candidates == results["append"].candidates).all(dim=-1).sum())
             for r in ROUTES]
     print(f"  rows whose tokens equal the append route's (bf16 rounds at other places on each "
           f"route): {dict(zip(ROUTES, same))} of {batch}", flush=True)
     profile_run(lambda a: run(a, "layer"), audio, "one e2e run of the layer route")
-    del model
+    del model, windows, win
     torch.cuda.empty_cache()
     return launches
 
@@ -1876,7 +2042,10 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
     """One path in bf16 at full width and depth: greedy and unprompted, or
     (``beam`` > 0) beam search prompted as bench.py's BENCH_PROMPTED; with
     int8 weights (``quantize_params``) and int8 K/V (``quantize_kv``) as
-    asked; ``reps`` timed runs (default E2E_REPS, or E2E_REPS_CUT's).
+    asked; the step captured (a window cache: the first call captures, and
+    is timed apart), ``reps`` timed runs (default E2E_REPS, or
+    E2E_REPS_CUT's), then one run with ``graphs=False`` held to them bit
+    for bit (``loop_report``), each run's launches checked.
     ``summary`` (a dict) takes audio-s/s, ms a step and the profiled run's
     launches and device busy ms a pass."""
     what = f"beam {beam}, prompted" if beam else "greedy, unprompted"
@@ -1904,16 +2073,36 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
         initial, key_start, sample_begin, sot_idx = np.full((batch, 1), SOT, np.int64), None, 1, 0
         sample_len, mode, decode, group = SAMPLE_LEN, GreedyMode(), decode_greedy, 1
     print(f"  sample_begin {sample_begin}, budget {sample_len} tokens", flush=True)
+    windows = WindowCache()
 
-    def run(a, budget=sample_len):
+    def run(a, budget=sample_len, graphs=True):
         mel = log_mel_frontend(a, dims.n_mels, dtype=torch.bfloat16)
         res = decode(model, mel, initial, sample_begin, sot_idx, cfg, mode, budget,
-                     NO_SPEECH, key_start=key_start, quantize_kv=int8_kv)
+                     NO_SPEECH, key_start=key_start, quantize_kv=int8_kv, graphs=graphs,
+                     windows=windows if graphs else None)
         torch.cuda.synchronize()
         return res
 
     route = "beam" if beam else "int8" if int8_kv else "append"
-    run(audio + np.float32(0.001), budget=4)  # warm-up: Triton compile, cuBLAS set-up
+    # a one-token prefill is a decoder pass of width 1, so it takes the
+    # cross kernel too, but not the incremental-step kernels
+    one_token = 1 if sample_begin == 1 else 0
+
+    def check_launches(res, what: str) -> None:
+        expect = expected_launches(dims, res.bodies, res.bodies + one_token, route, int8_weights)
+        if res.steps < 1 or dict(LAUNCHES) != expect:
+            raise AssertionError(f"e2e {what}: launches {dict(LAUNCHES)}, expected {expect}")
+
+    run(audio + np.float32(0.001), budget=4, graphs=False)  # warm-up: Triton, cuBLAS set-up
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    first = run(audio)  # makes the window: each phase's step captured
+    t_first = time.perf_counter() - t0
+    check_launches(first, "first captured call")
+    mem = {"held_mb": (torch.cuda.memory_allocated() - base) / 1e6,
+           "peak_graphs_mb": (torch.cuda.max_memory_allocated() - base) / 1e6}
     times = []
     for _ in range(reps):
         reset_launches()
@@ -1921,13 +2110,26 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
         res = run(audio)
         times.append(time.perf_counter() - t0)
         launches = dict(LAUNCHES)
-        # a one-token prefill is a decoder pass of width 1, so it takes the
-        # cross kernel too, but not the incremental-step kernels
-        steps = res.steps
-        n_passes = steps + (1 if sample_begin == 1 else 0)
-        expect = expected_launches(dims, steps, n_passes, route, int8_weights)
-        if steps < 1 or launches != expect:
-            raise AssertionError(f"e2e: launches {launches}, expected {expect}")
+        check_launches(res, "captured")
+    steps = res.steps
+    n_passes = steps + one_token
+    # the loops compared at a cut budget, each timed: captured (its window
+    # made by a first call), then eager
+    cmp_len = LOOP_CMP_STEPS["prompted" if beam else "unprompted"]
+    run(audio, cmp_len)
+    reset_launches()
+    t0 = time.perf_counter()
+    cmp_graph = run(audio, cmp_len)
+    t_cmp = time.perf_counter() - t0
+    check_launches(cmp_graph, "captured, cut")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    eager = run(audio, cmp_len, graphs=False)
+    t_eager = time.perf_counter() - t0
+    mem["peak_eager_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    check_launches(eager, "eager")
 
     n_ctx = dims.n_text_ctx
     cand = res.candidates
@@ -1979,16 +2181,23 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
               f"tokens {json.dumps(picked)}", flush=True)
 
     # split of the median run: the frontend and encoder alone, then with the
-    # prefill; the rest is the step loop
+    # prefill into the timed runs' window (its buffers, in place); the rest
+    # is the step loop
+    with_ks = key_start is not None
+    shape = (beam_shape(mode, batch, prompt.shape[1], sample_begin, sample_len, with_ks, cfg,
+                        True, int8_kv) if beam else
+             greedy_shape(mode, batch, prompt.shape[1], sample_begin, sample_len, with_ks, cfg,
+                          True, quantize_kv=int8_kv)[0])
+    timed_win = windows.get(model, shape)
+
     def timed_part(with_prefill: bool) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mel = log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16)
         if with_prefill:
             _encode_and_prefill(
-                model, mel, prompt, sample_begin, sot_idx, group, cfg, NO_SPEECH,
+                timed_win, mel, prompt, sot_idx, NO_SPEECH,
                 None if key_start is None else torch.as_tensor(key_start, device=prompt.device),
-                True, int8_kv,
             )
         else:
             model.encoder(mel)
@@ -2001,13 +2210,21 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
           f"{t_steps:.3f} s, {t_steps / steps * 1e3:.2f} ms a step (a width-1 decoder pass "
           f"and the token update); prefill+steps over the width-1 passes "
           f"{(elapsed - t_enc) / n_passes * 1e3:.2f} ms a pass", flush=True)
+    run(audio, PROFILE_STEPS)  # the cut window's own capture
+    host = {f"{way} {PROFILE_STEPS}-token": host_calls(
+        lambda g=g: run(audio, PROFILE_STEPS, graphs=g)) for way, g in (("captured", True),
+                                                                      ("eager", False))}
+    loop_report(f"{name} b{batch}" + (f" beam{beam}" if beam else "")
+                + (" int8" if int8_weights else " int8 KV" if int8_kv else ""), cmp_graph, eager,
+                (t_cmp - t_pre) / cmp_graph.steps * 1e3, (t_eager - t_pre) / eager.steps * 1e3,
+                first, t_first, mem, host, full=(res, t_steps / steps * 1e3))
     profiled = profile_run(lambda a: run(a, PROFILE_STEPS), audio,
                            f"one e2e run cut to {PROFILE_STEPS} tokens",
                            passes=PROFILE_STEPS if sample_begin == 1 else PROFILE_STEPS - 1)
     if summary is not None:
         summary.update(audio_s_per_s=batch * 30.0 / elapsed, ms_step=t_steps / steps * 1e3,
                        **profiled)
-    del model
+    del model, windows
     torch.cuda.empty_cache()
     return launches
 
@@ -2214,9 +2431,10 @@ def kernel_checks_golden_steps(rows: dict, randn, gen) -> None:
 
 @contextlib.contextmanager
 def recorded_windows(task, margins=None):
-    """Records each window a ``DecodeTask`` decodes: its DecodeOutputs and
-    its decode loop's incremental steps (``windows``, a list of (outputs,
-    steps)).  With ``margins`` (a list), each decode call appends the plain
+    """Records each window a ``DecodeTask`` decodes: its DecodeOutputs, its
+    decode loop's incremental steps and its step bodies (``windows``, a
+    list of (outputs, steps, bodies); ``DecodeResult.bodies``, which the
+    launch counts follow).  With ``margins`` (a list), each decode call appends the plain
     path's margins, read from every step's inputs: greedy, row 0's top-2
     margin at each sampled token; beam, each audio's smallest selection
     margin over the call."""
@@ -2231,7 +2449,7 @@ def recorded_windows(task, margins=None):
             if margins is not None:
                 margins.append([])
             res = fn(*args, **kw)
-            steps.append(res.steps)
+            steps.append((res.steps, res.bodies))
             return res
         return run
 
@@ -2247,7 +2465,7 @@ def recorded_windows(task, margins=None):
 
     def recording_run_batch(*args, **kw):
         out = run_batch(*args, **kw)
-        windows.append((out, steps[-1]))
+        windows.append((out, *steps[-1]))
         return out
 
     decode_task_module.decode_greedy = counting(greedy_fn)
@@ -2271,7 +2489,7 @@ def compare_windows(what: str, got: list, want: list, margins: list, beam: bool)
     every window was compared."""
     if len(got) != len(want):
         print(f"  {what}: {len(got)} windows against the plain path's {len(want)}", flush=True)
-    for w, ((outs_k, _), (outs_p, _)) in enumerate(zip(got, want)):
+    for w, ((outs_k, *_), (outs_p, *_)) in enumerate(zip(got, want)):
         for a, (ok, op) in enumerate(zip(outs_k, outs_p, strict=True)):
             tk, tp = ok.tokens.tolist(), op.tokens.tolist()
             if tk == tp:
@@ -2296,11 +2514,13 @@ def compare_windows(what: str, got: list, want: list, margins: list, beam: bool)
 def transcribe_both(model, tok, options, audio, what: str):
     """``TranscribeTask.run`` through the kernels, then through the plain
     versions (f32), each window recorded; the kernel run's launch counts.
-    Holds windows and, where every window agreed, segments and avg_logprobs
-    (compare_windows).  Returns (kernel output, its windows, launches)."""
+    The kernel path's steps are captured; the plain path runs the eager
+    loop, whose every step the margins are read from.  Holds windows and,
+    where every window agreed, segments and avg_logprobs (compare_windows).
+    Returns (kernel output, its windows, launches)."""
     out = {}
     for kernels in (True, False):
-        task = TranscribeTask(model, tok, options, kernels=kernels)
+        task = TranscribeTask(model, tok, options, kernels=kernels, graphs=kernels)
         margins = None if kernels else []
         with recorded_windows(task.decode_task, margins) as windows:
             reset_launches()
@@ -2310,7 +2530,7 @@ def transcribe_both(model, tok, options, audio, what: str):
         out[kernels] = (res, windows, margins, launches)
     (res_k, win_k, _, launches), (res_p, win_p, margins, _) = out[True], out[False]
     beam = isinstance(options.decode.mode, BeamSearchMode)
-    print(f"  {what}: kernel path {len(win_k)} windows, {sum(s for _, s in win_k)} steps; "
+    print(f"  {what}: kernel path {len(win_k)} windows, {sum(s for _, s, _ in win_k)} steps; "
           f"plain path {len(win_p)} windows", flush=True)
     if compare_windows(what, win_k, win_p, margins, beam):
         seg = lambda s: (s.seek, s.start_time, s.end_time, s.text)  # noqa: E731
@@ -2352,7 +2572,7 @@ def transcribe_golden_dims() -> dict:
     options = TranscribeOptions(decode=DecodeOptions(mode=GreedyMode(),
                                                      sample_len=GOLDEN_SAMPLE_LEN))
     _, windows, launches = transcribe_both(model, tok, options, audio, "greedy transcription")
-    L, steps = GOLDEN_DIMS.n_audio_layer, sum(s for _, s in windows)
+    L, steps = GOLDEN_DIMS.n_audio_layer, sum(b for _, _, b in windows)  # step bodies
     Lt = GOLDEN_DIMS.n_text_layer
     check_route_counts("golden dims transcription", launches, {
         "log_mel": 1, "ln_fused": L * len(windows), "residual_ln": L * len(windows),
@@ -2365,7 +2585,7 @@ def transcribe_golden_dims() -> dict:
     prompt = tok.encode(" previous window text")
     got = {}
     for kernels in (True, False):
-        beam.kernels = kernels
+        beam.kernels = beam.graphs = kernels  # the plain path's margins: the eager loop
         margins = None if kernels else []
         with recorded_windows(beam, margins) as windows:
             reset_launches()
@@ -2378,7 +2598,7 @@ def transcribe_golden_dims() -> dict:
     outs = got[True][0][0][0]
     print(f"  beam 3: tokens {[o.tokens.tolist() for o in outs]}, avg_logprob "
           f"{[round(o.avg_logprob, 4) for o in outs]}", flush=True)
-    beam_steps = sum(s for _, s in got[True][0])
+    beam_steps = sum(b for _, _, b in got[True][0])  # step bodies
     check_route_counts("golden dims beam", got[True][2], {
         "log_mel": 1, "ln_fused": L, "residual_ln": L, "encoder_attention_split": L,
         "beam_self_attention_step": Lt * beam_steps, "cross_attention_step": Lt * beam_steps,
@@ -2394,7 +2614,7 @@ def path_launches(dims, windows) -> dict:
     kernel once a file, the encoder kernels once a layer a window, the
     cross, beam and MLP kernels once a layer a step."""
     L, n_win = dims.n_audio_layer, len(windows)
-    steps = sum(s for _, s in windows)
+    steps = sum(b for _, _, b in windows)  # step bodies, which launch the step's kernels
     return {"log_mel": 1, "ln_fused": L * n_win, "residual_ln": L * n_win,
             "encoder_attention_merged": L * n_win,
             "cross_attention_step": dims.n_text_layer * steps,
@@ -2449,7 +2669,7 @@ def transcribe_main_path() -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             launches = dict(LAUNCHES)
-        n_win, steps = len(windows), sum(s for _, s in windows)
+        n_win, steps = len(windows), sum(s for _, s, _ in windows)
         check_route_counts("bf16 transcription", launches, path_launches(dims, windows))
     elapsed = float(np.median(times))
     if not res.segments or not all(np.isfinite(res.avg_logprobs)) or res.tokens.size == 0:
@@ -2470,7 +2690,7 @@ def transcribe_main_path() -> dict:
         task.decode_task.run(window)
     profile_run(lambda _: task.decode_task.run(window), None,
                 f"one window (the file's first, unprompted; {one[0][1]} steps)",
-                passes=one[0][1])
+                passes=one[0][2])
     del model, task
     torch.cuda.empty_cache()
     return launches
@@ -2627,8 +2847,10 @@ def recorded_calls(margins: bool = False):
     """Records every ``DecodeTask.run_batch`` call of any task (the ladder's
     primary and sampling tasks alike) as a dict: ``temperature`` (None for
     the primary task), ``rows`` (the windows of the call's mel),
-    ``outputs``, incremental ``steps``, the decode's ``candidates`` (on the
-    host) and ``sample_begin``.  With ``margins``,
+    ``outputs``, incremental ``steps``, step ``bodies``, host ``syncs``,
+    ``captures`` and ``capture_seconds``, the decode's
+    ``candidates``, ``scores`` and ``no_speech`` (on the host), its
+    ``loop`` and ``sample_begin``.  With ``margins``,
     the plain path's margins, in logit units: a beam call's smallest
     selection margin (``margin``); a sampling call's top-2 gap of
     ``logits / T + noise`` times T of every row at every step
@@ -2643,7 +2865,10 @@ def recorded_calls(margins: bool = False):
     def counting(fn):
         def run(model, mel, tokens, sample_begin, *args, **kw):
             res = fn(model, mel, tokens, sample_begin, *args, **kw)
-            state.update(steps=res.steps, candidates=res.candidates.cpu(),
+            state.update(steps=res.steps, bodies=res.bodies, syncs=res.syncs,
+                         captures=res.captures, capture_seconds=res.capture_seconds,
+                         candidates=res.candidates.cpu(), scores=res.scores.cpu(),
+                         no_speech=res.no_speech_probs.cpu(), loop=res.loop,
                          sample_begin=sample_begin)
             return res
         return run
@@ -2669,8 +2894,9 @@ def recorded_calls(margins: bool = False):
         state.update(margin=None, rank_gap=None, rows=[], temperature=temperature or 1.0)
         out = run_batch(self, mel, prompts, temperature=temperature)
         call = {"temperature": temperature, "rows": mel.shape[0], "outputs": out,
-                "steps": state["steps"],
-                "candidates": state["candidates"], "sample_begin": state["sample_begin"]}
+                **{k: state[k] for k in ("steps", "bodies", "syncs", "captures",
+                                         "capture_seconds", "candidates", "scores",
+                                         "no_speech", "loop", "sample_begin")}}
         if margins:
             call["margin"] = None if state["margin"] is None else float(state["margin"])
             call["rank_gap"] = None if state["rank_gap"] is None else float(state["rank_gap"])
@@ -2691,6 +2917,28 @@ def recorded_calls(margins: bool = False):
         decode_task_module.DecodeTask.run_batch = run_batch
         decode_rng.categorical, decode_loop._beam_step = sample_fn, step_fn
         decode_task_module.rank_max_likelihood = rank_fn
+
+
+@contextlib.contextmanager
+def kept_inputs():
+    """Keeps the inputs of every ``DecodeTask.run_batch`` call, in order:
+    dicts of ``task``, ``mel`` (a copy), ``prompts`` and ``temperature``, so
+    that a call can be run again.  Entered inside ``recorded_calls`` its
+    list lines up with that one's."""
+    inputs = []
+    run_batch = decode_task_module.DecodeTask.run_batch
+
+    def keeping(task, mel, prompts, temperature=None):
+        inputs.append({"task": task, "mel": torch.as_tensor(mel).clone(),
+                       "prompts": [None if q is None else list(q) for q in prompts],
+                       "temperature": temperature})
+        return run_batch(task, mel, prompts, temperature=temperature)
+
+    decode_task_module.DecodeTask.run_batch = keeping
+    try:
+        yield inputs
+    finally:
+        decode_task_module.DecodeTask.run_batch = run_batch
 
 
 def compare_calls(what: str, got: list, want: list, tol: float = 1e-3) -> bool:
@@ -2767,12 +3015,15 @@ def recipe_launches(dims, calls, files: int = 1) -> dict:
     """The recipe's launch counts over the recorded decode ``calls`` of
     ``files`` files: the mel kernel once a file; the encoder kernels once a layer a call (every rung
     encodes its window again); the cross and MLP kernels once a layer a
-    step; the beam kernel a layer a step of rung 0, the append kernel a
-    layer a step of the sampling rungs.  The alignment pass launches none
+    step body (``DecodeResult.bodies``: the steps, the no-op steps past
+    the end and the warm-up body of a capture); the beam kernel a layer a
+    body of rung 0, the append kernel a layer a body of the sampling
+    rungs.  The alignment pass launches none
     (torch.matmul, as the JAX package computes it)."""
     L, Lt, n = dims.n_audio_layer, dims.n_text_layer, len(calls)
-    beam = sum(c["steps"] for c in calls if c["temperature"] is None)
-    sampled = sum(c["steps"] for c in calls if c["temperature"] is not None)
+    # the step bodies (DecodeResult.bodies) launch the step's kernels
+    beam = sum(c["bodies"] for c in calls if c["temperature"] is None)
+    sampled = sum(c["bodies"] for c in calls if c["temperature"] is not None)
     return {"log_mel": files, "ln_fused": L * n, "residual_ln": L * n,
             "encoder_attention_merged": L * n, "cross_attention_step": Lt * (beam + sampled),
             "beam_self_attention_step": Lt * beam, "self_attention_append_step": Lt * sampled,
@@ -2829,7 +3080,8 @@ def transcribe_recipe(rng_row: dict) -> dict:
     model = init_random(cut, seed=0, dtype=torch.float32, device="cuda")
     out = {}
     for kernels in (True, False):
-        task = TranscribeTask(model, tok, options, kernels=kernels)
+        # the plain path's margins are read at every step: the eager loop
+        task = TranscribeTask(model, tok, options, kernels=kernels, graphs=kernels)
         with recorded_calls(margins=not kernels) as calls:
             reset_launches()
             res = task.run(audio)
@@ -2874,21 +3126,26 @@ def transcribe_recipe(rng_row: dict) -> dict:
         draw_events.append(ends)
         return out
 
+    clip = audio[: 16000 * RECIPE_TIMED_SECONDS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with recorded_calls() as first_calls:
+        task.run(clip)  # makes the windows of the clip's shapes: their phases captured
+    t_first = time.perf_counter() - t0
+    mem = {"held_mb": (torch.cuda.memory_allocated() - base) / 1e6,
+           "peak_graphs_mb": (torch.cuda.max_memory_allocated() - base) / 1e6}
     times = []
     reps = E2E_REPS_CUT.get(RECIPE_LABEL, E2E_REPS)
     for _ in range(reps):
-        draw_host, draw_events = [], []
-        with recorded_calls() as calls:
-            decode_rng.categorical = timed_draw
+        with recorded_calls() as calls, kept_inputs() as inputs:
             reset_launches()
-            try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = task.run(audio[: 16000 * RECIPE_TIMED_SECONDS])
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            finally:
-                decode_rng.categorical = categorical
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = task.run(clip)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
             launches = dict(LAUNCHES)
         check_route_counts("bf16 recipe", launches, recipe_launches(dims, calls))
     rungs = rungs_per_window(calls)
@@ -2904,26 +3161,100 @@ def transcribe_recipe(rng_row: dict) -> dict:
     print(f"  bf16: {n_win} windows, rungs by window {rungs}; {len(calls)} decode calls; steps "
           f"beam {beam_steps}, sampling {sampled_steps}; {len(res.segments)} segments, "
           f"{len(words)} words; runs {', '.join(f'{t:.3f}' for t in times)} s (median of "
-          f"{reps}); {RECIPE_TIMED_SECONDS / elapsed:.2f} audio-s/s; wall over the steps "
+          f"{reps}; the first, which captured, {t_first:.3f} s with "
+          f"{sum(c['bodies'] - c['steps'] for c in first_calls)} bodies more than steps); "
+          f"{RECIPE_TIMED_SECONDS / elapsed:.2f} audio-s/s; wall over the steps "
           f"{elapsed / (beam_steps + sampled_steps) * 1e3:.2f} ms a step", flush=True)
     print(f"  launches of the last run (checked against recipe_launches): {launches}; the "
           f"port's kernels {sum(v for k, v in launches.items() if ':' not in k) / n_win:.1f} a "
           f"window", flush=True)
+    over = [c for c in calls if c["syncs"] > -(-c["steps"] // decode_loop.CHECK_EVERY) + 3]
+    if over or any(c["loop"] != "graphs" for c in calls):
+        raise AssertionError(f"bf16 recipe: syncs past ceil(steps / k) + 3, or an eager loop: "
+                             f"{[(c['steps'], c['syncs'], c['loop']) for c in over or calls]}")
+
+    # the first window's rung-0 call and its first sampled rung again through
+    # the eager loop (graphs=False) on their inputs, each held to the
+    # captured call bit for bit; the draw timed at each of its steps
+    picked = [next(i for i, c in enumerate(calls) if c["temperature"] is None),
+              next(i for i, c in enumerate(calls) if c["temperature"] is not None)]
+    draw_host, draw_events = [], []
+    t_graph = t_eager = 0.0
+    n_steps = 0
+    for i in picked:
+        c, inp = calls[i], inputs[i]
+        inp["task"].graphs = False
+        with recorded_calls() as eager:
+            decode_rng.categorical = timed_draw
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inp["task"].run_batch(inp["mel"], inp["prompts"], temperature=c["temperature"])
+                torch.cuda.synchronize()
+                t_eager += time.perf_counter() - t0
+            finally:
+                decode_rng.categorical = categorical
+                inp["task"].graphs = True
+        with recorded_calls() as again:  # the captured call, timed alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inp["task"].run_batch(inp["mel"], inp["prompts"], temperature=c["temperature"])
+            torch.cuda.synchronize()
+            t_graph += time.perf_counter() - t0
+        for other in (eager[0], again[0]):
+            if not (all(torch.equal(c[k], other[k]) for k in ("candidates", "scores", "no_speech"))
+                    and c["steps"] == other["steps"]):
+                raise AssertionError(f"bf16 recipe call {i} (T {c['temperature']}): the "
+                                     f"captured loop differs from graphs=False or from itself")
+        n_steps += c["steps"]
+    sampling = [c for c in calls if c["temperature"] is not None]
+    c, inp = calls[picked[1]], inputs[picked[1]]
+
+    def sampled_call(graphs: bool):
+        inp["task"].graphs = graphs
+        try:
+            inp["task"].run_batch(inp["mel"], inp["prompts"], temperature=c["temperature"])
+        finally:
+            inp["task"].graphs = True
+
+    host = {way: host_calls(lambda g=g: sampled_call(g)) for way, g in (("captured", True),
+                                                                        ("eager", False))}
+    LOOPS[f"{RECIPE_LABEL} sampled rungs"] = row = {
+        "calls": len(calls), "sampling_calls": len(sampling), "compared_calls": len(picked),
+        "steps": n_steps, "ms_step_graphs": t_graph / n_steps * 1e3,
+        "ms_step_eager": t_eager / n_steps * 1e3, "first_run_s": t_first,
+        "syncs_graphs": sum(x["syncs"] for x in calls), "steps_all": beam_steps + sampled_steps,
+        "captures": sum(x["captures"] for x in first_calls),
+        "capture_s": sum(x["capture_seconds"] for x in first_calls), **mem,
+        "host_calls": host, "k": decode_loop.CHECK_EVERY}
+    launch_calls = {way: sum(n for name, n in h.items() if name in HOST_CALLS)
+                    for way, h in host.items()}
+    print(f"[graphs] {RECIPE_LABEL}, {RECIPE_TIMED_SECONDS} s clip: {len(calls)} captured calls "
+          f"({len(sampling)} sampled rungs); window 0's rung 0 and first sampled rung (T "
+          f"{calls[picked[1]]['temperature']}) again with graphs=False, bit-equal (candidates, "
+          f"scores, no-speech, steps); {row['ms_step_graphs']:.3f} ms a step captured, "
+          f"{row['ms_step_eager']:.3f} eager ({t_eager / t_graph:.2f}x; each call's encoder and "
+          f"prefill included); host syncs {row['syncs_graphs']} over {row['steps_all']} steps "
+          f"(k {decode_loop.CHECK_EVERY}); the first captured run {t_first:.3f} s with "
+          f"{row['captures']} captures in {row['capture_s']:.3f} s; memory: the cached windows "
+          f"hold {mem['held_mb']:.1f} MB, peak +{mem['peak_graphs_mb']:.1f} MB; host runtime "
+          f"calls of the sampled call ({c['steps']} steps): {launch_calls['captured']} "
+          f"launches captured {host['captured']}, {launch_calls['eager']} eager "
+          f"{host['eager']}", flush=True)
     # a sampling call draws after its prefill and at each incremental step
-    draws = sum(c["steps"] + 1 for c in calls if c["temperature"] is not None)
+    draws = calls[picked[1]]["steps"] + 1
     if len(draw_host) != draws:
         raise AssertionError(f"bf16 recipe: {len(draw_host)} draws, not the {draws} of its "
-                             "sampling calls")
+                             "sampling call")
     span_ms = [a.elapsed_time(b) for a, b in draw_events]
     print(f"  the draw, alone ([rng]): {rng_row['draw_launches']} device launches, "
           f"{rng_row['draw_ms']:.3f} ms a call synchronised, {rng_row['draw_device_ms']:.4f} ms "
           f"of device time", flush=True)
-    print(f"  the draw in the last run: {len(draw_host)} draws, one a sampling step and "
-          f"one after each sampling call's prefill; host "
-          f"{np.median(draw_host) * 1e3:.3f} ms a step to launch it (median; "
-          f"{sum(draw_host):.3f} s in all, {sum(draw_host) / times[-1] * 100:.1f}% of the run's "
-          f"{times[-1]:.3f} s); its span on the device's timeline {np.median(span_ms):.3f} ms "
-          f"a step (median; CUDA events, {sum(span_ms) / 1e3:.3f} s in all)", flush=True)
+    print(f"  the draw in the eager sampled call: {len(draw_host)} draws, one a step and one "
+          f"after its prefill; host {np.median(draw_host) * 1e3:.3f} ms a step to launch it "
+          f"(median; {sum(draw_host):.3f} s in all); its span on the device's timeline "
+          f"{np.median(span_ms):.3f} ms a step (median; CUDA events, {sum(span_ms) / 1e3:.3f} s "
+          f"in all); in the captured loop it is part of each replayed step", flush=True)
     print(f"  alignment pass: {len(align_ms)} windows, {np.median(align_ms):.2f} ms a window "
           f"(median; all {', '.join(f'{t:.2f}' for t in align_ms)})", flush=True)
     del model, task
@@ -3029,7 +3360,11 @@ def cli_phase() -> dict:
 SERVE_BATCH = 4
 SERVE_SECONDS = (8, 12, 20, 35, 50, 65)
 SERVE_EARLY = 4
+SERVE_EAGER_CALLS = 2  # the serving calls also run with graphs=False
 SERVE_LABEL = f"{TRANSCRIBE_MODEL} serve b{SERVE_BATCH} beam5"
+# requests a second client submits while a new engine's first call captures
+# its window (the capture held until they have returned)
+SERVE_RACE_SUBMITS = 3
 # the f32 pass: three requests with a two-rung ladder, the last submitted once
 # the first round has begun, so that rows at both rungs share rounds; each
 # call is cut to SERVE_F32_SAMPLE_LEN tokens for the script's time (every
@@ -3147,6 +3482,134 @@ def trimmed(kernel: list, plain: list):
     return kernel, plain
 
 
+def serve_capture_race(model, tok, audio) -> dict:
+    """A new engine (no ``warmup()``) whose first call captures its window
+    while a second client thread submits SERVE_RACE_SUBMITS requests, each
+    running its mel on the card on that thread.  The capture is held until
+    those submits have returned (a wrapper of ``DecodeWindow.body`` waits on
+    the capturing thread), so they surely run inside it.  Every request
+    resolves and none fails: a mel refused during another thread's capture
+    would fail its request as a bad input, and a capture disturbed by the
+    client's work would raise in the engine's call."""
+    body = decode_loop.DecodeWindow.body
+    capturing, submitted = threading.Event(), threading.Event()
+    held = []
+
+    def held_body(self, W):
+        if torch.cuda.is_current_stream_capturing() and not submitted.is_set():
+            capturing.set()
+            t0 = time.perf_counter()
+            if not submitted.wait(timeout=300):
+                raise AssertionError("serve race: no submit returned during the capture")
+            held.append(time.perf_counter() - t0)
+        return body(self, W)
+
+    engine = ServingEngine(model, tok, TranscribeOptions(), batch_size=SERVE_BATCH)
+    late = []
+
+    def client():
+        try:
+            if capturing.wait(timeout=300):
+                late.extend(engine.submit(audio) for _ in range(SERVE_RACE_SUBMITS))
+        finally:
+            submitted.set()
+
+    decode_loop.DecodeWindow.body = held_body
+    try:
+        thread = threading.Thread(target=client)
+        thread.start()
+        first = engine.submit(audio)
+        thread.join(timeout=600)
+        outs = [h.result(timeout=600) for h in [first] + late]
+        engine.drain(timeout=600)
+        stats = engine.stats()
+    finally:
+        decode_loop.DecodeWindow.body = body
+        engine.close()
+    want = {"submitted": 1 + SERVE_RACE_SUBMITS, "completed": 1 + SERVE_RACE_SUBMITS,
+            "failed": 0}
+    if (len(late) != SERVE_RACE_SUBMITS or not held
+            or {k: stats[k] for k in want} != want
+            or not all(o.segments and np.isfinite(o.avg_logprobs).all() for o in outs)):
+        raise AssertionError(f"serve race: {len(late)} submits during the capture, stats "
+                             f"{stats}, outputs {[len(o.segments) for o in outs]}")
+    print(f"  capture race: a new engine's first call captured its window while a second "
+          f"client submitted {SERVE_RACE_SUBMITS} requests (their mel on the card on its "
+          f"thread; the capture held {held[0]:.3f} s until they returned); all "
+          f"{1 + SERVE_RACE_SUBMITS} resolved, none failed (capture_error_mode thread_local)",
+          flush=True)
+    return {"submits_in_capture": len(late), "capture_held_s": held[0]}
+
+
+def window_mb(win) -> float:
+    """The MB of a decode window's static buffers (its tensors, and those
+    of its cache, cross K/V and beam state), each storage once."""
+    storages = {}
+
+    def add(x):
+        if isinstance(x, torch.Tensor):
+            storages[x.untyped_storage().data_ptr()] = x.untyped_storage().nbytes()
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                add(getattr(x, f.name))
+
+    for value in vars(win).values():
+        add(value)
+    return sum(storages.values()) / 1e6
+
+
+def serve_window_memory(model, tok) -> dict:
+    """The memory a serving engine's decode windows hold at batch
+    SERVE_BATCH: the primary task's and the sampling task's window at every
+    prefill bucket (``WindowCache.SIZE`` each), captured: held after the
+    captures (the buffers, the graphs' pools, and library workspaces of the
+    capture streams), the peak, the buffers alone (``window_mb``), and what
+    ``close()`` gives back, at least the buffers."""
+    engine = ServingEngine(model, tok, TranscribeOptions(), batch_size=SERVE_BATCH)
+    tasks = {"primary": engine.decode_task, "sampling": engine._sampling_task()}
+    sot = tok.sequence_sot()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    by_window, buffers = {}, 0.0
+    for name, task in tasks.items():
+        for width in PREFILL_BUCKETS:
+            prompt = None if width == PREFILL_BUCKETS[0] else [tok.token_id_space] * (
+                width - len(sot) - 1)
+            tokens, _, sample_begin, _ = build_batch_prompts(
+                [prompt] * SERVE_BATCH, sot, tok.token_id_sot, tok.token_id_startofprev,
+                model.dims.n_text_ctx)
+            if tokens.shape[1] != width:
+                raise AssertionError(f"serve memory: a prompt for bucket {width} fills "
+                                     f"{tokens.shape[1]}")
+            before = torch.cuda.memory_allocated()
+            win = task.windows.get(model, task._shape(SERVE_BATCH, width, sample_begin,
+                                                      None if name == "primary" else 1.0))
+            win.prepare(True)
+            torch.cuda.synchronize()
+            by_window[f"{name} {width}"] = (torch.cuda.memory_allocated() - before) / 1e6
+            buffers += window_mb(win)
+    held = (torch.cuda.memory_allocated() - base) / 1e6
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    if sum(len(t.windows) for t in tasks.values()) != 2 * len(PREFILL_BUCKETS):
+        raise AssertionError("serve memory: a window was dropped")
+    engine.close()
+    del tasks, win
+    gc.collect()
+    left = (torch.cuda.memory_allocated() - base) / 1e6
+    if held - left < buffers:
+        raise AssertionError(f"serve memory: close() gave back {held - left:.1f} MB of the "
+                             f"windows' {buffers:.1f} MB of buffers")
+    print(f"  windows of batch {SERVE_BATCH} at every prefill bucket {PREFILL_BUCKETS}, the "
+          f"primary task (beam 5) and the sampling task (best-of-5), captured: "
+          f"{held:.1f} MB held ({buffers:.1f} MB of it the windows' buffers), peak "
+          f"+{peak:.1f} MB; by window { {k: round(v, 1) for k, v in by_window.items()} } MB; "
+          f"close() gave back {held - left:.1f} MB", flush=True)
+    return {"held_mb_all_buckets": held, "peak_mb_all_buckets": peak,
+            "buffers_mb_all_buckets": buffers, "mb_by_window": by_window,
+            "left_after_close_mb": left}
+
+
 def serve_phase() -> dict:
     """[serve] ``ServingEngine`` at base.en, full width and depth, seed-0
     weights, the port's Tokenizer, batch 4, after ``warmup()``.  (a) bf16,
@@ -3173,14 +3636,45 @@ def serve_phase() -> dict:
           f"{SERVE_SECONDS} s, {SERVE_EARLY} at once, {len(SERVE_SECONDS) - SERVE_EARLY} from a "
           f"second client", flush=True)
     model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+
+    def first_request(warm: bool) -> tuple:
+        """A new engine's first request (SERVE_SECONDS[0] s, one window),
+        after ``warmup()`` or not: (its latency, the warm-up's seconds)."""
+        engine = ServingEngine(model, tok, TranscribeOptions(), batch_size=SERVE_BATCH)
+        t_warm = 0.0
+        if warm:
+            t0 = time.perf_counter()
+            engine.warmup()
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine.submit(audios[0]).result(timeout=600)
+        latency = time.perf_counter() - t0
+        engine.close()
+        return latency, t_warm
+
+    (cold, _), (warm, t_warm) = first_request(False), first_request(True)
+    print(f"  first request ({SERVE_SECONDS[0]} s, one window) of a new engine: {cold:.3f} s "
+          f"without warmup() (its window's phases captured in the request), {warm:.3f} s after "
+          f"warmup() (DecodeTask.warmup: the windows of batch {SERVE_BATCH} at the first and "
+          f"the last prefill bucket captured, {t_warm:.3f} s)", flush=True)
+    LOOPS["serve first request"] = {"latency_cold_s": cold, "latency_warm_s": warm,
+                                    "warmup_s": t_warm,
+                                    **serve_capture_race(model, tok, audios[0])}
+    LOOPS["serve windows"] = serve_window_memory(model, tok)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     engine = ServingEngine(model, tok, TranscribeOptions(), batch_size=SERVE_BATCH)
     t0 = time.perf_counter()
     engine.warmup()
     torch.cuda.synchronize()
-    print(f"  warmup (build_all, a padded call unprompted and one at the 232 bucket): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    held_warm = (torch.cuda.memory_allocated() - base) / 1e6
+    print(f"  warmup (build_all; DecodeTask.warmup: the windows of the unprompted and the 232 "
+          f"bucket captured, the encoder and prefill run once): "
+          f"{time.perf_counter() - t0:.2f} s; the windows hold {held_warm:.1f} MB", flush=True)
     late = []
-    with serving_recorded(engine) as (calls, rounds, gate, started):
+    with serving_recorded(engine, keep_inputs=True) as (calls, rounds, gate, started):
         reset_launches()
 
         def second_client():
@@ -3203,7 +3697,8 @@ def serve_phase() -> dict:
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         stats = engine.stats()
-    engine.close()
+    mem = {"held_mb": (torch.cuda.memory_allocated() - base) / 1e6,
+           "peak_graphs_mb": (torch.cuda.max_memory_allocated() - base) / 1e6}
     odd = [c["rows"] for c in calls if c["rows"] != SERVE_BATCH]
     if not calls or odd:
         raise AssertionError(f"serve: {len(calls)} calls, {len(odd)} not of {SERVE_BATCH} rows")
@@ -3240,7 +3735,66 @@ def serve_phase() -> dict:
           f"{stats['decode_seconds'] / steps * 1e3:.2f} ms a step", flush=True)
     print(f"  launches (checked against recipe_launches, the mel kernel once a request): "
           f"{launches}", flush=True)
-    del model, engine
+    # the first SERVE_EAGER_CALLS calls again through the eager loop
+    # (graphs=False) on their inputs, each held to the captured call bit for
+    # bit (the eager loop costs the script's time)
+    t_eager, eager_steps = 0.0, 0
+    for i, c in enumerate(calls[:SERVE_EAGER_CALLS]):
+        c["task"].graphs = False
+        with recorded_calls() as eager:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c["task"].run_batch(c["mel"], c["prompts"], temperature=c["temperature"])
+            torch.cuda.synchronize()
+            t_eager += time.perf_counter() - t0
+        c["task"].graphs = True
+        (e,) = eager
+        eager_steps += e["steps"]
+        if not (all(torch.equal(c[k], e[k]) for k in ("candidates", "scores", "no_speech"))
+                and c["steps"] == e["steps"] and c["loop"] == "graphs"):
+            raise AssertionError(f"bf16 serve call {i}: the captured loop differs from "
+                                 f"graphs=False ({c['loop']})")
+    over = [c for c in calls if c["syncs"] > -(-c["steps"] // decode_loop.CHECK_EVERY) + 3]
+    if over:
+        raise AssertionError(f"bf16 serve: syncs past ceil(steps / k) + 3: "
+                             f"{[(c['steps'], c['syncs']) for c in over]}")
+    first = calls[0]
+
+    def first_call(graphs: bool):
+        first["task"].graphs = graphs
+        try:
+            first["task"].run_batch(first["mel"], first["prompts"],
+                                    temperature=first["temperature"])
+        finally:
+            first["task"].graphs = True
+
+    host = {way: host_calls(lambda g=g: first_call(g)) for way, g in (("captured", True),
+                                                                      ("eager", False))}
+    launch_calls = {way: sum(n for name, n in h.items() if name in HOST_CALLS)
+                    for way, h in host.items()}
+    LOOPS[SERVE_LABEL] = {"calls": len(calls), "steps": steps,
+                          "compared_calls": min(len(calls), SERVE_EAGER_CALLS),
+                          "ms_step_graphs": stats["decode_seconds"] / steps * 1e3,
+                          "ms_step_eager": t_eager / eager_steps * 1e3,
+                          "syncs_graphs": sum(c["syncs"] for c in calls),
+                          "captures_in_calls": sum(c["captures"] for c in calls),
+                          "capture_s_in_calls": sum(c["capture_seconds"] for c in calls),
+                          "held_mb_after_warmup": held_warm, **mem, "host_calls": host,
+                          "k": decode_loop.CHECK_EVERY}
+    print(f"[graphs] {SERVE_LABEL}: {len(calls)} captured calls, the first "
+          f"{min(len(calls), SERVE_EAGER_CALLS)} replayed with graphs=False on their inputs and "
+          f"bit-equal (candidates, scores, no-speech, steps); decode "
+          f"{stats['decode_seconds'] / steps * 1e3:.3f} ms a step captured (the engine's "
+          f"decode seconds, encoders included), {t_eager / eager_steps * 1e3:.3f} eager (the "
+          f"replays); host syncs {sum(c['syncs'] for c in calls)} over {steps} steps "
+          f"(k {decode_loop.CHECK_EVERY}); captures in the calls (the buckets warmup() did not "
+          f"make) {LOOPS[SERVE_LABEL]['captures_in_calls']} in "
+          f"{LOOPS[SERVE_LABEL]['capture_s_in_calls']:.3f} s; memory: the engine's windows hold "
+          f"{mem['held_mb']:.1f} MB, peak +{mem['peak_graphs_mb']:.1f} MB; host runtime calls "
+          f"of call 0 ({first['steps']} steps): {launch_calls['captured']} launches captured "
+          f"{host['captured']}, {launch_calls['eager']} eager {host['eager']}", flush=True)
+    engine.close()  # drops the windows the replays above used
+    del model, engine, calls, first
     torch.cuda.empty_cache()
 
     # (b) f32: the ladder, the plain replay of every call, the sequential task
@@ -3276,17 +3830,17 @@ def serve_phase() -> dict:
           f"; requests by call {[c['rids'] for c in calls]}", flush=True)
     compared = 0
     for i, c in enumerate(calls):
-        c["task"].kernels = False
+        c["task"].kernels = c["task"].graphs = False  # the margins: the eager loop
         with recorded_calls(margins=True) as plain:
             c["task"].run_batch(c["mel"], c["prompts"], temperature=c["temperature"])
-        c["task"].kernels = True
+        c["task"].kernels = c["task"].graphs = True
         compared += compare_calls(f"f32 serve call {i} (T {c['temperature'] or 0.0}, requests "
                                   f"{c['rids']}), kernel path against plain", [c], plain)
     print(f"  f32: {compared} of {len(calls)} calls equal to the plain path on their inputs "
           f"(the rest stopped below the margin)", flush=True)
     for h, audio, seconds in zip(handles, audios, SERVE_F32_SECONDS):
         with recorded_calls(margins=True) as seq:
-            want_out = TranscribeTask(model, tok, options).run(audio)
+            want_out = TranscribeTask(model, tok, options, graphs=False).run(audio)
         got, ref = trimmed(request_calls(calls, h.request_id), request_calls(seq))
         what = f"f32 serve request {h.request_id} ({seconds} s) against sequential"
         if compare_calls(what, got, ref):
@@ -3565,10 +4119,11 @@ def par_serve_options() -> TranscribeOptions:
     return TranscribeOptions(decode=DecodeOptions(sample_len=PAR_SERVE_SAMPLE_LEN))
 
 
-def _par_greedy(name: str, model, audio, encoder_fn=None) -> dict:
+def _par_greedy(name: str, model, audio, encoder_fn=None, graphs: bool = True) -> dict:
     """One greedy path of ``parallel_rank``: the mel kernel, the decode, f32,
-    SAMPLE_LEN steps, with every launch count and the collectives' counts
-    set to 0 just before and read just after."""
+    SAMPLE_LEN steps (``graphs``: the step captured, where the mesh allows;
+    ``decode.loop.eager_reason``), with every launch count and the
+    collectives' counts set to 0 just before and read just after."""
     from whisper_rs_tpu_torch.parallel import collectives
 
     dims = model.dims
@@ -3579,11 +4134,13 @@ def _par_greedy(name: str, model, audio, encoder_fn=None) -> dict:
     t0 = time.perf_counter()
     mel = log_mel_frontend(audio, dims.n_mels)
     res = decode_greedy(model, mel, initial, 1, 0, filter_config(dims), GreedyMode(), SAMPLE_LEN,
-                        NO_SPEECH, encoder_fn=encoder_fn)
+                        NO_SPEECH, encoder_fn=encoder_fn, graphs=graphs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return {"tokens": res.candidates[:, 0].cpu(), "scores": res.scores.cpu(),
-            "xa": res.audio_features.float().cpu(), "steps": res.steps, "wall": wall,
+            "no_speech": res.no_speech_probs.cpu(), "xa": res.audio_features.float().cpu(),
+            "steps": res.steps, "bodies": res.bodies, "syncs": res.syncs, "loop": res.loop,
+            "captures": res.captures, "capture_s": res.capture_seconds, "wall": wall,
             "launches": dict(LAUNCHES), "stats": dict(collectives.STATS)}
 
 
@@ -3647,7 +4204,8 @@ def parallel_rank(rank: int, audio: np.ndarray, serve_audios: list) -> dict:
             launches, stats = dict(LAUNCHES), dict(collectives.STATS)
             engine_stats = engine.stats()
         engine.close()
-        keep = ("temperature", "rows", "outputs", "steps", "candidates", "sample_begin", "rids")
+        keep = ("temperature", "rows", "outputs", "steps", "bodies", "syncs", "loop",
+                "candidates", "scores", "no_speech", "sample_begin", "rids")
         out["serve"] = {"calls": [{k: c[k] for k in keep} for c in calls],
                         "rids": [h.request_id for h in handles], "wall": wall,
                         "segments": [[(s.seek, s.text) for s in o.segments] for o in outs],
@@ -3661,8 +4219,29 @@ def parallel_rank(rank: int, audio: np.ndarray, serve_audios: list) -> dict:
     if rank == 0:
         unsharded = _par_greedy("unsharded", model_of(), audio)
         mesh = Mesh(n_model=1, model_group=nccl, data_group=nccl, backend="nccl")
-        one = _par_greedy("nccl", shard_model(model_of(), mesh), audio)
-        out["nccl"] = {"whole": unsharded, "tp1": one}
+        tp1 = shard_model(model_of(), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one = _par_greedy("nccl", tp1, audio)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        eager = _par_greedy("nccl eager", tp1, audio, graphs=False)
+        # the host's runtime calls of a PROFILE_STEPS-token window both ways
+        # (the captured window made by a first call)
+        mel = log_mel_frontend(audio, dims.n_mels)
+        windows = WindowCache()
+
+        def cut(graphs: bool):
+            decode_greedy(tp1, mel, np.full((audio.shape[0], 1), SOT), 1, 0,
+                          filter_config(dims), GreedyMode(), PROFILE_STEPS, NO_SPEECH,
+                          graphs=graphs, windows=windows if graphs else None)
+
+        cut(True)
+        host = {f"{way} {PROFILE_STEPS}-token": host_calls(lambda g=g: cut(g))
+                for way, g in (("captured", True), ("eager", False))}
+        out["nccl"] = {"whole": unsharded, "tp1": one, "tp1_eager": eager, "host": host,
+                       "peak_graphs_mb": peak}
+        del windows
     dist.barrier()
     return out
 
@@ -3773,8 +4352,8 @@ def parallel_phase() -> dict:
     tok = Tokenizer.for_dims(dims)
     seq = []
     for a in serve_audios:
-        with recorded_calls(margins=True) as calls:
-            TranscribeTask(model16, tok, par_serve_options()).run(a)
+        with recorded_calls(margins=True) as calls:  # margins: the eager loop
+            TranscribeTask(model16, tok, par_serve_options(), graphs=False).run(a)
         seq.append(calls)
     del model16
     torch.cuda.empty_cache()
@@ -3802,8 +4381,8 @@ def parallel_phase() -> dict:
         if not torch.equal(ranks[1][name]["tokens"], got["tokens"]):
             raise AssertionError(f"{what}: the two ranks' tokens differ")
         for r, res in enumerate(ranks):
-            steps = res[name]["steps"]
-            expect = expected_launches(dims, steps, steps + 1, "append")
+            steps, bodies = res[name]["steps"], res[name]["bodies"]
+            expect = expected_launches(dims, bodies, bodies + 1, "append")
             if name == "ulysses":
                 expect.update(encoder_attention_merged=0, encoder_attention_split=L)
             if name == "pp":  # the stage's L / 2 blocks, once a microbatch
@@ -3814,7 +4393,8 @@ def parallel_phase() -> dict:
             check_route_counts(f"{what} rank {r}", res[name]["launches"], expect)
             ms = res[name]["wall"] / max(steps, 1) * 1e3
             st = res[name]["stats"]
-            print(f"  {what} rank {r}: {steps} steps, {ms:.2f} ms a step (mel, encoder and "
+            print(f"  {what} rank {r}: {steps} steps ({res[name]['loop']} loop, "
+                  f"{res[name]['syncs']} syncs), {ms:.2f} ms a step (mel, encoder and "
                   f"prefill included); {st['collectives']} collectives "
                   f"({st['collectives'] / max(steps, 1):.1f} a step), "
                   f"{st['bytes_staged'] / 1e6:.2f} MB staged through host memory; launches "
@@ -3851,6 +4431,34 @@ def parallel_phase() -> dict:
     print(f"  TP 1 on a one-card NCCL group: tokens, encoder output and scores bit-equal to "
           f"the unsharded model's; {st['collectives']} collectives on the card, none staged",
           flush=True)
+    nccl = ranks[0]["nccl"]
+    eager = nccl["tp1_eager"]
+    if not (all(torch.equal(tp1[k], eager[k]) for k in ("tokens", "scores", "no_speech"))
+            and tp1["steps"] == eager["steps"] and tp1["loop"] == "graphs"):
+        raise AssertionError(f"TP 1 on NCCL: the captured loop ({tp1['loop']}) differs from "
+                             "graphs=False")
+    bound = -(-tp1["steps"] // decode_loop.CHECK_EVERY) + 3
+    if tp1["syncs"] > bound:
+        raise AssertionError(f"TP 1 on NCCL: {tp1['syncs']} syncs, past {bound}")
+    launch_calls = {way: sum(n for name, n in h.items() if name in HOST_CALLS)
+                    for way, h in nccl["host"].items()}
+    LOOPS["base.en b8 TP 1 on NCCL"] = {
+        "steps": tp1["steps"], "wall_ms_step_graphs": tp1["wall"] / tp1["steps"] * 1e3,
+        "wall_ms_step_eager": eager["wall"] / eager["steps"] * 1e3, "syncs_graphs": tp1["syncs"],
+        "syncs_eager": eager["syncs"], "captures": tp1["captures"], "capture_s": tp1["capture_s"],
+        "peak_graphs_mb": nccl["peak_graphs_mb"], "host_calls": nccl["host"],
+        "k": decode_loop.CHECK_EVERY, "collectives_recorded": st["collectives"]}
+    print(f"[graphs] base.en b8 TP 1 on NCCL, f32: the captured loop (its all-reduces in the "
+          f"graphs) bit-equal to graphs=False (tokens, scores, no-speech, {tp1['steps']} steps);"
+          f" wall over the steps {tp1['wall'] / tp1['steps'] * 1e3:.3f} ms captured (its "
+          f"first call, which captured: {tp1['captures']} captures in {tp1['capture_s']:.3f} "
+          f"s), {eager['wall'] / eager['steps'] * 1e3:.3f} eager (mel, encoder and prefill "
+          f"included); syncs {tp1['syncs']} (bound {bound}) / {eager['syncs']}; peak memory "
+          f"+{nccl['peak_graphs_mb']:.1f} MB over the call; host runtime calls of a "
+          f"{PROFILE_STEPS}-token window: " + "; ".join(
+              f"{way} {launch_calls[way]} launches {h}" for way, h in nccl["host"].items())
+          + f"; collectives counted on the host {st['collectives']} (a capture counts its "
+          f"step's once)", flush=True)
     del model
     torch.cuda.empty_cache()
     parallel_cli(seeded_checkpoint())
@@ -4255,6 +4863,7 @@ def main() -> int:
             "by_config": by_config,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("[graphs] summary " + json.dumps(LOOPS), flush=True)
     print(json.dumps({"kernels": line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

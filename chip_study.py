@@ -5,6 +5,7 @@
     python3 chip_study.py layer [PARENT]
     python3 chip_study.py step [PARENT [LABEL]]
     python3 chip_study.py transcribe PARENT
+    python3 chip_study.py loop
 
 ``plans``: the cross kernel (row 5, ``csrc/cross_attention.cu``) at every
 path shape of ``chip_smoke.py`` (the golden dims' included) under every
@@ -31,11 +32,13 @@ random_decoder``): first held to its plain version at
 ``chip_smoke.LAYER_BF16_DEPTH`` layers and called twice for the same bits,
 then timed at full depth (CUDA events around 20 back-to-back launches,
 each with its wrapper's allocations), with the mean time of each of its
-eight phases over the layers from one launch with its phase clock.  With
-PARENT, a checkout of an earlier tree, that tree's kernel is built from
-its source with this tree's nvcc flags and timed the same way in turns
-(parent, this, this, parent) through its own C interface (the one without
-a launch plan).
+eight phases over the layers from one launch with its phase clock; the
+position is read from device memory.  With PARENT, a checkout of the tree
+before the kernel read the position from device memory, that tree's
+kernel is built from its source with this tree's nvcc flags, held to this
+one (their outputs' largest difference) and timed the same way in turns
+(parent, this, this, parent) through its own C interface (the position by
+value, the same launch plan).
 
 ``step``: the step self-attention kernels (``csrc/self_attention.cu``,
 one body, ``attend_window``): the append (row 7), beam (row 9, bf16 and
@@ -49,12 +52,14 @@ bits; then timed as ``chip_smoke`` times them (a CUDA graph of 50 calls
 rotating through the layers, so each finds its K/V cold in L2) at W 256,
 pos 255, under the plan ``step_launch_plan`` picks (marked ``*``) and at
 the other thread counts a block, beside the floor of such a graph (one
-torch add on one element).  With PARENT (``-`` for none), a checkout of the
-tree before rows 10 and 11 moved to this body, its kernels are built from
-their source with this tree's nvcc flags and timed the same way in turns
-(parent, this, this, parent) through their C interface; row 10 over an
-int8 cache is compared as the greedy path runs it (there the parent's
-path is the torch column write, then its read-only kernel) and read only.
+torch add on one element); the position is read from device memory.
+With PARENT (``-`` for none), a checkout of the tree before the kernels
+read the position from device memory, its kernels are built from their
+source with this tree's nvcc flags, held to this tree's at the same plan
+(their outputs' largest difference: 0 is bit-identical) and timed the same
+way in turns (parent, this, this, parent) through their C interface (the
+position by value); row 10 over an int8 cache as the greedy path runs it
+(with its column write) and read only.
 At the beam shapes the chosen plan is also timed with every row of an
 audio on one ancestor row and with every row on its own, beside the
 random ancestors: how the time follows the distinct rows read.  With
@@ -69,6 +74,11 @@ this, parent), each in a process of its own started in its tree, on one
 card: its audio-s/s and idle share apart from the rest of a
 ``chip_smoke.py`` run.
 
+``loop``: the decode loop's check interval k (``decode.loop.CHECK_EVERY``)
+at base.en b128 and large-v3 b12 greedy and medium.en b8 beam 5, bf16, the
+step captured: ms a step, host syncs and no-op bodies at each k of
+LOOP_KS, every k's decode held equal to the default's.
+
 Exits nonzero, printing no result, where CUDA is absent.
 """
 
@@ -80,6 +90,7 @@ import importlib
 import itertools
 import pathlib
 import subprocess
+import time
 import sys
 
 import numpy as np
@@ -105,7 +116,10 @@ def parent_cross(parent: pathlib.Path):
 
 def parent_layer(parent: pathlib.Path):
     """The bf16 entry point of PARENT's whole-step kernel, built into
-    build/study/ with this tree's nvcc flags."""
+    build/study/ with this tree's nvcc flags, with its C interface as the
+    tree before the position was read from device memory has it (the
+    position by value after n_ctx; the plan's table, grid, rings and
+    shared memory as ``layer_launch_plan`` lays them out)."""
     from whisper_rs_tpu_torch.ops import build
 
     src = parent / "whisper_rs_tpu_torch" / "csrc" / "decoder_layer.cu"
@@ -115,7 +129,7 @@ def parent_layer(parent: pathlib.Path):
                     str(src)], check=True, capture_output=True)
     fn = ctypes.CDLL(str(out)).decoder_step_bf16
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 11 + [I] * 9 + [ctypes.c_float, P]
+    fn.argtypes = [P] * 13 + [I] * 9 + [ctypes.c_float] + [I] * 5 + [P]
     fn.restype = I
     return fn
 
@@ -123,6 +137,7 @@ def parent_layer(parent: pathlib.Path):
 def layer(cs, parent=None) -> None:
     from whisper_rs_tpu_torch.config import dims_for
     from whisper_rs_tpu_torch.ops.decoder_layer_fused import (
+        _device_plan,
         decoder_step_fused,
         decoder_step_fused_plain,
         decoder_step_weights,
@@ -165,19 +180,26 @@ def layer(cs, parent=None) -> None:
         x, kv, kc, vc = cs.layer_step_case(dims, L, B, 1, torch.bfloat16, gen, dev)
         stream = torch.cuda.current_stream().cuda_stream
 
+        at = torch.full((), pos, dtype=torch.int64, device=dev)  # read from device memory
+
         def new(clock=None):
-            return decoder_step_fused(x, weights, kv, kc, vc, pos, None, n_head=H, group=1,
+            return decoder_step_fused(x, weights, kv, kc, vc, at, None, n_head=H, group=1,
                                       window=W, clock=clock)
+
+        grid, lplan, table = _device_plan(B, D, 1, dims.n_audio_ctx, dims.n_text_ctx, dev)
 
         def parent_call(clock=None):
             out = x.clone()
             q, att = torch.empty_like(x), torch.empty_like(x)
             hid = torch.empty(B, 4 * D, dtype=x.dtype, device=dev)
-            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            bar = torch.zeros(1 + lplan.flags, dtype=torch.int32, device=dev)
+            part = torch.empty(lplan.partial_floats, dtype=torch.float32, device=dev)
             err = old(weights.table.data_ptr(), kv.data_ptr(), None, out.data_ptr(),
                       kc.data_ptr(), vc.data_ptr(), q.data_ptr(), att.data_ptr(), hid.data_ptr(),
-                      bar.data_ptr(), None if clock is None else clock.data_ptr(), B, D, H, L, 1,
-                      dims.n_audio_ctx, dims.n_text_ctx, pos, W, 64**-0.5, stream)
+                      bar.data_ptr(), None if clock is None else clock.data_ptr(),
+                      part.data_ptr(), table.data_ptr(), B, D, H, L, 1, dims.n_audio_ctx,
+                      dims.n_text_ctx, pos, W, 64**-0.5, grid, lplan.stages, lplan.cross_stages,
+                      lplan.act_pitch, lplan.smem, stream)
             if err:
                 raise RuntimeError(f"parent whole-step kernel launch failed: {err}")
             return out
@@ -296,10 +318,10 @@ def plans(cs, parent=None, only=None) -> None:
 
 def parent_step(parent: pathlib.Path) -> dict:
     """PARENT's bf16 step entry points, built from its self-attention source
-    into build/study/ with this tree's nvcc flags, with their C interface
-    as a tree has it whose rows 10 and 11 do not yet run the window body:
-    the append, beam and int8 beam entry points take a plan (threads), the
-    fused and read-only ones neither a plan nor a column."""
+    into build/study/ with this tree's nvcc flags, with their C interface as
+    the tree before the position was read from device memory has it: the
+    position passed by value, every entry point taking a plan (threads),
+    row 10 this step's column (k_new, v_new, or null)."""
     from whisper_rs_tpu_torch.ops import build
 
     src = parent / "whisper_rs_tpu_torch" / "csrc" / "self_attention.cu"
@@ -315,8 +337,8 @@ def parent_step(parent: pathlib.Path) -> dict:
     fns["append"].argtypes = [P] * 7 + [I] * 8 + [P]
     for key in ("beam", "beam int8"):
         fns[key].argtypes = [P] * 7 + [I, P] + [I] * 8 + [P]
-    fns["fused"].argtypes = [P] * 5 + [I] * 7 + [P]
-    fns["step"].argtypes = [P] * 7 + [I] * 7 + [P]
+    fns["fused"].argtypes = [P] * 5 + [I] * 8 + [P]
+    fns["step"].argtypes = [P] * 9 + [I] * 8 + [P]
     for fn in fns.values():
         fn.restype = I
     return fns
@@ -429,7 +451,10 @@ def step(cs, parent=None, only=None) -> None:
         cs.check_deterministic(name, lambda: run(kernel, 255, ks, 256), {})
 
         W, pos = 256, 255
-        chosen = step_launch_plan(B, H, pos + 1, W, dh, k_all.element_size(), beam)
+        # the wrappers' plan is taken at the window (n = W); at W 256, pos 255
+        # it is the plan the position gave while it was passed by value
+        chosen = step_launch_plan(B, H, W, W, dh, k_all.element_size(), beam)
+        at = torch.full((), pos, dtype=torch.int64, device=dev)  # read from device memory
         out = torch.empty_like(q)
         nxt = cs.rotating(L)
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (the capture's)
@@ -439,7 +464,7 @@ def step(cs, parent=None, only=None) -> None:
 
         def call(plan, anc=extra[0] if beam else None, layer=None, column=writes):
             new = fresh if column else (None, None)
-            return _window_launch(entry, plan, nxt() if layer is None else layer, pos, W, G,
+            return _window_launch(entry, plan, nxt() if layer is None else layer, at, W, G,
                                   q=q, k_new=new[0], v_new=new[1], k_all=k_all, v_all=v_all,
                                   key_start=None, anc_local=anc, out=out, **scales)
 
@@ -449,22 +474,18 @@ def step(cs, parent=None, only=None) -> None:
             fn = old["beam int8" if beam and int8 else kind]
 
             def call_old(layer=None, column=writes):
-                at = nxt() if layer is None else layer
-                if kind == "step" and column:  # the torch column write of the parent's path
-                    for plane, x in enumerate(fresh):
-                        planes[plane, at, :, :, pos], s[plane, at, :, :, pos] = quantize_kv(x)
+                at_layer = nxt() if layer is None else layer
+                new = fresh if column else (None, None)
+                ksc, vsc = scales.get("k_scale"), scales.get("v_scale")
+                anc = extra[0] if beam else None
                 ptrs = {"append": (q, *fresh, k_all, v_all, None, out),
-                        "beam": (q, *fresh, k_all, v_all, None, extra[0] if beam else None),
+                        "beam": (q, *fresh, k_all, v_all, None, anc),
                         "fused": (q, k_all, v_all, None, out),
-                        "step": (q, k_all, v_all, scales.get("k_scale"), scales.get("v_scale"),
-                                 None, out)}[kind]
+                        "step": (q, *new, k_all, v_all, ksc, vsc, None, out)}[kind]
                 if beam and int8:
-                    ptrs = (q, k_all, v_all, scales["k_scale"], scales["v_scale"], None,
-                            extra[0])
+                    ptrs = (q, k_all, v_all, ksc, vsc, None, anc)
                 ptrs = [None if t is None else t.data_ptr() for t in ptrs]
-                sizes = (B, H, n_ctx, at, pos, W, dh)
-                if kind in ("append", "beam"):
-                    sizes += (chosen.threads,)
+                sizes = (B, H, n_ctx, at_layer, pos, W, dh, chosen.threads)
                 err = (fn(*ptrs, G, out.data_ptr(), *sizes, stream()) if beam
                        else fn(*ptrs, *sizes, stream()))
                 if err:
@@ -477,8 +498,7 @@ def step(cs, parent=None, only=None) -> None:
                   f"{(out.float() - want.float()).abs().max().item():.3e}", flush=True)
             turns = [("parent", call_old), ("this", lambda: call(chosen)),
                      ("this", lambda: call(chosen)), ("parent", call_old)]
-            results.append(("in turns (the parent's path: the torch column write, then its "
-                            "kernel) " if kind == "step" and writes else "in turns ") + ", ".join(
+            results.append("in turns (the parent: the position by value) " + ", ".join(
                 f"{who} {cs.timed_ms(fn, 50, graph=True) * 1e3:.2f}" for who, fn in turns))
             if kind == "step" and writes:
                 turns = [("parent", lambda: call_old(column=False)),
@@ -558,12 +578,100 @@ def parity_seeds(cs) -> None:
     cs.parity_audio = own
 
 
+LOOP_KS = (1, 2, 4, 8, 16, 32)
+
+
+def loop(cs) -> None:
+    """The decode loop's check interval k (``decode_loop.CHECK_EVERY``): the
+    captured loop of base.en b128 greedy (unprompted), large-v3 b12 greedy
+    and medium.en b8 beam 5 (prompted as BENCH_PROMPTED) at their full
+    budgets, bf16, at each k of LOOP_KS, the window captured once and its
+    results held equal at every k; two timed runs a k (the median of two,
+    in turns from the smallest k to the largest and back), the steps'
+    share of the wall (the mel, encoder and prefill taken out as in
+    ``chip_smoke.e2e``), the host's syncs, and the bodies run past the end.
+    A k costs at most k - 1 no-op steps at the end of a window that every
+    row finishes early, each at the ms a step printed."""
+    from whisper_rs_tpu_torch.config import BeamSearchMode, GreedyMode, dims_for
+    from whisper_rs_tpu_torch.decode import decode_beam, decode_greedy
+    from whisper_rs_tpu_torch.decode.loop import (
+        WindowCache,
+        _encode_and_prefill,
+        beam_shape,
+        greedy_shape,
+    )
+
+    for name, batch, beam in (("base.en", 128, 0), ("large-v3", 12, 0), ("medium.en", 8, 5)):
+        dims = dims_for(name)
+        model = cs.e2e_model(dims)
+        cfg = cs.filter_config(dims)
+        rng = np.random.default_rng(0)
+        audio = rng.standard_normal((batch, 480_000)).astype(np.float32) * np.float32(0.1)
+        if beam:
+            initial, key_start, sample_begin, sot_idx = cs.bench_prompts(rng, batch,
+                                                                         dims.n_text_ctx)
+            sample_len = min(cs.SAMPLE_LEN, dims.n_text_ctx - sample_begin)
+            mode, decode = BeamSearchMode(beam_size=beam, patience=1.0), decode_beam
+        else:
+            initial, key_start, sample_begin, sot_idx = (np.full((batch, 1), cs.SOT), None, 1,
+                                                         0)
+            sample_len, mode, decode = cs.SAMPLE_LEN, GreedyMode(), decode_greedy
+        windows = WindowCache()
+        mel = cs.log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16)
+
+        chosen = cs.decode_loop.CHECK_EVERY
+
+        def run(k):
+            cs.decode_loop.CHECK_EVERY = k
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = decode(model, mel, initial, sample_begin, sot_idx, cfg, mode, sample_len,
+                             cs.NO_SPEECH, key_start=key_start, windows=windows)
+                torch.cuda.synchronize()
+            finally:
+                cs.decode_loop.CHECK_EVERY = chosen
+            return res, time.perf_counter() - t0
+
+        want, _ = run(chosen)  # makes the window: its phases captured
+        # the prefill alone, into that window's buffers (as the decode runs it)
+        with_ks = key_start is not None
+        P = np.asarray(initial).shape[1]
+        shape = (beam_shape(mode, batch, P, sample_begin, sample_len, with_ks, cfg, True)
+                 if beam else greedy_shape(mode, batch, P, sample_begin, sample_len, with_ks,
+                                           cfg, True)[0])
+        win = windows.get(model, shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks = None if key_start is None else torch.as_tensor(key_start, device="cuda")
+        _encode_and_prefill(win, mel, torch.as_tensor(initial, device="cuda"), sot_idx,
+                            cs.NO_SPEECH, ks)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        times = {k: [] for k in LOOP_KS}
+        out = {}
+        for k in LOOP_KS + LOOP_KS[::-1]:
+            res, t = run(k)
+            if not cs.same_decode(res, want):
+                raise AssertionError(f"loop {name}: k {k} gives another decode")
+            times[k].append(t)
+            out[k] = res
+        print(f"[loop] {cs.card_line()}: {name} b{batch}" + (f" beam {beam}" if beam else "")
+              + f", {want.steps} steps, mel+encoder+prefill {t_pre * 1e3:.1f} ms: " + "; ".join(
+                  f"k {k}: {(np.median(times[k]) - t_pre) / want.steps * 1e3:.3f} ms a step, "
+                  f"{out[k].syncs} syncs, {out[k].bodies - want.steps} bodies past the end"
+                  for k in LOOP_KS), flush=True)
+        del model, windows, win, mel
+        cs.e2e_model.cache_clear()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_study: CUDA is not available", file=sys.stderr)
         return 1
     if len(sys.argv) < 2 or sys.argv[1] not in ("plans", "parity-seeds", "layer", "step",
-                                                 "transcribe"):
+                                                 "transcribe", "loop"):
         print(__doc__, file=sys.stderr)
         return 2
     arg = sys.argv[2] if len(sys.argv) > 2 else None
@@ -589,6 +697,8 @@ def main() -> int:
         layer(cs, arg)
     elif sys.argv[1] == "step":
         step(cs, None if arg == "-" else arg, sys.argv[3] if len(sys.argv) > 3 else None)
+    elif sys.argv[1] == "loop":
+        loop(cs)
     else:
         parity_seeds(cs)
     return 0

@@ -277,13 +277,15 @@ def test_warmup_touches_no_counter_and_the_sampling_task_inherits_int8_kv(setup)
     opts = dataclasses.replace(_opts(temperatures=(0.0, 0.5)), initial_prompt_text="hi")
     with ServingEngine(model, SmallTokenizer(), opts, batch_size=2) as engine:
         calls = []
-        run_batch = engine.decode_task.run_batch
-        engine.decode_task.run_batch = lambda mel, prompts, **kw: (
-            calls.append((mel.shape[0], prompts)) or run_batch(mel, prompts, **kw))
+        warmup = engine.decode_task.warmup
+        engine.decode_task.warmup = lambda **kw: calls.append(kw) or warmup(**kw)
         engine.warmup()
         stats = engine.stats()
         engine.decode_task.quantize_kv = True
         assert engine._sampling_task().quantize_kv
-    # conditioned: an unprompted call and one at the widest prefill bucket
-    assert [(n, len(p[0] or ())) for n, p in calls] == [(2, 0), (2, 224)]
+    # it delegates, as the JAX engine does: the serving batch, and with
+    # prompt conditioning the widest prefill bucket too (on the CPU the
+    # task captures nothing)
+    assert calls == [{"batch_sizes": (2,), "with_prompts": True}]
+    assert len(engine.decode_task.windows) == 0
     assert stats["window_batches"] == stats["windows_decoded"] == stats["submitted"] == 0

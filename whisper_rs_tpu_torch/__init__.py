@@ -16,6 +16,7 @@ device.
 
 from .decode.language import detect_language
 from .decode.task import DecodeOutput, DecodeTask
+from .models.checkpoint import load_params, save_params
 from .ops.mel import log_mel_file
 from .serve import RequestHandle, ServingEngine
 from .tokenize import Task, Tokenizer
@@ -31,5 +32,7 @@ __all__ = [
     "TranscribeOutput",
     "TranscribeTask",
     "detect_language",
+    "load_params",
     "log_mel_file",
+    "save_params",
 ]

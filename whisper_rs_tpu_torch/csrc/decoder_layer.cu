@@ -139,6 +139,7 @@ struct Step {
     const long long* wtab;        // [L, NW] pointers to T
     const T* kv;                  // [L, A, H, 2, 64, Tk] cross K^T and V^T
     const long long* key_start;   // [B], or null for zeros
+    const long long* pos;         // the step's slot, one int64 in device memory
     T* x;                         // [B, D] residual stream, in and out
     T* kc;                        // [L, B, H, n_ctx, 64]
     T* vc;
@@ -147,9 +148,24 @@ struct Step {
     T* hid;                       // [B, 4D] scratch: the MLP's hidden row
     unsigned int* bar;            // grid barrier counter, 0 at launch
     unsigned long long* clock;    // [8 L + 1] phase-end times in ns, or null
-    int B, D, H, L, G, Tk, n_ctx, pos;
+    int B, D, H, L, G, Tk, n_ctx, window;
     float scale;
 };
+
+// The step's slot, read from device memory (a captured launch reads the
+// position of its replay), and whether it is outside [0, window): no step,
+// for which the decode loop passes -1 when its termination test has turned
+// the step off; every block then leaves before its first barrier, and the
+// launch writes nothing (x stays as it came).
+template <typename S>
+__device__ __forceinline__ int slot_of(const S& p) {
+    return static_cast<int>(__ldg(p.pos));
+}
+template <typename S>
+__device__ __forceinline__ bool no_step(const S& p) {
+    const long long at = __ldg(p.pos);
+    return at < 0 || at >= p.window;
+}
 
 // Sixteen bytes as floats: 4 of f32, 8 of bf16.
 __device__ __forceinline__ void unpack(const uint4 r, float (&x)[4]) {
@@ -339,7 +355,7 @@ __device__ void self_attention(const Step<T>& p, int l, float* ws, float (*red)[
     constexpr int STRIDE = WARPS * KPW;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int grp = lane / LPR, seg = lane % LPR;
-    const int hi = p.pos;
+    const int hi = slot_of(p);
     for (int it = blockIdx.x; it < p.B * p.H; it += gridDim.x) {
         const int b = it / p.H, h = it % p.H;
         const size_t head = (((size_t)l * p.B + b) * p.H + h) * p.n_ctx * DH;
@@ -562,6 +578,7 @@ __global__ void __launch_bounds__(THREADS, 1) decoder_step_kernel(const Step<T> 
     const int B = p.B, D = p.D;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int gwarp = blockIdx.x * WARPS + warp, nwarps = gridDim.x * WARPS;
+    if (no_step(p)) return;
     unsigned int target = 0;
     stamp(p.clock, 0);
 
@@ -580,7 +597,7 @@ __global__ void __launch_bounds__(THREADS, 1) decoder_step_kernel(const Step<T> 
                 } else {
                     if (which == 2) y = round_to<T>(y + to_float(weight(p, l, BV)[n]));
                     const size_t row = ((size_t)l * B + lane) * p.H + n / DH;
-                    const size_t at = (row * p.n_ctx + p.pos) * DH + n % DH;
+                    const size_t at = (row * p.n_ctx + slot_of(p)) * DH + n % DH;
                     (which == 1 ? p.kc : p.vc)[at] = from_float<T>(y);
                 }
             }
@@ -675,6 +692,7 @@ struct TcStep {
     const long long* wtab;        // [L, NW] pointers to bf16
     const bf16* kv;               // [L, A, H, 2, 64, Tk] cross K^T and V^T
     const long long* key_start;   // [B], or null for zeros
+    const long long* pos;         // the step's slot, one int64 in device memory
     bf16* x;                      // [B, D] residual stream, in and out
     bf16* kc;                     // [L, B, H, n_ctx, 64]
     bf16* vc;
@@ -686,7 +704,7 @@ struct TcStep {
     unsigned int* flags;          // [ks][N / 16]: a partial tile's epoch, 0 at launch
     unsigned long long* clock;    // [8 L + 1] phase-end times in ns, or null
     const int* plan;              // [NPH][2] (ks, kw), then [NPH][grid][3] (slice, t0, t1)
-    int B, D, H, L, G, Tk, n_ctx, pos;
+    int B, D, H, L, G, Tk, n_ctx, window;
     float scale;
     int nst, cst, ap;             // ring stages, cross stages, staged row pitch (bytes)
 };
@@ -928,7 +946,7 @@ __device__ __forceinline__ void finish(const TcStep& p, int l, int ph, int n, in
             } else {
                 const float v = which == 2 ? round_to<bf16>(y + in.x) : y;
                 const size_t row = ((size_t)l * p.B + b) * p.H + f / DH;
-                (which == 1 ? p.kc : p.vc)[(row * p.n_ctx + p.pos) * DH + f % DH] =
+                (which == 1 ? p.kc : p.vc)[(row * p.n_ctx + slot_of(p)) * DH + f % DH] =
                     from_float<bf16>(v);
             }
             break;
@@ -1086,7 +1104,7 @@ __device__ void self_attention_tc(const TcStep& p, int l, float* ws, bf16* vs, f
     constexpr int VEC = 8, LPR = DH / VEC, KPW = 32 / LPR, STRIDE = NCW * KPW, U = 8;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int grp = lane / LPR, seg = lane % LPR;
-    const int hi = p.pos;
+    const int hi = slot_of(p);
     for (int it = blockIdx.x; it < p.B * p.H; it += gridDim.x) {
         const int b = it / p.H, h = it % p.H;
         const size_t head = (((size_t)l * p.B + b) * p.H + h) * p.n_ctx * DH;
@@ -1390,6 +1408,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) decoder_step_tc_kernel(const Tc
     bf16* xs = lnbuf + 2 * MAX_D;  // [B, D]: the rows a LayerNorm reads
     float* res = reinterpret_cast<float*>(xs + (size_t)p.B * p.D);
 
+    if (no_step(p)) return;
     if (threadIdx.x == 0) {
         for (int s = 0; s < p.nst; ++s) {
             mbar_init(smem_addr(&full[s]), 1);
@@ -1507,15 +1526,17 @@ int launch(const Step<T>& p, size_t smem, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-bool shape_ok(int B, int D, int H, int L, int G, int Tk, int n_ctx, int pos, int window) {
+bool shape_ok(int B, int D, int H, int L, int G, int Tk, int n_ctx, const void* pos,
+              int window) {
     return B >= 1 && B <= MAX_ROWS && G >= 1 && B % G == 0 && D == H * DH && Tk >= 4 &&
-           Tk % 4 == 0 && window >= 1 && window <= n_ctx && pos >= 0 && pos < window && L >= 1;
+           Tk % 4 == 0 && window >= 1 && window <= n_ctx && pos != nullptr && L >= 1;
 }
 
 template <typename T>
 int dispatch(const void* wtab, const void* kv, const void* key_start, void* x, void* kc, void* vc,
              void* q, void* att, void* hid, void* bar, void* clock, int B, int D, int H, int L,
-             int G, int Tk, int n_ctx, int pos, int window, float scale, void* stream) {
+             int G, int Tk, int n_ctx, const void* pos, int window, float scale,
+             void* stream) {
     if (!shape_ok(B, D, H, L, G, Tk, n_ctx, pos, window))
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t rows = (size_t)B * 4 * D * sizeof(T);
@@ -1523,11 +1544,12 @@ int dispatch(const void* wtab, const void* kv, const void* key_start, void* x, v
     const size_t self = (size_t)n_ctx * sizeof(float);
     const size_t smem = rows > cross ? (rows > self ? rows : self) : (cross > self ? cross : self);
     const Step<T> p{static_cast<const long long*>(wtab), static_cast<const T*>(kv),
-                    static_cast<const long long*>(key_start), static_cast<T*>(x),
+                    static_cast<const long long*>(key_start),
+                    static_cast<const long long*>(pos), static_cast<T*>(x),
                     static_cast<T*>(kc), static_cast<T*>(vc), static_cast<T*>(q),
                     static_cast<T*>(att), static_cast<T*>(hid),
                     static_cast<unsigned int*>(bar), static_cast<unsigned long long*>(clock),
-                    B, D, H, L, G, Tk, n_ctx, pos, scale};
+                    B, D, H, L, G, Tk, n_ctx, window, scale};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (G == 1) return launch<T, 1>(p, smem, s);
     if (G == 2) return launch<T, 2>(p, smem, s);
@@ -1546,8 +1568,10 @@ int dispatch(const void* wtab, const void* kv, const void* key_start, void* x, v
 // phase; clock: [8 L + 1] uint64 or null (the start and the end of each
 // phase, in ns of the GPU's clock, from block 0).  All of one dtype (but
 // the table, key_start, bar and clock), contiguous, 16-byte aligned.
-// B <= 16; G in {1, 2, 4, 8}; D = 64 H; Tk % 4 == 0; 0 <= pos < window <=
-// n_ctx.
+// B <= 16; G in {1, 2, 4, 8}; D = 64 H; Tk % 4 == 0; 1 <= window <= n_ctx;
+// pos: one int64 in device memory, the step's slot, read by the kernel (a
+// captured launch reads the position of its replay); outside [0, window)
+// the launch is no step and writes nothing.
 //
 // bf16 also takes part, f32 [ks N B] of the widest phase, and the launch
 // plan of ops/decoder_layer_fused.py::layer_launch_plan: plan, its int32
@@ -1558,19 +1582,20 @@ int dispatch(const void* wtab, const void* kv, const void* key_start, void* x, v
 extern "C" int decoder_step_bf16(const void* wtab, const void* kv, const void* key_start,
                                  void* x, void* kc, void* vc, void* q, void* att, void* hid,
                                  void* bar, void* clock, void* part, const void* plan, int B,
-                                 int D, int H, int L, int G, int Tk, int n_ctx, int pos,
-                                 int window, float scale, int blocks, int nst, int cst, int ap,
-                                 int smem, void* stream) {
+                                 int D, int H, int L, int G, int Tk, int n_ctx,
+                                 const void* pos, int window, float scale, int blocks, int nst,
+                                 int cst, int ap, int smem, void* stream) {
     if (!shape_ok(B, D, H, L, G, Tk, n_ctx, pos, window) || D > MAX_D || blocks < 1 ||
         nst < 2 || nst > MAX_NST || cst < 2 || cst > MAX_CST || ap % 32 != 16 || smem < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     unsigned int* counter = static_cast<unsigned int*>(bar);
     const TcStep p{static_cast<const long long*>(wtab), static_cast<const bf16*>(kv),
-                   static_cast<const long long*>(key_start), static_cast<bf16*>(x),
-                   static_cast<bf16*>(kc), static_cast<bf16*>(vc), static_cast<bf16*>(q),
+                   static_cast<const long long*>(key_start), static_cast<const long long*>(pos),
+                   static_cast<bf16*>(x), static_cast<bf16*>(kc), static_cast<bf16*>(vc),
+                   static_cast<bf16*>(q),
                    static_cast<bf16*>(att), static_cast<bf16*>(hid), static_cast<float*>(part),
                    counter, counter + 1, static_cast<unsigned long long*>(clock),
-                   static_cast<const int*>(plan), B, D, H, L, G, Tk, n_ctx, pos, scale,
+                   static_cast<const int*>(plan), B, D, H, L, G, Tk, n_ctx, window, scale,
                    nst, cst, ap};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (G == 1) return launch_tc<1>(p, blocks, smem, s);
@@ -1583,7 +1608,7 @@ extern "C" int decoder_step_bf16(const void* wtab, const void* kv, const void* k
 extern "C" int decoder_step_f32(const void* wtab, const void* kv, const void* key_start, void* x,
                                 void* kc, void* vc, void* q, void* att, void* hid, void* bar,
                                 void* clock, int B, int D, int H, int L, int G, int Tk, int n_ctx,
-                                int pos, int window, float scale, void* stream) {
+                                const void* pos, int window, float scale, void* stream) {
     return dispatch<float>(wtab, kv, key_start, x, kc, vc, q, att, hid, bar, clock, B, D, H, L, G,
                            Tk, n_ctx, pos, window, scale, stream);
 }

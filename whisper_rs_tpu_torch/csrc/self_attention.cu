@@ -219,7 +219,8 @@ __device__ __forceinline__ void attend_window(
     const T* __restrict__ q, const T* __restrict__ knew, const T* __restrict__ vnew,
     C* __restrict__ kc, C* __restrict__ vc, float* __restrict__ ksc, float* __restrict__ vsc,
     const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
-    T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
+    T* __restrict__ out, int B, int H, int n_ctx, int layer, const long long* __restrict__ pos_at,
+    int W) {
     constexpr bool INT8 = std::is_same<C, int8_t>::value;
     constexpr bool QUANT = WRITE && INT8;  // the column quantised here
     static_assert(INT8 || std::is_same<C, T>::value, "a cache in the query dtype, or int8");
@@ -240,6 +241,16 @@ __device__ __forceinline__ void attend_window(
     const int ng = nt / LPR;  // lane groups of the block
     const int grp = warp * KPW + lane / LPR, seg = lane % LPR;
     const size_t row = (size_t)b * H + h;
+    // the step's slot, read from device memory (a captured step reads the
+    // decode loop's own position); one outside [0, W) is no step: the block
+    // writes nothing to the cache and zeros to out (the decode loop passes
+    // -1 for a step that its termination test has turned off)
+    const long long at = __ldg(pos_at);
+    if (at < 0 || at >= W) {
+        if (tid < DH) out[row * DH + tid] = from_float<T>(0.f);
+        return;
+    }
+    const int pos = static_cast<int>(at);
     const size_t row_stride = (size_t)H * n_ctx * DH;  // between batch rows
     const size_t head = (size_t)layer * B * row_stride + (size_t)h * n_ctx * DH;
     const size_t scale_head = ((size_t)layer * B * H + h) * n_ctx;
@@ -454,7 +465,8 @@ __global__ void __launch_bounds__(THREADS)
 self_append_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                    const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
                    const long long* __restrict__ key_start, T* __restrict__ out,
-                   int B, int H, int n_ctx, int layer, int pos, int W) {
+                   int B, int H, int n_ctx, int layer, const long long* __restrict__ pos,
+                   int W) {
     attend_window<DH, T, T, true, false>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start,
                                          nullptr, 1, out, B, H, n_ctx, layer, pos, W);
 }
@@ -464,7 +476,8 @@ __global__ void __launch_bounds__(THREADS)
 beam_self_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                  const T* __restrict__ vnew, T* __restrict__ kc, T* __restrict__ vc,
                  const long long* __restrict__ key_start, const int* __restrict__ anc, int G,
-                 T* __restrict__ out, int B, int H, int n_ctx, int layer, int pos, int W) {
+                 T* __restrict__ out, int B, int H, int n_ctx, int layer,
+                 const long long* __restrict__ pos, int W) {
     attend_window<DH, T, T, true, true>(q, knew, vnew, kc, vc, nullptr, nullptr, key_start, anc,
                                         G, out, B, H, n_ctx, layer, pos, W);
 }
@@ -475,7 +488,7 @@ beam_self_int8_kernel(const T* __restrict__ q, int8_t* __restrict__ kc,
                       int8_t* __restrict__ vc, float* __restrict__ ksc,
                       float* __restrict__ vsc, const long long* __restrict__ key_start,
                       const int* __restrict__ anc, int G, T* __restrict__ out, int B, int H,
-                      int n_ctx, int layer, int pos, int W) {
+                      int n_ctx, int layer, const long long* __restrict__ pos, int W) {
     attend_window<DH, T, int8_t, false, true>(q, nullptr, nullptr, kc, vc, ksc, vsc, key_start,
                                               anc, G, out, B, H, n_ctx, layer, pos, W);
 }
@@ -484,7 +497,7 @@ template <int DH, typename T>
 __global__ void __launch_bounds__(THREADS)
 self_fused_kernel(const T* __restrict__ q, T* __restrict__ kc, T* __restrict__ vc,
                   const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
-                  int n_ctx, int layer, int pos, int W) {
+                  int n_ctx, int layer, const long long* __restrict__ pos, int W) {
     attend_window<DH, T, T, false, false>(q, nullptr, nullptr, kc, vc, nullptr, nullptr,
                                           key_start, nullptr, 1, out, B, H, n_ctx, layer, pos, W);
 }
@@ -496,7 +509,7 @@ self_step_kernel(const T* __restrict__ q, const T* __restrict__ knew,
                  const T* __restrict__ vnew, C* __restrict__ kc, C* __restrict__ vc,
                  float* __restrict__ ksc, float* __restrict__ vsc,
                  const long long* __restrict__ key_start, T* __restrict__ out, int B, int H,
-                 int n_ctx, int layer, int pos, int W) {
+                 int n_ctx, int layer, const long long* __restrict__ pos, int W) {
     attend_window<DH, T, C, WRITE, false>(q, knew, vnew, kc, vc, ksc, vsc, key_start, nullptr, 1,
                                           out, B, H, n_ctx, layer, pos, W);
 }
@@ -513,11 +526,12 @@ int by_head_dim(int dh, F&& f) {
 // Launch a step kernel on the grid (H, B) with `threads` a block (the plan
 // of ops/decode_attention.py::step_launch_plan: 64..THREADS, whole warps)
 // and, for the beam, W ints of dynamic shared memory, after checking
-// 0 <= pos < W <= min(n_ctx, MAX_WINDOW) and that B is whole groups of G.
+// 1 <= W <= min(n_ctx, MAX_WINDOW), that pos is given and that B is whole
+// groups of G (the kernel checks the value of pos: 0 <= pos < W).
 template <typename... Params, typename... Args>
-int launch_window(void (*kernel)(Params...), bool beam, int B, int H, int n_ctx, int pos,
+int launch_window(void (*kernel)(Params...), bool beam, int B, int H, int n_ctx, const void* pos,
                   int window, int G, int threads, void* stream, Args... args) {
-    if (window < 1 || window > MAX_WINDOW || window > n_ctx || pos < 0 || pos >= window ||
+    if (window < 1 || window > MAX_WINDOW || window > n_ctx || pos == nullptr ||
         G < 1 || B % G || threads < 64 || threads > THREADS || threads % 32)
         return static_cast<int>(cudaErrorInvalidValue);
     kernel<<<dim3(H, B), threads, beam ? (size_t)window * sizeof(int) : 0,
@@ -527,7 +541,7 @@ int launch_window(void (*kernel)(Params...), bool beam, int B, int H, int n_ctx,
 
 template <typename T>
 int append(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
-           const void* key_start, void* out, int B, int H, int n_ctx, int layer, int pos,
+           const void* key_start, void* out, int B, int H, int n_ctx, int layer, const void* pos,
            int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
         return launch_window(self_append_kernel<decltype(D)::value, T>, false, B, H, n_ctx, pos,
@@ -535,14 +549,14 @@ int append(const void* q, const void* knew, const void* vnew, void* kc, void* vc
                              static_cast<const T*>(knew), static_cast<const T*>(vnew),
                              static_cast<T*>(kc), static_cast<T*>(vc),
                              static_cast<const long long*>(key_start), static_cast<T*>(out), B,
-                             H, n_ctx, layer, pos, window);
+                             H, n_ctx, layer, static_cast<const long long*>(pos), window);
     });
 }
 
 template <typename T>
 int beam(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
          const void* key_start, const void* anc, int G, void* out, int B, int H, int n_ctx,
-         int layer, int pos, int window, int dh, int threads, void* stream) {
+         int layer, const void* pos, int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
         return launch_window(beam_self_kernel<decltype(D)::value, T>, true, B, H, n_ctx, pos,
                              window, G, threads, stream, static_cast<const T*>(q),
@@ -550,26 +564,26 @@ int beam(const void* q, const void* knew, const void* vnew, void* kc, void* vc,
                              static_cast<T*>(kc), static_cast<T*>(vc),
                              static_cast<const long long*>(key_start),
                              static_cast<const int*>(anc), G, static_cast<T*>(out), B, H, n_ctx,
-                             layer, pos, window);
+                             layer, static_cast<const long long*>(pos), window);
     });
 }
 
 template <typename T>
 int fused(const void* q, void* kc, void* vc, const void* key_start, void* out, int B, int H,
-          int n_ctx, int layer, int pos, int window, int dh, int threads, void* stream) {
+          int n_ctx, int layer, const void* pos, int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
         return launch_window(self_fused_kernel<decltype(D)::value, T>, false, B, H, n_ctx, pos,
                              window, 1, threads, stream, static_cast<const T*>(q),
                              static_cast<T*>(kc), static_cast<T*>(vc),
                              static_cast<const long long*>(key_start), static_cast<T*>(out), B,
-                             H, n_ctx, layer, pos, window);
+                             H, n_ctx, layer, static_cast<const long long*>(pos), window);
     });
 }
 
 template <typename T>
 int step(const void* q, const void* knew, const void* vnew, void* kc, void* vc, void* ksc,
          void* vsc, const void* key_start, void* out, int B, int H, int n_ctx, int layer,
-         int pos, int window, int dh, int threads, void* stream) {
+         const void* pos, int window, int dh, int threads, void* stream) {
     // scales go with an int8 cache, and a fresh column (both halves) only there
     if (!ksc != !vsc || !knew != !vnew || (knew && !ksc))
         return static_cast<int>(cudaErrorInvalidValue);
@@ -586,19 +600,19 @@ int step(const void* q, const void* knew, const void* vnew, void* kc, void* vc, 
             return launch_window(self_step_kernel<DH, T, T, false>, false, B, H, n_ctx, pos,
                                  window, 1, threads, stream, qt, kn, vn, static_cast<T*>(kc),
                                  static_cast<T*>(vc), kst, vst, start, o, B, H, n_ctx, layer,
-                                 pos, window);
+                                 static_cast<const long long*>(pos), window);
         return launch_window(knew ? &self_step_kernel<DH, T, int8_t, true>
                                   : &self_step_kernel<DH, T, int8_t, false>,
                              false, B, H, n_ctx, pos, window, 1, threads, stream, qt, kn, vn,
                              static_cast<int8_t*>(kc), static_cast<int8_t*>(vc), kst, vst, start,
-                             o, B, H, n_ctx, layer, pos, window);
+                             o, B, H, n_ctx, layer, static_cast<const long long*>(pos), window);
     });
 }
 
 template <typename T>
 int beam_int8(const void* q, void* kc, void* vc, void* ksc, void* vsc, const void* key_start,
-              const void* anc, int G, void* out, int B, int H, int n_ctx, int layer, int pos,
-              int window, int dh, int threads, void* stream) {
+              const void* anc, int G, void* out, int B, int H, int n_ctx, int layer,
+              const void* pos, int window, int dh, int threads, void* stream) {
     return by_head_dim(dh, [&](auto D) {
         return launch_window(beam_self_int8_kernel<decltype(D)::value, T>, true, B, H, n_ctx,
                              pos, window, G, threads, stream, static_cast<const T*>(q),
@@ -606,7 +620,7 @@ int beam_int8(const void* q, void* kc, void* vc, void* ksc, void* vsc, const voi
                              static_cast<float*>(ksc), static_cast<float*>(vsc),
                              static_cast<const long long*>(key_start),
                              static_cast<const int*>(anc), G, static_cast<T*>(out), B, H, n_ctx,
-                             layer, pos, window);
+                             layer, static_cast<const long long*>(pos), window);
     });
 }
 
@@ -614,13 +628,15 @@ int beam_int8(const void* q, void* kc, void* vc, void* ksc, void* vsc, const voi
 
 // q, knew, vnew, out: [B, H, dh]; kc, vc: [L, B, H, n_ctx, dh]; dh 16 or 64;
 // key_start: [B] int64 or null (zeros); all contiguous and 16-byte aligned;
-// the caches are written at slot pos of layer in place.
-// 0 <= pos < window <= n_ctx.  threads: a block's, the launch plan of
+// the caches are written at slot pos of layer in place.  pos: one int64 in
+// device memory, read by the kernel (so that a captured launch reads the
+// position of its replay); 1 <= window <= n_ctx, and a pos outside
+// [0, window) makes the launch write only zeros to out.  threads: a block's, the launch plan of
 // ops/decode_attention.py::step_launch_plan (64..256, whole warps; any other
 // is refused).
 extern "C" int self_attention_append_bf16(const void* q, const void* knew, const void* vnew,
                                           void* kc, void* vc, const void* key_start, void* out,
-                                          int B, int H, int n_ctx, int layer, int pos,
+                                          int B, int H, int n_ctx, int layer, const void* pos,
                                           int window, int dh, int threads, void* stream) {
     return append<bf16>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
                         dh, threads, stream);
@@ -628,7 +644,7 @@ extern "C" int self_attention_append_bf16(const void* q, const void* knew, const
 
 extern "C" int self_attention_append_f32(const void* q, const void* knew, const void* vnew,
                                          void* kc, void* vc, const void* key_start, void* out,
-                                         int B, int H, int n_ctx, int layer, int pos,
+                                         int B, int H, int n_ctx, int layer, const void* pos,
                                          int window, int dh, int threads, void* stream) {
     return append<float>(q, knew, vnew, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window,
                          dh, threads, stream);
@@ -639,8 +655,8 @@ extern "C" int self_attention_append_f32(const void* q, const void* knew, const 
 extern "C" int beam_self_attention_bf16(const void* q, const void* knew, const void* vnew,
                                         void* kc, void* vc, const void* key_start,
                                         const void* anc, int G, void* out, int B, int H,
-                                        int n_ctx, int layer, int pos, int window, int dh,
-                                        int threads, void* stream) {
+                                        int n_ctx, int layer, const void* pos, int window,
+                                        int dh, int threads, void* stream) {
     return beam<bf16>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
                       window, dh, threads, stream);
 }
@@ -648,8 +664,8 @@ extern "C" int beam_self_attention_bf16(const void* q, const void* knew, const v
 extern "C" int beam_self_attention_f32(const void* q, const void* knew, const void* vnew,
                                        void* kc, void* vc, const void* key_start,
                                        const void* anc, int G, void* out, int B, int H,
-                                       int n_ctx, int layer, int pos, int window, int dh,
-                                       int threads, void* stream) {
+                                       int n_ctx, int layer, const void* pos, int window,
+                                       int dh, int threads, void* stream) {
     return beam<float>(q, knew, vnew, kc, vc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
                        window, dh, threads, stream);
 }
@@ -659,15 +675,16 @@ extern "C" int beam_self_attention_f32(const void* q, const void* knew, const vo
 // and writes nothing but out.
 extern "C" int self_attention_fused_bf16(const void* q, void* kc, void* vc,
                                          const void* key_start, void* out, int B, int H,
-                                         int n_ctx, int layer, int pos, int window, int dh,
-                                         int threads, void* stream) {
+                                         int n_ctx, int layer, const void* pos, int window,
+                                         int dh, int threads, void* stream) {
     return fused<bf16>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, threads,
                        stream);
 }
 
 extern "C" int self_attention_fused_f32(const void* q, void* kc, void* vc, const void* key_start,
-                                        void* out, int B, int H, int n_ctx, int layer, int pos,
-                                        int window, int dh, int threads, void* stream) {
+                                        void* out, int B, int H, int n_ctx, int layer,
+                                        const void* pos, int window, int dh, int threads,
+                                        void* stream) {
     return fused<float>(q, kc, vc, key_start, out, B, H, n_ctx, layer, pos, window, dh, threads,
                         stream);
 }
@@ -680,8 +697,8 @@ extern "C" int self_attention_fused_f32(const void* q, void* kc, void* vc, const
 extern "C" int self_attention_step_bf16(const void* q, const void* knew, const void* vnew,
                                         void* kc, void* vc, void* ksc, void* vsc,
                                         const void* key_start, void* out, int B, int H,
-                                        int n_ctx, int layer, int pos, int window, int dh,
-                                        int threads, void* stream) {
+                                        int n_ctx, int layer, const void* pos, int window,
+                                        int dh, int threads, void* stream) {
     return step<bf16>(q, knew, vnew, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer, pos,
                       window, dh, threads, stream);
 }
@@ -689,8 +706,8 @@ extern "C" int self_attention_step_bf16(const void* q, const void* knew, const v
 extern "C" int self_attention_step_f32(const void* q, const void* knew, const void* vnew,
                                        void* kc, void* vc, void* ksc, void* vsc,
                                        const void* key_start, void* out, int B, int H,
-                                       int n_ctx, int layer, int pos, int window, int dh,
-                                       int threads, void* stream) {
+                                       int n_ctx, int layer, const void* pos, int window,
+                                       int dh, int threads, void* stream) {
     return step<float>(q, knew, vnew, kc, vc, ksc, vsc, key_start, out, B, H, n_ctx, layer, pos,
                        window, dh, threads, stream);
 }
@@ -700,8 +717,8 @@ extern "C" int self_attention_step_f32(const void* q, const void* knew, const vo
 extern "C" int beam_self_attention_int8_bf16(const void* q, void* kc, void* vc, void* ksc,
                                              void* vsc, const void* key_start, const void* anc,
                                              int G, void* out, int B, int H, int n_ctx,
-                                             int layer, int pos, int window, int dh, int threads,
-                                             void* stream) {
+                                             int layer, const void* pos, int window, int dh,
+                                             int threads, void* stream) {
     return beam_int8<bf16>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
                            window, dh, threads, stream);
 }
@@ -709,7 +726,7 @@ extern "C" int beam_self_attention_int8_bf16(const void* q, void* kc, void* vc, 
 extern "C" int beam_self_attention_int8_f32(const void* q, void* kc, void* vc, void* ksc,
                                             void* vsc, const void* key_start, const void* anc,
                                             int G, void* out, int B, int H, int n_ctx, int layer,
-                                            int pos, int window, int dh, int threads,
+                                            const void* pos, int window, int dh, int threads,
                                             void* stream) {
     return beam_int8<float>(q, kc, vc, ksc, vsc, key_start, anc, G, out, B, H, n_ctx, layer, pos,
                             window, dh, threads, stream);

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -103,14 +104,16 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     """``jax.random.uniform`` in f32: ``[*batch, *shape]`` in [minval, maxval)."""
     bits = random_bits(key, shape)
     floats = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32)
-    span = (torch.tensor(maxval, dtype=torch.float32) - lo).item()
+    # the bounds in f32 on the host (numpy), so that a draw reads nothing
+    # back from a tensor
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
     # XLA fuses the scale and offset into one f32 multiply-add: the product
     # of two f32 values is exact in f64, so the f64 sum rounded to f32 is
     # that fused result (but where the f64 sum itself rounded onto an f32
     # midpoint, at most one draw in about 2**29; at [0, 1) and [tiny, 1),
     # the only ranges the sampler draws, the sum is exact)
-    return torch.clamp_min((floats.double() * span + lo.item()).float(), lo.item())
+    return torch.clamp_min((floats.double() * span + lo).float(), lo)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -9,7 +9,16 @@ candidates and detokenizes the chosen one of each audio.  A greedy task
 takes a temperature override at run time (the JAX package's traced
 temperature: one task serves every rung of the fallback ladder);
 ``keep_audio_features`` hands each audio's encoder output to the caller,
-on the model's device, for word alignment.  ``encoder_fn`` routes the
+on the model's device, for word alignment.
+
+The task keeps its decode windows (``decode.loop.WindowCache``), as the
+JAX task keeps one compiled window for each shape (``_window_fn``): keyed
+by the JAX task's keys (audios, prefill width, key_start, sampled or not)
+and the port's (the step route, int8 K/V, beam search), each with its
+static buffers and, on the card, its phases captured as CUDA graphs, so
+consecutive calls of one shape replay the same graphs on the same
+buffers.  ``warmup`` makes them before traffic arrives, as the JAX
+``warmup`` compiles them.  ``encoder_fn`` routes the
 encoder through the pipeline or Ulysses (``parallel``), as the JAX task's
 ``encoder_fn``; on a model with data ranks the decode splits the batch
 over them and gathers the outputs (``decode.loop.data_parallel``), so every
@@ -28,8 +37,16 @@ from ..config import DecodeOptions, GreedyMode
 from ..models.whisper import Whisper
 from ..tokenize import Tokenizer
 from .filters import FilterConfig
-from .loop import decode_beam, decode_greedy
-from .prompt import build_batch_prompts
+from .loop import (
+    WindowCache,
+    _encode_and_prefill,
+    beam_shape,
+    decode_beam,
+    decode_greedy,
+    eager_reason,
+    greedy_shape,
+)
+from .prompt import PREFILL_BUCKETS, build_batch_prompts
 from .ranker import rank_max_likelihood
 
 
@@ -52,7 +69,16 @@ class DecodeTask:
     says.  ``kernels``, ``step_kernel`` (greedy only) and ``quantize_kv``
     pass through to the decode loop; with ``keep_audio_features`` each
     output carries its audio's encoder output.  ``encoder_fn(model, mel,
-    kernels)``, where given, runs in the encoder's place."""
+    kernels)``, where given, runs in the encoder's place.  ``graphs=False``
+    runs the decode loop's steps eagerly on the card (see
+    ``decode.loop``).
+
+    The task keeps up to ``WindowCache.SIZE`` decode windows (one a
+    prefill bucket, four), the least recently used dropped; ``close()``
+    drops them all.  Each holds its own self-attention cache and cross K/V
+    (K and V together, in bf16: 705 MB and 2.36 GB at base.en b128, 881 MB
+    and 2.95 GB at large-v3 b12; a transcription's batch 1 a few MB), so
+    that bound, times the largest shape's, is what the cache can hold."""
 
     def __init__(
         self,
@@ -65,6 +91,7 @@ class DecodeTask:
         kernels: bool = True,
         step_kernel: str = "append",
         encoder_fn=None,
+        graphs: bool = True,
     ):
         dims = model.dims
         self.model = model
@@ -76,6 +103,8 @@ class DecodeTask:
         self.kernels = kernels
         self.step_kernel = step_kernel
         self.encoder_fn = encoder_fn
+        self.graphs = graphs
+        self.windows = WindowCache()
 
         suppress: tuple = tuple(options.suppress_tokens or ())
         if options.suppress_non_speech:
@@ -103,6 +132,58 @@ class DecodeTask:
     def set_prompt(self, prompt: Optional[Sequence[int]]) -> None:
         """The prompt of every row of the next ``run`` (None or empty: none)."""
         self._prompt_tokens = list(prompt) if prompt is not None and len(prompt) else None
+
+    def _shape(self, n_audio: int, prefill_width: int, sample_begin: int,
+               temperature: Optional[float] = None):
+        """The window shape of a ``run_batch`` call (its key_start given)."""
+        mode = self.options.mode
+        common = (n_audio, prefill_width, sample_begin, self.sample_len, True, self.filter_cfg,
+                  self.kernels)
+        if isinstance(mode, GreedyMode):
+            return greedy_shape(mode, *common, self.step_kernel, self.quantize_kv,
+                                temperature)[0]
+        return beam_shape(mode, *common, self.quantize_kv)
+
+    def warmup(self, batch_sizes=(1,), with_prompts: bool = True) -> None:
+        """Make the decode windows of the given batch sizes before traffic
+        arrives (serving: no capture in a request's latency), as the JAX
+        ``warmup`` compiles them: the no-prompt bucket and, with
+        ``with_prompts``, the widest prompt bucket (the two shapes
+        long-audio transcription alternates between).  Each window's
+        phases are captured, then its encoder and prefill run once on
+        silence (which also builds the encoder's kernels).  Where the steps
+        run eagerly (on the CPU, ``graphs=False``, ...) there is nothing to
+        capture, and it returns."""
+        if eager_reason(self.model, self.graphs) is not None:
+            return
+        tok = self.tokenizer
+        prompts = [None]
+        if with_prompts:
+            prompts.append([tok.token_id_space] * (self.dims.n_text_ctx // 2))
+        for n_audio in batch_sizes:
+            for prompt in prompts:
+                tokens, key_start, sample_begin, sot_idx = build_batch_prompts(
+                    [prompt] * n_audio, tok.sequence_sot(), tok.token_id_sot,
+                    tok.token_id_startofprev, self.dims.n_text_ctx,
+                )
+                if prompt is not None and tokens.shape[1] != PREFILL_BUCKETS[-1]:
+                    raise AssertionError(f"the warm-up prompt fills bucket {tokens.shape[1]}")
+                win = self.windows.get(self.model, self._shape(n_audio, tokens.shape[1],
+                                                               sample_begin))
+                win.prepare(self.graphs)
+                dev = self.model.device
+                mel = torch.zeros((n_audio, self.dims.n_mels, 3000), device=dev)
+                _encode_and_prefill(
+                    win, mel, torch.as_tensor(tokens, dtype=torch.long, device=dev), sot_idx,
+                    tok.token_id_no_speech, torch.as_tensor(key_start, device=dev).long(),
+                    self.encoder_fn,
+                )
+        torch.cuda.synchronize(self.model.device)
+
+    def close(self) -> None:
+        """Drop the task's decode windows (their caches, cross K/V and
+        graphs); a later run makes them again."""
+        self.windows.clear()
 
     def run(self, mel, temperature: Optional[float] = None) -> List[DecodeOutput]:
         """mel [n_mels, 3000] or [n_audio, n_mels, 3000] (numpy or tensor)
@@ -138,7 +219,7 @@ class DecodeTask:
         args = (self.model, mel.to(self.model.device), tokens, sample_begin, sot_idx,
                 self.filter_cfg, mode, self.sample_len, tok.token_id_no_speech)
         kwargs = dict(key_start=key_start, kernels=self.kernels, quantize_kv=self.quantize_kv,
-                      encoder_fn=self.encoder_fn)
+                      encoder_fn=self.encoder_fn, graphs=self.graphs, windows=self.windows)
         if greedy:
             result = decode_greedy(*args, step_kernel=self.step_kernel,
                                    temperature=temperature, **kwargs)

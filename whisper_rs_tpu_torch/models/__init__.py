@@ -1,6 +1,6 @@
 """Whisper model modules, caches and weight loading."""
 
-from .checkpoint import load_params
+from .checkpoint import load_params, save_params
 from .params import (
     hf_dims_from_config,
     hf_rename_state_dict,
@@ -48,4 +48,5 @@ __all__ = [
     "precompute_cross_kv",
     "quantize_kv",
     "quantize_params",
+    "save_params",
 ]

@@ -83,6 +83,16 @@ pipeline stage's blocks (``parallel/pipeline.py`` runs it).
 The KV cache is updated in place.  Its planes are ctx-major
 ``[L, B, H, n_ctx, dh]``; the cross K/V keeps the JAX fused layout
 ``[L, B, H, 2, dh, Tk]`` that the cross kernel reads.
+
+An incremental step takes its position as a 0-d int64 tensor on the
+device (an int is made into one), as the JAX loop's step takes a traced
+``pos``: the positional row comes by ``index_select``, the torch column
+writes by ``index_copy_`` (``ops.decode_attention.write_column``), and the
+step kernels read the slot from device memory, so that nothing on the step
+reads a device value on the host and the decode loop can capture the step
+as a CUDA graph.  A position outside ``[0, n_ctx)`` (the decode loop's -1
+for a step its termination test has turned off) writes no cache column;
+that step's logits mean nothing.
 """
 
 from __future__ import annotations
@@ -108,6 +118,8 @@ from ..ops.decode_attention import (
     self_attention_fused_step,
     self_attention_fused_step_plain,
     self_attention_step,
+    step_pos,
+    write_column,
     self_attention_step_plain,
 )
 from ..ops import count_launch
@@ -252,10 +264,30 @@ class KVCache:
         scales = (torch.ones(shape[:-1], device=device) for _ in range(2))
         return KVCache(*planes, *scales)
 
-    def write(self, layer: int, start: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    def reset(self) -> None:
+        """Back to ``init``'s values, in place: zeros, and scales of one."""
+        self.k.zero_()
+        self.v.zero_()
+        if self.quantized:
+            self.k_scale.fill_(1.0)
+            self.v_scale.fill_(1.0)
+
+    def write(self, layer: int, start, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write k, v [B, H, T, dh] at slots ``start .. start + T`` of
         ``layer``; an int8 cache takes them quantised (``quantize_kv``),
-        with their scales."""
+        with their scales.  ``start`` a 0-d int64 tensor on the device (a
+        step's, T = 1) writes by ``write_column``, and nothing where it lies
+        outside [0, n_ctx)."""
+        if torch.is_tensor(start):
+            if k.shape[2] != 1:
+                raise ValueError(f"a device start writes one column, not {k.shape[2]}")
+            for plane, scale, new in ((self.k, self.k_scale, k), (self.v, self.v_scale, v)):
+                new = new[:, :, 0]
+                if self.quantized:
+                    new, s = quantize_kv(new)
+                    write_column(scale, layer, start, s)
+                write_column(plane, layer, start, new)
+            return
         slots = slice(start, start + k.shape[2])
         if self.quantized:
             k, self.k_scale[layer, :, :, slots] = quantize_kv(k)
@@ -474,7 +506,7 @@ class ResidualAttentionBlock(nn.Module):
         return x + self._mlp(h)
 
     def decoder_forward(
-        self, x, layer: int, pos_offset: int, mask, window: int, cross_kv: CrossKV,
+        self, x, layer: int, pos_offset, mask, window: int, cross_kv: CrossKV,
         cache: KVCache, cross_group: int, kernels: bool, key_start=None, anc_local=None,
         step_kernel: str = "append", cross_logits: Optional[dict] = None,
     ) -> torch.Tensor:
@@ -693,7 +725,7 @@ class TextDecoder(nn.Module):
     def forward(
         self,
         tokens: torch.Tensor,  # [B, T] (prefill width T, or 1 for a step)
-        pos_offset: int,  # absolute position of tokens[:, 0]
+        pos_offset,  # absolute position of tokens[:, 0]; a step's: int or 0-d int64 tensor
         cross_kv: CrossKV,
         cache: KVCache,
         *,
@@ -748,17 +780,26 @@ class TextDecoder(nn.Module):
         dev = tokens.device
         n_ctx = self.positional_embedding.shape[0]
         W = n_ctx if ctx_window is None else min(ctx_window, n_ctx)
-        q_pos = pos_offset + torch.arange(T, device=dev)
-        if key_start is not None:
-            pos_idx = (q_pos[None, :] - key_start[:, None]).clamp(min=0)  # [B, T]
-            pos = self.positional_embedding[pos_idx]
-        else:
-            pos = self.positional_embedding[pos_offset : pos_offset + T]
         if incremental:
             if T != 1:
                 raise ValueError(f"an incremental step takes one token per row, not {T}")
+            # the step's position on the device: its positional row by
+            # index_select, never a read on the host
+            pos_offset = step_pos(pos_offset, dev)
+            if key_start is not None:
+                pos_idx = (pos_offset - key_start).clamp(0, n_ctx - 1)  # [B]
+                pos = self.positional_embedding.index_select(0, pos_idx)[:, None]
+            else:
+                pos = self.positional_embedding.index_select(
+                    0, pos_offset.clamp(0, n_ctx - 1).view(1))
             mask = None
         else:
+            q_pos = pos_offset + torch.arange(T, device=dev)
+            if key_start is not None:
+                pos_idx = (q_pos[None, :] - key_start[:, None]).clamp(min=0)  # [B, T]
+                pos = self.positional_embedding[pos_idx]
+            else:
+                pos = self.positional_embedding[pos_offset : pos_offset + T]
             mask = self._mask(q_pos, W, key_start)
         if ancestors is not None and not incremental:
             raise ValueError("ancestors are read by an incremental step only")
@@ -831,23 +872,37 @@ def encoder_forward(model: Whisper, mel: torch.Tensor, *, kernels: bool = True,
     return model.encoder(mel, kernels=kernels)
 
 
-def precompute_cross_kv(model: Whisper, xa: torch.Tensor, *, quantize: bool = False) -> CrossKV:
+def precompute_cross_kv(model: Whisper, xa: torch.Tensor, *, quantize: bool = False,
+                        out: Optional[CrossKV] = None) -> CrossKV:
     """xa [B, Tk, D] -> the stacked cross K/V of every decoder layer; with
     ``quantize``, int8 with f32 per-position scales, each K and V
-    quantised per position before the transpose (``quantize_kv``)."""
+    quantised per position before the transpose (``quantize_kv``).  With
+    ``out`` (a decode window's static buffers) it writes into those and
+    returns them."""
     B, Tk, _ = xa.shape
     blocks = model.decoder.blocks
     H, dh = blocks[0].cross_attn.n_head, blocks[0].cross_attn.head_dim
-    kv = torch.empty((len(blocks), B, H, 2, dh, Tk),
-                     dtype=torch.int8 if quantize else xa.dtype, device=xa.device)
-    scales = torch.empty((2, len(blocks), B, H, Tk), device=xa.device) if quantize else None
+    shape = (len(blocks), B, H, 2, dh, Tk)
+    dtype = torch.int8 if quantize else xa.dtype
+    if out is None:
+        kv = torch.empty(shape, dtype=dtype, device=xa.device)
+        k_scale = v_scale = None
+        if quantize:
+            k_scale, v_scale = torch.empty((2, len(blocks), B, H, Tk), device=xa.device)
+    else:
+        if (tuple(out.kv.shape) != shape or out.kv.dtype != dtype
+                or (out.k_scale is not None) != quantize):
+            raise ValueError(f"cross K/V buffers {tuple(out.kv.shape)} {out.kv.dtype} for "
+                             f"{shape} {dtype}")
+        kv, k_scale, v_scale = out.kv, out.k_scale, out.v_scale
     for layer, block in enumerate(blocks):
         for plane, proj in enumerate((block.cross_attn.key, block.cross_attn.value)):
             t = split_heads(proj(xa), H)  # [B, H, Tk, dh]
             if quantize:
-                t, scales[plane, layer] = quantize_kv(t)
+                scale = (k_scale, v_scale)[plane]
+                t, scale[layer] = quantize_kv(t)
             kv[layer, :, :, plane] = t.transpose(-1, -2)
-    return CrossKV(kv) if scales is None else CrossKV(kv, scales[0], scales[1])
+    return CrossKV(kv) if k_scale is None else CrossKV(kv, k_scale, v_scale)
 
 
 def decoder_forward(

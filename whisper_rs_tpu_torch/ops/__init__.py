@@ -15,10 +15,16 @@ launch (``count_launch``) and nowhere else.  ``"decoder_step_fused:append"``
 counts the layer route's steps that took the append route instead.  The
 count is taken under a lock: the serving engine launches the mel kernel on
 its clients' threads while its own thread decodes.
+
+A CUDA graph capture launches nothing: while a thread captures, its
+wrappers' counts go to the capture's own record (``recorded_launches``),
+and each replay of the graph adds them (``add_launches``), so the counts
+stay the kernels' launches on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 LAUNCHES = {
@@ -41,8 +47,17 @@ LAUNCHES = {
 _COUNT_LOCK = threading.Lock()
 
 
+_CAPTURING = threading.local()  # .counts: a dict while this thread captures a graph
+
+
 def count_launch(name: str) -> None:
-    """Add one to ``LAUNCHES[name]``; a read-modify-write, so under a lock."""
+    """Add one to ``LAUNCHES[name]``; a read-modify-write, so under a lock.
+    While this thread captures a graph (``recorded_launches``) the launch
+    is recorded for the replays instead: the capture launches nothing."""
+    counts = getattr(_CAPTURING, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
+        return
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
 
@@ -51,6 +66,27 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Around a stream capture on this thread: yields a dict that collects
+    the counts of the captured wrappers (a replay's launches) in place of
+    ``LAUNCHES``; other threads count as before."""
+    counts: dict = {}
+    _CAPTURING.counts = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURING.counts = None
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``counts`` (``recorded_launches``') ``times`` over: the launches
+    of that many replays of a captured graph."""
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n * times
 
 
 def use_kernel(name: str, kernel_takes: bool, device) -> bool:

@@ -43,7 +43,16 @@ column at slot ``pos`` already (as XLA does before the TPU kernel); the
 kernel reads slots ``key_start[b] <= j <= pos`` and writes only its
 output.  Its math is the append step's.
 
-Every step kernel launches at the plan of ``step_launch_plan``.
+Every step kernel launches at the plan of ``step_launch_plan``, taken at
+the call's window: the plan does not depend on the position.
+
+The step kernels (rows 7, 9, 10 and 11) read the step's slot ``pos`` from
+device memory: their wrappers and plain versions take it as a 0-d int64
+tensor on q's device (a Python int is made into one), so that a decode
+step captured as a CUDA graph reads the position of its replay.  A ``pos``
+outside ``[0, window)`` is no step: the kernel and the plain version write
+nothing into the cache and return zeros (the decode loop passes -1 for a
+step that its termination test has turned off).
 
 Each kernel has its predicate: ``step_kernel_takes`` for the four step
 self-attention kernels (head dim 16 or 64, the instances of the CUDA
@@ -87,14 +96,53 @@ def cross_kernel_takes(head_dim: int, Tk: int) -> bool:
     return head_dim in HEAD_DIMS and Tk % 4 == 0
 
 
-def _check_append_args(name, q, k_all, layer: int, pos: int, window: int):
+def step_pos(pos, device) -> torch.Tensor:
+    """The step's slot as the step kernels read it: a 0-d int64 tensor on
+    ``device`` (an int is made into one by a fill on the device, not copied
+    from the host; a tensor is checked and returned as it is)."""
+    if not torch.is_tensor(pos):
+        return torch.full((), int(pos), dtype=torch.int64, device=device)
+    if pos.dtype != torch.int64 or pos.dim() != 0 or pos.device != torch.device(device):
+        raise ValueError(f"pos must be a 0-d int64 tensor on {device}, not {pos.dtype} "
+                         f"{tuple(pos.shape)} on {pos.device}")
+    return pos
+
+
+def _check_append_args(name, q, k_all, layer: int, pos, window: int) -> torch.Tensor:
+    """The step's shapes and its slot; returns ``pos`` as ``step_pos``
+    gives it.  An int pos must lie in [0, window); a tensor's value is the
+    kernel's to check (outside [0, window): no step)."""
     L, B, H, n_ctx, dh = k_all.shape
     if q.shape != (B, H, dh):
         raise ValueError(f"{name}: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}")
     if not 0 <= layer < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
-    if not 0 <= pos < window <= n_ctx:
-        raise ValueError(f"{name}: needs 0 <= pos ({pos}) < window ({window}) <= n_ctx ({n_ctx})")
+    if not 1 <= window <= n_ctx:
+        raise ValueError(f"{name}: needs 1 <= window ({window}) <= n_ctx ({n_ctx})")
+    if not torch.is_tensor(pos) and not 0 <= pos < window:
+        raise ValueError(f"{name}: needs 0 <= pos ({pos}) < window ({window})")
+    return step_pos(pos, q.device)
+
+
+def write_column(plane: torch.Tensor, layer: int, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """``plane[layer, :, :, pos] = new`` in place, for a 0-d int64 ``pos``
+    on the device, without reading its value on the host: an
+    ``index_copy_`` at the slot clamped into the plane, of ``new`` where
+    ``pos`` lies in [0, n_ctx) and of the slot's own values where it does
+    not (no write).  ``plane`` [L, B, H, n_ctx(, dh)], ``new`` [B, H(, dh)]."""
+    n_ctx = plane.shape[3]
+    at = plane[layer]
+    slot = pos.clamp(0, n_ctx - 1).view(1)
+    old = at.index_select(2, slot)
+    inside = (pos >= 0) & (pos < n_ctx)
+    at.index_copy_(2, slot, torch.where(inside, new.unsqueeze(2).to(plane.dtype), old))
+
+
+def _no_step(out: torch.Tensor, pos: torch.Tensor, window: int) -> torch.Tensor:
+    """``out`` where ``pos`` lies in [0, window), else zeros: the plain
+    versions' no step, as the kernels give it."""
+    inside = (pos >= 0) & (pos < window)
+    return torch.where(inside, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def _check_scales(name, q, planes, k_scale, v_scale, shape) -> bool:
@@ -172,7 +220,12 @@ def _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *extra
             raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned")
 
 
-def _attend_window(q, k, v, pos: int, key_start, k_scale=None, v_scale=None) -> torch.Tensor:
+def _write_slot(pos: torch.Tensor, window: int) -> torch.Tensor:
+    """The slot a step writes: ``pos``, or -1 (none) outside [0, window)."""
+    return torch.where((pos >= 0) & (pos < window), pos, torch.full_like(pos, -1))
+
+
+def _attend_window(q, k, v, pos, key_start, k_scale=None, v_scale=None) -> torch.Tensor:
     """q [B, H, dh] pre-scaled against the window's rows k, v [B, H, W, dh]
     (int8 with per-position scales [B, H, W], or not): f32 scores (times
     k_scale), slots ``key_start[b] <= j <= pos`` visible, ``w = e / sum(e)``
@@ -193,7 +246,7 @@ def _attend_window(q, k, v, pos: int, key_start, k_scale=None, v_scale=None) -> 
 
 
 def self_attention_step_plain(
-    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos,
     key_start=None, *, window: int, k_scale=None, v_scale=None, k_new=None, v_new=None,
 ) -> torch.Tensor:
     """Plain version: the attention output [B, H, dh] of the pre-scaled q
@@ -204,44 +257,46 @@ def self_attention_step_plain(
     quantised (``quantize_kv``) and written with its scales at slot ``pos``
     in place; without them the caches are only read."""
     name = "self_attention_step"
-    _check_append_args(name, q, k_all, layer, pos, window)
+    at = _check_append_args(name, q, k_all, layer, pos, window)
     scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
     if _check_new(name, scaled, k_new, v_new):
         for new, plane, scale in ((k_new, k_all, k_scale), (v_new, v_all, v_scale)):
-            plane[layer, :, :, pos], scale[layer, :, :, pos] = quantize_kv(new)
+            values, s = quantize_kv(new)
+            write_column(plane, layer, _write_slot(at, window), values)
+            write_column(scale, layer, _write_slot(at, window), s)
     ks, vs = ((s[layer, :, :, :window] for s in (k_scale, v_scale)) if scaled else (None, None))
-    return _attend_window(q, k_all[layer, :, :, :window], v_all[layer, :, :, :window], pos,
-                          key_start, ks, vs)
+    return _no_step(_attend_window(q, k_all[layer, :, :, :window], v_all[layer, :, :, :window],
+                                   at, key_start, ks, vs), at, window)
 
 
 def self_attention_fused_step_plain(
-    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos,
     key_start=None, *, window: int,
 ) -> torch.Tensor:
     """Plain version: the attention output [B, H, dh] of the pre-scaled q
     over slots ``key_start[b] <= j <= pos`` of ``k_all``/``v_all``
     [L, B, H, n_ctx, dh] at ``layer``; the caches are only read."""
-    _check_append_args("self_attention_fused_step", q, k_all, layer, pos, window)
-    return _attend_window(q, k_all[layer, :, :, :window], v_all[layer, :, :, :window], pos,
-                          key_start)
+    at = _check_append_args("self_attention_fused_step", q, k_all, layer, pos, window)
+    return _no_step(_attend_window(q, k_all[layer, :, :, :window], v_all[layer, :, :, :window],
+                                   at, key_start), at, window)
 
 
 def self_attention_append_step_plain(
     q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
-    v_all: torch.Tensor, layer: int, pos: int, key_start=None, *, window: int,
+    v_all: torch.Tensor, layer: int, pos, key_start=None, *, window: int,
 ) -> torch.Tensor:
     """Plain version: writes ``k_new``/``v_new`` [B, H, dh] into slot ``pos``
     of ``k_all``/``v_all`` [L, B, H, n_ctx, dh] at ``layer`` in place;
     returns the attention output [B, H, dh] of the pre-scaled q."""
-    _check_append_args("self_attention_append_step", q, k_all, layer, pos, window)
-    k_all[layer, :, :, pos] = k_new
-    v_all[layer, :, :, pos] = v_new
-    return self_attention_fused_step_plain(q, k_all, v_all, layer, pos, key_start, window=window)
+    at = _check_append_args("self_attention_append_step", q, k_all, layer, pos, window)
+    write_column(k_all, layer, _write_slot(at, window), k_new)
+    write_column(v_all, layer, _write_slot(at, window), v_new)
+    return self_attention_fused_step_plain(q, k_all, v_all, layer, at, key_start, window=window)
 
 
 def self_attention_append_step(
     q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, k_all: torch.Tensor,
-    v_all: torch.Tensor, layer: int, pos: int, key_start=None, *, window: int,
+    v_all: torch.Tensor, layer: int, pos, key_start=None, *, window: int,
 ) -> torch.Tensor:
     """One greedy step's self-attention at ``layer``, with this step's K/V
     column written into the cache in place: the kernel on the card (head dim
@@ -253,13 +308,13 @@ def self_attention_append_step(
         return self_attention_append_step_plain(
             q, k_new, v_new, k_all, v_all, layer, pos, key_start, window=window
         )
-    _check_append_args(name, q, k_all, layer, pos, window)
+    at = _check_append_args(name, q, k_all, layer, pos, window)
     if k_all.dtype == torch.int8:
         raise ValueError(f"{name}: an int8 cache takes self_attention_step")
     _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
-    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
-    out = _window_launch("self_attention_append", plan, int(layer), int(pos), int(window), q=q,
+    plan = step_launch_plan(B, H, int(window), int(window), dh, k_all.element_size())
+    out = _window_launch("self_attention_append", plan, int(layer), at, int(window), q=q,
                          k_new=k_new, v_new=v_new, k_all=k_all, v_all=v_all,
                          key_start=key_start, out=torch.empty_like(q))
     count_launch("self_attention_append_step")
@@ -281,28 +336,30 @@ _STEP_ENTRY_ARGS = {
 }
 
 
-def _window_launch(entry: str, plan: "StepPlan", layer: int, pos: int, window: int,
+def _window_launch(entry: str, plan: "StepPlan", layer: int, pos, window: int,
                    group: int = 1, **tensors) -> torch.Tensor:
     """Launches the step entry point ``entry`` (a key of _STEP_ENTRY_ARGS;
     q's dtype picks its instance) at ``plan`` on tensors that the wrappers
-    have checked, writing ``tensors["out"]``, which it returns; raises if
-    the launch fails."""
+    have checked, with the step's slot ``pos`` (``step_pos``: the kernel
+    reads it from device memory), writing ``tensors["out"]``, which it
+    returns; raises if the launch fails."""
     q, out = tensors["q"], tensors["out"]
     L, B, H, n_ctx, dh = tensors["k_all"].shape
+    at = step_pos(pos, q.device)
     symbol = f"{entry}_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}"
     names = _STEP_ENTRY_ARGS[entry]
     args = [group if k == "group" else None if tensors.get(k) is None else tensors[k].data_ptr()
             for k in names]
-    ints = (B, H, n_ctx, layer, pos, window, dh, plan.threads)
-    types = tuple(I if k == "group" else P for k in names) + (I,) * len(ints) + (P,)
+    types = tuple(I if k == "group" else P for k in names) + (I,) * 4 + (P,) + (I,) * 3 + (P,)
     fn = kernel_function("self_attention", symbol, types)
     check("self_attention", symbol,
-          fn(*args, *ints, torch.cuda.current_stream(q.device).cuda_stream))
+          fn(*args, B, H, n_ctx, layer, at.data_ptr(), window, dh, plan.threads,
+             torch.cuda.current_stream(q.device).cuda_stream))
     return out
 
 
 def self_attention_fused_step(
-    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos,
     key_start=None, *, window: int,
 ) -> torch.Tensor:
     """One greedy step's self-attention at ``layer`` over a cache whose slot
@@ -314,20 +371,20 @@ def self_attention_fused_step(
     if not use_kernel(name, step_kernel_takes(q.shape[-1]), q.device):
         return self_attention_fused_step_plain(q, k_all, v_all, layer, pos, key_start,
                                                window=window)
-    _check_append_args(name, q, k_all, layer, pos, window)
+    at = _check_append_args(name, q, k_all, layer, pos, window)
     if k_all.dtype == torch.int8:
         raise ValueError(f"{name}: an int8 cache takes self_attention_step")
     _check_kernel_tensors(name, q, None, None, k_all, v_all, key_start)
     L, B, H, n_ctx, dh = k_all.shape
-    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
-    out = _window_launch("self_attention_fused", plan, int(layer), int(pos), int(window), q=q,
+    plan = step_launch_plan(B, H, int(window), int(window), dh, k_all.element_size())
+    out = _window_launch("self_attention_fused", plan, int(layer), at, int(window), q=q,
                          k_all=k_all, v_all=v_all, key_start=key_start, out=torch.empty_like(q))
     count_launch("self_attention_fused_step")
     return out
 
 
 def self_attention_step(
-    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos: int,
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int, pos,
     key_start=None, *, window: int, k_scale=None, v_scale=None, k_new=None, v_new=None,
 ) -> torch.Tensor:
     """One greedy step's self-attention at ``layer``: the kernel on the card
@@ -344,14 +401,14 @@ def self_attention_step(
         return self_attention_step_plain(q, k_all, v_all, layer, pos, key_start, window=window,
                                          k_scale=k_scale, v_scale=v_scale, k_new=k_new,
                                          v_new=v_new)
-    _check_append_args(name, q, k_all, layer, pos, window)
+    at = _check_append_args(name, q, k_all, layer, pos, window)
     scaled = _check_scales(name, q, (k_all, v_all), k_scale, v_scale, k_all.shape[:-1])
     _check_new(name, scaled, k_new, v_new)
     scales = (k_scale, v_scale) if scaled else ()
     _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, *scales)
     L, B, H, n_ctx, dh = k_all.shape
-    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size())
-    out = _window_launch("self_attention_step", plan, int(layer), int(pos), int(window), q=q,
+    plan = step_launch_plan(B, H, int(window), int(window), dh, k_all.element_size())
+    out = _window_launch("self_attention_step", plan, int(layer), at, int(window), q=q,
                          k_new=k_new, v_new=v_new, k_all=k_all, v_all=v_all,
                          k_scale=k_scale if scaled else None, v_scale=v_scale,
                          key_start=key_start, out=torch.empty_like(q))
@@ -362,8 +419,9 @@ def self_attention_step(
 def _check_beam_args(name, q, k_new, v_new, k_all, v_all, layer, pos, window, key_start,
                      anc_local, group, k_scale, v_scale) -> bool:
     """The beam step's arguments; returns whether the caches are int8 (then
-    the step only reads, and k_new/v_new must be None)."""
-    _check_append_args(name, q, k_all, layer, pos, window)
+    the step only reads, and k_new/v_new must be None), and the slot
+    (``step_pos``)."""
+    at = _check_append_args(name, q, k_all, layer, pos, window)
     L, B, H, n_ctx, dh = k_all.shape
     if group < 1 or B % group:
         raise ValueError(f"{name}: {B} rows are not groups of {group}")
@@ -375,12 +433,12 @@ def _check_beam_args(name, q, k_new, v_new, k_all, v_all, layer, pos, window, ke
     if scaled != (k_new is None and v_new is None):
         raise ValueError(f"{name}: an int8 cache is written by the caller (k_new and v_new "
                          "None); any other takes k_new and v_new")
-    return scaled
+    return scaled, at
 
 
 def beam_self_attention_step_plain(
     q: torch.Tensor, k_new, v_new, k_all: torch.Tensor, v_all: torch.Tensor, layer: int,
-    pos: int, key_start, anc_local: torch.Tensor, group: int, *, window: int, k_scale=None,
+    pos, key_start, anc_local: torch.Tensor, group: int, *, window: int, k_scale=None,
     v_scale=None,
 ) -> torch.Tensor:
     """Plain version: writes ``k_new``/``v_new`` [B, H, dh] into slot ``pos``
@@ -389,12 +447,13 @@ def beam_self_attention_step_plain(
     k_new and v_new None), then attends with slot j of row ``b = a G + g``
     and its scales taken from row ``a G + anc_local[b, j]``; returns
     [B, H, dh]."""
-    scaled = _check_beam_args("beam_self_attention_step", q, k_new, v_new, k_all, v_all, layer,
-                              pos, window, key_start, anc_local, group, k_scale, v_scale)
+    scaled, at = _check_beam_args("beam_self_attention_step", q, k_new, v_new, k_all, v_all,
+                                  layer, pos, window, key_start, anc_local, group, k_scale,
+                                  v_scale)
     B = q.shape[0]
     if not scaled:
-        k_all[layer, :, :, pos] = k_new
-        v_all[layer, :, :, pos] = v_new
+        write_column(k_all, layer, _write_slot(at, window), k_new)
+        write_column(v_all, layer, _write_slot(at, window), v_new)
     first = torch.arange(B, device=q.device) // group * group  # each audio's first row
     ids = torch.arange(window, device=q.device)
     src = first[:, None] + anc_local[:, :window].long()  # [B, W] physical rows
@@ -403,13 +462,14 @@ def beam_self_attention_step_plain(
         return t[layer][src, :, ids].transpose(1, 2)
 
     ks, vs = (gather(k_scale), gather(v_scale)) if scaled else (None, None)
-    return _attend_window(q, gather(k_all), gather(v_all), pos,
-                          None if key_start is None else key_start[first], ks, vs)
+    return _no_step(_attend_window(q, gather(k_all), gather(v_all), at,
+                                   None if key_start is None else key_start[first], ks, vs),
+                    at, window)
 
 
 def beam_self_attention_step(
     q: torch.Tensor, k_new, v_new, k_all: torch.Tensor, v_all: torch.Tensor, layer: int,
-    pos: int, key_start, anc_local: torch.Tensor, group: int, *, window: int, k_scale=None,
+    pos, key_start, anc_local: torch.Tensor, group: int, *, window: int, k_scale=None,
     v_scale=None,
 ) -> torch.Tensor:
     """One beam step's self-attention at ``layer``, with this step's K/V column
@@ -427,17 +487,17 @@ def beam_self_attention_step(
             q, k_new, v_new, k_all, v_all, layer, pos, key_start, anc_local, group,
             window=window, k_scale=k_scale, v_scale=v_scale,
         )
-    scaled = _check_beam_args(name, q, k_new, v_new, k_all, v_all, layer, pos, window, key_start,
-                              anc_local, group, k_scale, v_scale)
+    scaled, at = _check_beam_args(name, q, k_new, v_new, k_all, v_all, layer, pos, window,
+                                  key_start, anc_local, group, k_scale, v_scale)
     scales = (k_scale, v_scale) if scaled else ()
     _check_kernel_tensors(name, q, k_new, v_new, k_all, v_all, key_start, anc_local, *scales)
     if anc_local.dtype != torch.int32:
         raise ValueError(f"{name}: anc_local must be int32")
     L, B, H, n_ctx, dh = k_all.shape
-    plan = step_launch_plan(B, H, int(pos) + 1, int(window), dh, k_all.element_size(),
+    plan = step_launch_plan(B, H, int(window), int(window), dh, k_all.element_size(),
                             beam=True)
     out = _window_launch("beam_self_attention_int8" if scaled else "beam_self_attention", plan,
-                         int(layer), int(pos), int(window), int(group), q=q, k_new=k_new,
+                         int(layer), at, int(window), int(group), q=q, k_new=k_new,
                          v_new=v_new, k_all=k_all, v_all=v_all, k_scale=k_scale,
                          v_scale=v_scale, key_start=key_start, anc_local=anc_local,
                          out=torch.empty_like(q))
@@ -582,10 +642,14 @@ class StepPlan(NamedTuple):
 def step_launch_plan(B: int, H: int, n: int, window: int, head_dim: int = 64,
                      itemsize: int = 2, beam: bool = False) -> StepPlan:
     """A step kernel's plan (the beam kernel's with ``beam``) for B rows, H
-    heads and ``n`` visible slots (pos + 1) of a ``window``, at ``head_dim``
-    over a cache of ``itemsize`` bytes: the warps of a block, and its shared
+    heads and ``n`` visible slots of a ``window``, at ``head_dim`` over a
+    cache of ``itemsize`` bytes: the warps of a block, and its shared
     memory (the beam row's ancestors over the window, and the warps'
-    partials)."""
+    partials).  The wrappers take it at ``n = window``, the most slots the
+    window holds, so that the plan does not depend on the step's position
+    (which the kernel reads from device memory); ``n = pos + 1`` gives the
+    plan that a call at ``pos`` took while the position was passed by
+    value."""
     warps = min(STEP_MAX_WARPS, STEP_WARPS_PER_SM * SMS // (B * H),
                 step_lanes(head_dim, itemsize) * n // (32 * STEP_GROUP_ROWS))
     warps = 1 << (max(warps, STEP_MIN_WARPS).bit_length() - 1)

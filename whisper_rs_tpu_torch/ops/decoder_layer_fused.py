@@ -54,7 +54,7 @@ import torch
 
 from . import count_launch
 from .build import F, I, P, check, kernel_function
-from .decode_attention import NEG
+from .decode_attention import NEG, _write_slot, step_pos, write_column
 from .decoder_mlp_fused import gelu
 from .encoder_fused import ln_fused_plain
 
@@ -312,37 +312,44 @@ def _check_args(name, x, weights, cross_kv, k_cache, v_cache, pos, key_start, n_
                          f"{dh}, Tk)")
     if len(weights.layers) != L:
         raise ValueError(f"{name}: {len(weights.layers)} layers of weights for {L} of cache")
-    if not 0 <= pos < window <= n_ctx:
-        raise ValueError(f"{name}: needs 0 <= pos ({pos}) < window ({window}) <= n_ctx ({n_ctx})")
+    if not 1 <= window <= n_ctx:
+        raise ValueError(f"{name}: needs 1 <= window ({window}) <= n_ctx ({n_ctx})")
+    if not torch.is_tensor(pos) and not 0 <= pos < window:
+        raise ValueError(f"{name}: needs 0 <= pos ({pos}) < window ({window})")
     if key_start is not None and key_start.shape != (B,):
         raise ValueError(f"{name}: key_start {tuple(key_start.shape)}, want ({B},)")
+    return step_pos(pos, x.device)
 
 
 def decoder_step_fused_plain(
     x: torch.Tensor, weights: DecoderStepWeights, cross_kv: torch.Tensor,
-    k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, key_start=None, *,
+    k_cache: torch.Tensor, v_cache: torch.Tensor, pos, key_start=None, *,
     n_head: int, group: int, window: int,
 ) -> torch.Tensor:
     """Plain version, layer by layer, rounding where the kernel rounds;
-    writes each layer's K/V column into the caches at ``pos`` in place and
-    returns the final x [B, D]."""
-    _check_args("decoder_step_fused", x, weights, cross_kv, k_cache, v_cache, pos, key_start,
-                n_head, group, window)
+    writes each layer's K/V column into the caches at ``pos`` (an int or a
+    0-d int64 tensor) in place and returns the final x [B, D].  A tensor
+    ``pos`` outside [0, window) is no step: nothing is written, and x comes
+    back as it went in, as from the kernel."""
+    at = _check_args("decoder_step_fused", x, weights, cross_kv, k_cache, v_cache, pos,
+                     key_start, n_head, group, window)
+    slot = _write_slot(at, window)
+    x_in = x
     B, D = x.shape
     H, dh = n_head, D // n_head
     A = B // group
     scale = dh**-0.5
     ids = torch.arange(window, device=x.device)
-    visible = (ids <= pos).expand(B, window)
+    visible = (ids <= at).expand(B, window)
     if key_start is not None:
         visible = visible & (ids[None, :] >= key_start[:, None])
-    visible = visible | (ids == pos)  # this step's column is always seen
+    visible = visible | (ids == at)  # this step's column is always seen
     for layer, (ln1_w, ln1_b, wq, bq, wk, wv, bv, wo, bo, ln2_w, ln2_b, wcq, bcq, wco, bco,
                 ln3_w, ln3_b, w1, b1, w2, b2) in enumerate(weights.layers):
         h = ln_fused_plain(x, ln1_w, ln1_b)
         q = (_dot(h, wq) + bq) * scale
-        k_cache[layer, :, :, pos] = _dot(h, wk).view(B, H, dh)
-        v_cache[layer, :, :, pos] = (_dot(h, wv) + bv).view(B, H, dh)
+        write_column(k_cache, layer, slot, _dot(h, wk).view(B, H, dh))
+        write_column(v_cache, layer, slot, (_dot(h, wv) + bv).view(B, H, dh))
         kk = k_cache[layer, :, :, :window].float()  # [B, H, W, dh]
         vv = v_cache[layer, :, :, :window].float()
         s = torch.einsum("bhd,bhwd->bhw", q.view(B, H, dh).float(), kk)
@@ -362,17 +369,20 @@ def decoder_step_fused_plain(
 
         h = ln_fused_plain(x, ln3_w, ln3_b)
         x = x + (_dot(gelu(_dot(h, w1) + b1), w2) + b2)
-    return x
+    return torch.where((at >= 0) & (at < window), x, x_in)
 
 
 def decoder_step_fused(
     x: torch.Tensor, weights: DecoderStepWeights, cross_kv: torch.Tensor,
-    k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, key_start=None, *,
+    k_cache: torch.Tensor, v_cache: torch.Tensor, pos, key_start=None, *,
     n_head: int, group: int, window: int, clock=None,
 ) -> torch.Tensor:
     """One incremental step through every decoder layer: the kernel on the
     card (one launch), the plain version on the CPU.  Writes each layer's
     K/V column into the caches at ``pos`` in place; returns x [B, D].
+    ``pos``, an int or a 0-d int64 tensor on x's device, is read by the
+    kernel from device memory (a captured step reads its replay's); a
+    tensor outside [0, window) is no step (nothing written, x returned).
     ``clock`` (card only, for measurements): an int64 tensor [8 L + 1]
     that receives the GPU clock in ns at the kernel's start and at the end
     of each of its eight phases a layer."""
@@ -384,8 +394,8 @@ def decoder_step_fused(
     name = "decoder_step_fused"
     if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _check_args(name, x, weights, cross_kv, k_cache, v_cache, pos, key_start, n_head, group,
-                window)
+    at = _check_args(name, x, weights, cross_kv, k_cache, v_cache, pos, key_start, n_head,
+                     group, window)
     B, D = x.shape
     L, _, H, n_ctx, dh = k_cache.shape
     Tk = cross_kv.shape[-1]
@@ -424,21 +434,21 @@ def decoder_step_fused(
         None if key_start is None else key_start.data_ptr(), out.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), q.data_ptr(), att.data_ptr(), hid.data_ptr(),
     )
-    shape = (B, D, H, L, int(group), Tk, n_ctx, int(pos), int(window), dh**-0.5)
+    shape = (B, D, H, L, int(group), Tk, n_ctx, at.data_ptr(), int(window), dh**-0.5)
     if x.dtype == torch.bfloat16:
         blocks, plan, table = _device_plan(B, D, int(group), Tk, n_ctx, x.device)
         bar = torch.zeros(1 + plan.flags, dtype=torch.int32, device=x.device)  # and the flags
         part = torch.empty(plan.partial_floats, dtype=torch.float32, device=x.device)
         symbol = "decoder_step_bf16"
         fn = kernel_function("decoder_layer", symbol,
-                             (P,) * 13 + (I,) * 9 + (F,) + (I,) * 5 + (P,))
+                             (P,) * 13 + (I,) * 7 + (P, I, F) + (I,) * 5 + (P,))
         err = fn(*args, bar.data_ptr(), None if clock is None else clock.data_ptr(),
                  part.data_ptr(), table.data_ptr(), *shape, blocks, plan.stages,
                  plan.cross_stages, plan.act_pitch, plan.smem, stream)
     else:
         bar = torch.zeros(1, dtype=torch.int32, device=x.device)
         symbol = "decoder_step_f32"
-        fn = kernel_function("decoder_layer", symbol, (P,) * 11 + (I,) * 9 + (F, P))
+        fn = kernel_function("decoder_layer", symbol, (P,) * 11 + (I,) * 7 + (P, I, F, P))
         err = fn(*args, bar.data_ptr(), None if clock is None else clock.data_ptr(), *shape,
                  stream)
     check("decoder_layer", symbol, err)

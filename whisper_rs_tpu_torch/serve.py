@@ -281,21 +281,16 @@ class ServingEngine:
 
     def warmup(self) -> None:
         """Before traffic: build every kernel library the path launches (on
-        the card, with ``kernels``; nvcc takes tens of seconds), then decode
-        one throwaway padded batch of silence, and with prompt conditioning
-        one more at the widest prefill bucket (a prompt of n_text_ctx // 2
-        tokens).  No counter of ``stats()`` moves."""
+        the card, with ``kernels``; nvcc takes tens of seconds), then make
+        the decode windows of the serving batch shape
+        (``DecodeTask.warmup``: the no-prompt bucket and, with prompt
+        conditioning, the widest one), as the JAX engine compiles them.  No
+        counter of ``stats()`` moves."""
         if self.kernels and self.model.device.type == "cuda":
             from .ops.build import build_all
 
             build_all()
-        windows = torch.zeros(self.batch_size, self.dims.n_mels, N_FRAMES,
-                              device=self.model.device)
-        prompts = [None]
-        if self._condition:
-            prompts.append([self.tokenizer.token_id_space] * (self.dims.n_text_ctx // 2))
-        for prompt in prompts:
-            self._run_batch(None, windows, [prompt] * self.batch_size)
+        self.decode_task.warmup(batch_sizes=(self.batch_size,), with_prompts=self._condition)
 
     def submit(self, audio) -> RequestHandle:
         """Enqueue one utterance ([n_samples] f32 at 16 kHz, numpy or tensor).
@@ -340,12 +335,18 @@ class ServingEngine:
 
     def close(self, timeout: float = 60.0) -> None:
         """Stop accepting requests, finish the work in flight, join the
-        engine thread; in a group, then end the followers."""
+        engine thread, drop the tasks' decode windows (``DecodeTask.
+        close``); in a group, then end the followers."""
         with self._lock:
             self._closed = True
             self._wakeup.notify_all()
         self._thread.join(timeout)
-        if self._spmd and not self._stopped and not self._thread.is_alive():
+        if self._thread.is_alive():
+            return
+        for task in (self.decode_task, self._sampling_task_cache):
+            if task is not None:
+                task.close()
+        if self._spmd and not self._stopped:
             self._stopped = True
             broadcast_object(("stop",))
 

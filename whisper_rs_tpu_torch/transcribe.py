@@ -154,11 +154,13 @@ def rung_key(opts: TranscribeOptions, temp_idx: int) -> Optional[float]:
 
 def sampling_task(primary: DecodeTask, opts: TranscribeOptions) -> DecodeTask:
     """The one task of every rung above 0 (``sampling_options``), on the
-    primary task's model, with its ``kernels``, ``quantize_kv`` and
-    ``encoder_fn``; the temperature is passed at run time."""
+    primary task's model, with its ``kernels``, ``quantize_kv``,
+    ``encoder_fn`` and ``graphs``; the temperature is passed at run
+    time."""
     return DecodeTask(primary.model, primary.tokenizer, sampling_options(opts),
                       keep_audio_features=opts.word_timestamps, kernels=primary.kernels,
-                      quantize_kv=primary.quantize_kv, encoder_fn=primary.encoder_fn)
+                      quantize_kv=primary.quantize_kv, encoder_fn=primary.encoder_fn,
+                      graphs=primary.graphs)
 
 
 def process_window_result(
@@ -287,8 +289,9 @@ class TranscribeTask:
     passes through to the mel and the window decode (``decode_task``,
     whose own fields, e.g. ``quantize_kv``, may be set after
     construction; the sampling task of the ladder inherits
-    ``quantize_kv`` when it is first made), ``encoder_fn`` to the window
-    decode.  On a sharded model (``parallel.sharding.shard_model``) every
+    ``quantize_kv`` when it is first made), ``encoder_fn`` and ``graphs``
+    (``False``: the decode loop's steps run eagerly on the card) to the
+    window decode.  On a sharded model (``parallel.sharding.shard_model``) every
     rank runs the same task on the same audio."""
 
     def __init__(
@@ -299,6 +302,7 @@ class TranscribeTask:
         *,
         kernels: bool = True,
         encoder_fn=None,
+        graphs: bool = True,
     ):
         self.model = model
         self.dims = model.dims
@@ -307,7 +311,7 @@ class TranscribeTask:
         self.kernels = kernels
         self.decode_task = DecodeTask(model, tokenizer, options.decode, kernels=kernels,
                                       keep_audio_features=options.word_timestamps,
-                                      encoder_fn=encoder_fn)
+                                      encoder_fn=encoder_fn, graphs=graphs)
         self._fallback_tasks: dict = {}
         self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
                          if options.word_timestamps else None)

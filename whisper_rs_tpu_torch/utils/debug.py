@@ -8,7 +8,12 @@
     that shows in a trace;
   * ``start_profiler`` / ``stop_profiler``: a ``torch.profiler.profile``
     of the CPU and the card (where present) between the two calls, written
-    to ``logdir`` as a Chrome trace.
+    to ``logdir`` as a Chrome trace;
+  * ``enable_nan_checks`` / ``disable_nan_checks``: forward hooks on every
+    module that raise at the first output that is not finite, naming the
+    module (the JAX ``jax_debug_nans``).  Each check reads the output on
+    the host, so while they are on the decode loop runs its steps eagerly
+    (``decode.loop.eager_reason``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import logging
 import os
 import pathlib
 import time
+import weakref
 
 import torch
 
@@ -30,6 +36,8 @@ if not log.handlers:
 
 _DEBUG_TENSORS = os.environ.get("WHISPER_DEBUG_TENSORS") == "1"
 _PROFILE: dict = {}
+_NAN_CHECKS: dict = {}  # "hook": the global forward hook's handle, while on
+_MODULE_NAMES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 @contextlib.contextmanager
@@ -93,3 +101,40 @@ def stop_profiler() -> pathlib.Path:
     path = logdir / f"trace-{os.getpid()}.json"
     prof.export_chrome_trace(str(path))
     return path
+
+
+def _finite_or_raise(module, inputs, output) -> None:
+    outs = output if isinstance(output, (tuple, list)) else (output,)
+    for t in outs:
+        if torch.is_tensor(t) and t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            name = _MODULE_NAMES.get(module, type(module).__name__)
+            raise FloatingPointError(f"non-finite output of module {name} "
+                                     f"({type(module).__name__}, shape {tuple(t.shape)})")
+
+
+def enable_nan_checks(model=None) -> None:
+    """Turn on a forward hook on every module (``torch.nn.modules.module.
+    register_module_forward_hook``) that raises ``FloatingPointError`` at
+    the first module whose output holds a NaN or an infinity, naming it:
+    by its path in ``model`` (``decoder.blocks.0.attn.query``) for the
+    modules of a ``model`` given here or in an earlier call, else by its
+    class.  The counterpart of the JAX ``enable_nan_checks``
+    (``jax_debug_nans``).  Each check is a host read, so decodes take the
+    eager loop while it is on."""
+    if model is not None:
+        for name, module in model.named_modules():
+            _MODULE_NAMES[module] = name or type(module).__name__
+    if "hook" not in _NAN_CHECKS:
+        _NAN_CHECKS["hook"] = torch.nn.modules.module.register_module_forward_hook(
+            _finite_or_raise)
+
+
+def disable_nan_checks() -> None:
+    """Remove the hook of ``enable_nan_checks``, if it is on."""
+    hook = _NAN_CHECKS.pop("hook", None)
+    if hook is not None:
+        hook.remove()
+
+
+def nan_checks_enabled() -> bool:
+    return "hook" in _NAN_CHECKS
