@@ -48,7 +48,7 @@ Phases, in order; any mismatch raises and the script exits nonzero:
   2. build    nvcc builds every CUDA kernel from csrc/ (one process per
               source, all at once); the seconds are printed, each
               kernel's registers and spills as ptxas reported them (each
-              instance of rows 7, 9-12, a summary for the rest), and
+              instance of rows 2, 3, 7 and 9-12, a summary for the rest), and
               the whole-step kernel's tensor-core instructions in its
               SASS (cuobjdump);
   3. rng      the sampler's noise (decode/rng.py) on the card against the
@@ -113,7 +113,10 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               (every kernel at base.en batch 2, beam 5, and the append
               kernel at 10 rows); the serving engine's (every kernel at
               base.en batch 4, beam 5: the cross and beam kernels at A 4,
-              G 5, the MLP at 20 rows; the append kernel at 20 rows);
+              G 5, the MLP at 20 rows; the append kernel at 20 rows); the
+              LayerNorm pair at every path's decoder rows (LN_STEP_ROWS,
+              [rows, 1, D]) and at one prefill's (LN_PREFILL), f32 and
+              bf16, row 3 bit-identical call to call;
   5. parity   f32, 4 seeded 30 s windows, through the kernels and through
               the plain versions: base.en at full width, and large-v3 at
               full width with the depth cut to 4 + 4 layers, log_mel_frontend
@@ -156,7 +159,10 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               warm-up run and a first call that captures (timed apart),
               with every launch count set to 0 just before each run and
               read just after: each kernel launched as expected
-              (cross attention n_text_layer times a width-1 decoder pass,
+              (row 3 n_audio_layer + 1 times an encoder call and
+              3 n_text_layer + 1 times a prefill or a layered step, once a
+              layer-route step: every LayerNorm of the model, ln_launches;
+              cross attention n_text_layer times a width-1 decoder pass,
               the step self-attention and the fused MLP n_text_layer times
               an incremental step, the beam kernel and never the append
               kernel on the beam path; on the layer route the whole-step
@@ -166,9 +172,11 @@ Phases, in order; any mismatch raises and the script exits nonzero:
               MLP kernel under int8 weights);
               audio-s/s of the median run, and the mel+encoder / prefill /
               steps split; the beam path prints each audio's selected
-              candidate; on the routes' path, one incremental step of each
-              route under torch.profiler gives its device launches a
-              step; on the int8-weight path, the device time of one step's
+              candidate; on every path, one incremental step (a replay of
+              the captured body; on the routes' path each route's) under
+              torch.profiler gives its device launches a step, and each
+              profiled run its torch MeanOps launches (2 a plain
+              LayerNorm: 0 expected); on the int8-weight path, the device time of one step's
               int8 weight casts alone.  Then the main transcription path:
               the whole-file mel through row 1 against its plain version;
               f32 on the file's first TRANSCRIBE_PARITY_SECONDS through
@@ -300,6 +308,7 @@ from whisper_rs_tpu_torch.decode import (
     decode_greedy,
     rank_max_likelihood,
 )
+from whisper_rs_tpu_torch.decode import align as decode_align
 from whisper_rs_tpu_torch.decode import loop as decode_loop
 from whisper_rs_tpu_torch.decode import rng as decode_rng
 from whisper_rs_tpu_torch.decode import task as decode_task_module
@@ -653,6 +662,61 @@ def check_ln_pair(shape, dtype, randn) -> tuple:
         nbytes=4 * x.numel() * isz + 2 * D * isz, flops=9 * x.numel(), reps=20,
     )
     return ln, res
+
+
+# The decoder's LayerNorm rows on each path (batch x beams, D): every step
+# body takes 3 n_text_layer + 1 of them (the layer route's one), and the
+# prefill as many at its width; medium.en b8 beam 5's prefill stands for the
+# prefill shapes (232 tokens, bench_prompts' bucket)
+LN_STEP_ROWS = (
+    (("base.en b128",), (128, 512)),
+    (("large-v3 b12",), (12, 1280)),
+    (("medium.en b8 beam5",), (40, 1024)),
+    # the greedy routes (the layer route's step takes only the last LayerNorm)
+    (("medium.en b8 greedy prompted, layer", "medium.en b8 greedy prompted, ctx"), (8, 1024)),
+    (("base.en b1 beam5 transcribe",), (5, 512)),
+    (("base.en serve b4 beam5",), (20, 512)),
+)
+LN_PREFILL = ("medium.en b8 beam5", (40, 232, 1024))
+STEP_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "tol_share")
+
+
+def kernel_checks_ln_steps(rows: dict) -> None:
+    """Rows 3 and 2 at each path's decoder rows [rows, 1, D] (``LN_STEP_ROWS``)
+    and at one prefill shape, f32 and bf16, each against its plain version at
+    its tolerance and timed (``check_ln_pair``); row 3 in bf16 also called
+    twice for the same bits.  Each result goes into the path's row of its
+    dtype as ``step`` (``prefill``); where the path's config has no row 3
+    (the greedy routes'), the step's rows are its rows."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    shapes = [(configs, "step", (n, 1, D)) for configs, (n, D) in LN_STEP_ROWS]
+    shapes.append(((LN_PREFILL[0],), "prefill", LN_PREFILL[1]))
+    owned = {config for configs, _, _ in shapes for config in configs
+             if not rows[config]["ln_fused"]}
+    for configs, key, shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            print(f"[kernels] LayerNorm pair ({tag}, {key} {list(shape)}, {configs[0]})",
+                  flush=True)
+            pair = check_ln_pair(shape, dtype, randn)
+            if dtype == torch.bfloat16 and key == "step":
+                x = randn(*shape, dtype=dtype)
+                s, b = randn(shape[-1], dtype=dtype), randn(shape[-1], dtype=dtype)
+                check_deterministic("ln_fused", lambda: ln_fused(x, s, b), pair[0])
+            for config, (name, row) in itertools.product(configs,
+                                                          zip(("ln_fused", "residual_ln"), pair)):
+                target = rows[config][name]
+                if config in owned:
+                    if name == "ln_fused":
+                        target[tag] = row
+                elif tag in target:
+                    target[tag][key] = {"shape": list(shape),
+                                        **{k: row[k] for k in STEP_KEYS + ("bit_identical",)
+                                           if k in row}}
 
 
 def check_merged(B: int, T: int, H: int, dh: int, dtype, randn) -> dict:
@@ -1764,24 +1828,41 @@ def parity_routes(dims, label: str, routes=("layer", "ctx"), int8: bool = False,
     torch.cuda.empty_cache()
 
 
+def ln_launches(dims, encoder_calls: int, layered_passes: int, layer_bodies: int = 0,
+                encoder_blocks: int | None = None) -> int:
+    """Row 3's launches (``ln_fused``), every LayerNorm of the model: each
+    encoder block's first LayerNorm (``encoder_blocks`` block calls, by
+    default n_audio_layer an encoder call; row 2 takes each block's
+    second) and ``ln_post`` once an encoder call; 3 n_text_layer + 1 a
+    layered decoder pass (a prefill of any width, a width-1 pass, a step
+    body of the append, ctx, beam or int8 route: three a layer and the
+    last); 1 a body of the layer route (row 12 keeps its own LayerNorms)."""
+    blocks = dims.n_audio_layer * encoder_calls if encoder_blocks is None else encoder_blocks
+    return (blocks + encoder_calls + (3 * dims.n_text_layer + 1) * layered_passes
+            + layer_bodies)
+
+
 def expected_launches(dims, bodies: int, n_passes: int, route: str,
                       int8_weights: bool = False) -> dict:
-    """The launch count of each kernel on one e2e batch of ``bodies``
-    incremental step bodies (``DecodeResult.bodies``: the live steps, the
-    no-op steps past the end of the last check interval and the warm-up
-    body of each phase a call captures, each of which launches the step's
-    kernels) and ``n_passes`` width-1 decoder passes: cross attention
-    n_text_layer times a width-1 pass, the step kernels of the route
-    n_text_layer times a body (the beam kernel in the append kernel's
-    place on the beam path, row 10 on the greedy path over an int8 cache,
-    route "int8"; no MLP kernel under int8 weights), the whole-step kernel
-    once a body."""
+    """The launch count of each kernel on one e2e batch (one encoder call,
+    one prefill) of ``bodies`` incremental step bodies
+    (``DecodeResult.bodies``: the live steps, the no-op steps past the end
+    of the last check interval and the warm-up body of each phase a call
+    captures, each of which launches the step's kernels) and ``n_passes``
+    width-1 decoder passes: cross attention n_text_layer times a width-1
+    pass, the step kernels of the route n_text_layer times a body (the beam
+    kernel in the append kernel's place on the beam path, row 10 on the
+    greedy path over an int8 cache, route "int8"; no MLP kernel under int8
+    weights), the whole-step kernel once a body; the LayerNorms as
+    ``ln_launches`` counts them over the encoder call, the prefill and the
+    bodies."""
     L = dims.n_text_layer
     layered = route != "layer"
     expect = dict.fromkeys(LAUNCHES, 0)  # no other kernel, and no fallback route
     expect.update({
         "log_mel": 1,
-        "ln_fused": dims.n_audio_layer,
+        "ln_fused": ln_launches(dims, 1, 1 + (bodies if layered else 0),
+                                0 if layered else bodies),
         "residual_ln": dims.n_audio_layer,
         "encoder_attention_merged": dims.n_audio_layer,
         "cross_attention_step": L * (n_passes if layered else n_passes - bodies),
@@ -2093,7 +2174,7 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
         if res.steps < 1 or dict(LAUNCHES) != expect:
             raise AssertionError(f"e2e {what}: launches {dict(LAUNCHES)}, expected {expect}")
 
-    run(audio + np.float32(0.001), budget=4, graphs=False)  # warm-up: Triton, cuBLAS set-up
+    run(audio + np.float32(0.001), budget=4, graphs=False)  # warm-up: cuBLAS set-up
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2221,10 +2302,16 @@ def e2e(dims, name: str, batch: int, beam: int = 0, int8_weights: bool = False,
     profiled = profile_run(lambda a: run(a, PROFILE_STEPS), audio,
                            f"one e2e run cut to {PROFILE_STEPS} tokens",
                            passes=PROFILE_STEPS if sample_begin == 1 else PROFILE_STEPS - 1)
+    # one incremental step: a replay of a captured body (its window has
+    # ended, so the step is a no-op that launches every kernel of a step)
+    win = next(iter(windows._windows.values()))
+    step_launches = device_launches(lambda: win.run_phase_steps(win.phases[-1], 1))
+    print(f"  one step (a replay of the captured body) under torch.profiler: {step_launches} "
+          f"device launches (kernels and copies)", flush=True)
     if summary is not None:
         summary.update(audio_s_per_s=batch * 30.0 / elapsed, ms_step=t_steps / steps * 1e3,
-                       **profiled)
-    del model, windows
+                       step_launches=step_launches, **profiled)
+    del model, windows, win
     torch.cuda.empty_cache()
     return launches
 
@@ -2573,9 +2660,10 @@ def transcribe_golden_dims() -> dict:
                                                      sample_len=GOLDEN_SAMPLE_LEN))
     _, windows, launches = transcribe_both(model, tok, options, audio, "greedy transcription")
     L, steps = GOLDEN_DIMS.n_audio_layer, sum(b for _, _, b in windows)  # step bodies
-    Lt = GOLDEN_DIMS.n_text_layer
+    Lt, n_win = GOLDEN_DIMS.n_text_layer, len(windows)
     check_route_counts("golden dims transcription", launches, {
-        "log_mel": 1, "ln_fused": L * len(windows), "residual_ln": L * len(windows),
+        "log_mel": 1, "ln_fused": ln_launches(GOLDEN_DIMS, n_win, n_win + steps),
+        "residual_ln": L * n_win,
         "encoder_attention_split": L * len(windows), "self_attention_append_step": Lt * steps,
         "cross_attention_step": Lt * steps, "decoder_mlp_step": Lt * steps})
     print(f"  launches (kernel path): {launches}", flush=True)
@@ -2600,9 +2688,9 @@ def transcribe_golden_dims() -> dict:
           f"{[round(o.avg_logprob, 4) for o in outs]}", flush=True)
     beam_steps = sum(b for _, _, b in got[True][0])  # step bodies
     check_route_counts("golden dims beam", got[True][2], {
-        "log_mel": 1, "ln_fused": L, "residual_ln": L, "encoder_attention_split": L,
-        "beam_self_attention_step": Lt * beam_steps, "cross_attention_step": Lt * beam_steps,
-        "decoder_mlp_step": Lt * beam_steps})
+        "log_mel": 1, "ln_fused": ln_launches(GOLDEN_DIMS, 1, 1 + beam_steps), "residual_ln": L,
+        "encoder_attention_split": L, "beam_self_attention_step": Lt * beam_steps,
+        "cross_attention_step": Lt * beam_steps, "decoder_mlp_step": Lt * beam_steps})
     print(f"  launches (kernel path, beam): {got[True][2]}", flush=True)
     del model
     torch.cuda.empty_cache()
@@ -2612,10 +2700,12 @@ def transcribe_golden_dims() -> dict:
 def path_launches(dims, windows) -> dict:
     """The main path's launch counts over the recorded ``windows``: the mel
     kernel once a file, the encoder kernels once a layer a window, the
-    cross, beam and MLP kernels once a layer a step."""
+    cross, beam and MLP kernels once a layer a step, the LayerNorms as
+    ``ln_launches`` counts them (an encoder call and a prefill a window)."""
     L, n_win = dims.n_audio_layer, len(windows)
     steps = sum(b for _, _, b in windows)  # step bodies, which launch the step's kernels
-    return {"log_mel": 1, "ln_fused": L * n_win, "residual_ln": L * n_win,
+    return {"log_mel": 1, "ln_fused": ln_launches(dims, n_win, n_win + steps),
+            "residual_ln": L * n_win,
             "encoder_attention_merged": L * n_win,
             "cross_attention_step": dims.n_text_layer * steps,
             "beam_self_attention_step": dims.n_text_layer * steps,
@@ -2657,7 +2747,7 @@ def transcribe_main_path() -> dict:
 
     model = init_random(dims, seed=0, dtype=torch.bfloat16, device="cuda")
     task = TranscribeTask(model, tok, options)
-    task.run(audio[: 16000 * 5])  # warm-up: Triton compile, cuBLAS set-up
+    task.run(audio[: 16000 * 5])  # warm-up: kernel libraries, cuBLAS set-up
     times = []
     reps = E2E_REPS_CUT.get(TRANSCRIBE_LABEL, E2E_REPS)
     for _ in range(reps):
@@ -2842,6 +2932,13 @@ def kernel_checks_recipe(rows: dict) -> None:
                                                                       gen)
 
 
+class RecordedCalls(list):
+    """The decode calls ``recorded_calls`` keeps, and ``aligned``: the word
+    aligner's teacher-forced passes made meanwhile."""
+
+    aligned = 0
+
+
 @contextlib.contextmanager
 def recorded_calls(margins: bool = False):
     """Records every ``DecodeTask.run_batch`` call of any task (the ladder's
@@ -2855,12 +2952,18 @@ def recorded_calls(margins: bool = False):
     selection margin (``margin``); a sampling call's top-2 gap of
     ``logits / T + noise`` times T of every row at every step
     (``row_margins`` [steps, rows]) and the gap between its best two
-    candidates' ranking scores (``rank_gap``)."""
-    calls, state = [], {}
+    candidates' ranking scores (``rank_gap``).  Yields a ``RecordedCalls``,
+    which also counts the word aligner's passes."""
+    calls, state = RecordedCalls(), {}
     run_batch = decode_task_module.DecodeTask.run_batch
     greedy_fn, beam_fn = decode_task_module.decode_greedy, decode_task_module.decode_beam
     rank_fn = decode_task_module.rank_max_likelihood
     sample_fn, step_fn = decode_rng.categorical, decode_loop._beam_step
+    align_fn = decode_align._alignment_qk
+
+    def counting_align(*args, **kw):
+        calls.aligned += 1
+        return align_fn(*args, **kw)
 
     def counting(fn):
         def run(model, mel, tokens, sample_begin, *args, **kw):
@@ -2907,6 +3010,7 @@ def recorded_calls(margins: bool = False):
     decode_task_module.decode_greedy = counting(greedy_fn)
     decode_task_module.decode_beam = counting(beam_fn)
     decode_task_module.DecodeTask.run_batch = recording_run_batch
+    decode_align._alignment_qk = counting_align
     if margins:
         decode_rng.categorical, decode_loop._beam_step = recording_sample, recording_step
         decode_task_module.rank_max_likelihood = recording_rank
@@ -2915,6 +3019,7 @@ def recorded_calls(margins: bool = False):
     finally:
         decode_task_module.decode_greedy, decode_task_module.decode_beam = greedy_fn, beam_fn
         decode_task_module.DecodeTask.run_batch = run_batch
+        decode_align._alignment_qk = align_fn
         decode_rng.categorical, decode_loop._beam_step = sample_fn, step_fn
         decode_task_module.rank_max_likelihood = rank_fn
 
@@ -3011,20 +3116,25 @@ def compare_words(what: str, got, want) -> int:
     return n
 
 
-def recipe_launches(dims, calls, files: int = 1) -> dict:
+def recipe_launches(dims, calls, files: int = 1, *, aligned: int) -> dict:
     """The recipe's launch counts over the recorded decode ``calls`` of
-    ``files`` files: the mel kernel once a file; the encoder kernels once a layer a call (every rung
-    encodes its window again); the cross and MLP kernels once a layer a
-    step body (``DecodeResult.bodies``: the steps, the no-op steps past
-    the end and the warm-up body of a capture); the beam kernel a layer a
-    body of rung 0, the append kernel a layer a body of the sampling
-    rungs.  The alignment pass launches none
-    (torch.matmul, as the JAX package computes it)."""
+    ``files`` files and ``aligned`` passes of the word aligner: the mel
+    kernel once a file; the encoder kernels once a layer a call (every
+    rung encodes its window again); the cross and MLP kernels once a
+    layer a step body (``DecodeResult.bodies``: the steps, the no-op
+    steps past the end and the warm-up body of a capture); the beam
+    kernel a layer a body of rung 0, the append kernel a layer a body of
+    the sampling rungs; the LayerNorms as ``ln_launches`` counts them (an
+    encoder call and a prefill a call, and each alignment pass a layered
+    pass).  The alignment pass launches no other kernel (its attention
+    and MLP in torch.matmul, as the JAX package computes them)."""
     L, Lt, n = dims.n_audio_layer, dims.n_text_layer, len(calls)
     # the step bodies (DecodeResult.bodies) launch the step's kernels
     beam = sum(c["bodies"] for c in calls if c["temperature"] is None)
     sampled = sum(c["bodies"] for c in calls if c["temperature"] is not None)
-    return {"log_mel": files, "ln_fused": L * n, "residual_ln": L * n,
+    return {"log_mel": files,
+            "ln_fused": ln_launches(dims, n, n + beam + sampled + aligned),
+            "residual_ln": L * n,
             "encoder_attention_merged": L * n, "cross_attention_step": Lt * (beam + sampled),
             "beam_self_attention_step": Lt * beam, "self_attention_append_step": Lt * sampled,
             "decoder_mlp_step": Lt * (beam + sampled)}
@@ -3095,7 +3205,8 @@ def transcribe_recipe(rng_row: dict) -> dict:
           f"{rungs_per_window(calls_k)}; plain path {len(calls_p)} calls", flush=True)
     if compare_calls("f32 recipe", calls_k, calls_p):
         compare_words("f32 recipe", res_k, res_p)
-    check_route_counts("f32 recipe", launches, recipe_launches(cut, calls_k))
+    check_route_counts("f32 recipe", launches,
+                       recipe_launches(cut, calls_k, aligned=calls_k.aligned))
     del model, task
     torch.cuda.empty_cache()
 
@@ -3147,7 +3258,8 @@ def transcribe_recipe(rng_row: dict) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             launches = dict(LAUNCHES)
-        check_route_counts("bf16 recipe", launches, recipe_launches(dims, calls))
+        check_route_counts("bf16 recipe", launches,
+                           recipe_launches(dims, calls, aligned=calls.aligned))
     rungs = rungs_per_window(calls)
     if not any(t > 0 for window in rungs for t in window):
         raise AssertionError("bf16 recipe: no window ran a rung above 0: the ladder never sampled")
@@ -3305,7 +3417,8 @@ def cli_phase() -> dict:
         if not calls or odd:
             raise AssertionError(f"{what}: {len(calls)} decode calls, {len(odd)} of them of "
                                  f"{odd} windows, not {rows}")
-        check_route_counts(what, launches, recipe_launches(dims, calls, n_files))
+        check_route_counts(what, launches, recipe_launches(dims, calls, n_files,
+                                                          aligned=calls.aligned))
 
     reset_launches()
     with recorded_calls() as calls:
@@ -3722,7 +3835,8 @@ def serve_phase() -> dict:
     if ({k: stats[k] for k in want} != want
             or abs(stats["batch_utilization"] - windows / (SERVE_BATCH * len(calls))) > 1e-12):
         raise AssertionError(f"serve: stats {stats}, expected {want}")
-    check_route_counts("bf16 serve", launches, recipe_launches(dims, calls, len(SERVE_SECONDS)))
+    check_route_counts("bf16 serve", launches, recipe_launches(dims, calls, len(SERVE_SECONDS),
+                                                                     aligned=calls.aligned))
     steps = sum(c["steps"] for c in calls)
     print(f"  bf16: {len(SERVE_SECONDS)} requests, {windows} windows (by request "
           f"{[len(o.avg_logprobs) for o in outs]}) in {len(rounds)} rounds of "
@@ -3819,7 +3933,8 @@ def serve_phase() -> dict:
         launches_f32 = dict(LAUNCHES)
     engine.close()
     check_route_counts("f32 serve", launches_f32,
-                       recipe_launches(dims, calls, len(SERVE_F32_SECONDS)))
+                       recipe_launches(dims, calls, len(SERVE_F32_SECONDS),
+                                       aligned=calls.aligned))
     bounds = [i for i, _ in rounds] + [len(calls)]
     mixed = [r for r, (i, j) in enumerate(zip(bounds, bounds[1:]))
              if len({c["temperature"] for c in calls[i:j]}) > 1]
@@ -4207,6 +4322,7 @@ def parallel_rank(rank: int, audio: np.ndarray, serve_audios: list) -> dict:
         keep = ("temperature", "rows", "outputs", "steps", "bodies", "syncs", "loop",
                 "candidates", "scores", "no_speech", "sample_begin", "rids")
         out["serve"] = {"calls": [{k: c[k] for k in keep} for c in calls],
+                        "aligned": calls.aligned,
                         "rids": [h.request_id for h in handles], "wall": wall,
                         "segments": [[(s.seek, s.text) for s in o.segments] for o in outs],
                         "launches": launches, "stats": stats, "engine": engine_stats}
@@ -4385,9 +4501,11 @@ def parallel_phase() -> dict:
             expect = expected_launches(dims, bodies, bodies + 1, "append")
             if name == "ulysses":
                 expect.update(encoder_attention_merged=0, encoder_attention_split=L)
-            if name == "pp":  # the stage's L / 2 blocks, once a microbatch
+            if name == "pp":  # the stage's L / 2 blocks, once a microbatch; ln_post once
                 expect.update({k: L // 2 * n_micro for k in
-                               ("ln_fused", "residual_ln", "encoder_attention_merged")})
+                               ("residual_ln", "encoder_attention_merged")})
+                expect["ln_fused"] = ln_launches(dims, 1, bodies + 1,
+                                                 encoder_blocks=L // 2 * n_micro)
             if name == "dp":  # each rank's own loop: its steps are not the gathered count
                 expect = {k: True for k, v in expect.items() if v}
             check_route_counts(f"{what} rank {r}", res[name]["launches"], expect)
@@ -4406,7 +4524,8 @@ def parallel_phase() -> dict:
         compare_calls(f"bf16 TP 2 serve request {rid} against the unsharded sequential task",
                       *trimmed(request_calls(srv["calls"], rid), request_calls(calls)))
     check_route_counts("bf16 TP 2 serve", srv["launches"],
-                       recipe_launches(dims, srv["calls"], len(PAR_SERVE_SECONDS)))
+                       recipe_launches(dims, srv["calls"], len(PAR_SERVE_SECONDS),
+                                       aligned=srv["aligned"]))
     steps = sum(c["steps"] for c in srv["calls"])
     st = srv["stats"]
     print(f"  bf16 TP 2 serve: {len(PAR_SERVE_SECONDS)} requests, {len(srv['calls'])} calls of "
@@ -4468,7 +4587,7 @@ def parallel_phase() -> dict:
 # substrings of the device kernel names of the port's own kernels
 OWN_KERNELS = {
     "log_mel_kernel": "log_mel",
-    "layer_norm_rows": "ln_fused/residual_ln",
+    "layer_norm_rows": "ln_fused/residual_ln (warp or block variant)",
     "attn_wgmma_kernel": "encoder_attention_merged / encoder_attention_split (bf16, dh 64)",
     "attn_mma_kernel": "encoder_attention_split (bf16, dh 16)",
     "cross_attn_kernel": "cross_attention_step",
@@ -4570,9 +4689,13 @@ def profile_run(run, audio, what: str, passes: int = 0) -> dict:
         print("[profile] the trace holds no device time: not measured", flush=True)
         return {}
     busy_ms = sum(t for t, _ in events.values()) / 1e3
-    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1 - busy_ms / wall_ms}
+    means = [(t, n) for name, (t, n) in events.items() if "MeanOps" in name]
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1 - busy_ms / wall_ms,
+           "mean_ops": sum(n for _, n in means)}
     print(f"[profile] {what} under torch.profiler: wall {wall_ms:.1f} ms; "
-          f"device busy {busy_ms:.1f} ms; idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"device busy {busy_ms:.1f} ms; idle share {1 - busy_ms / wall_ms:.3f}; torch "
+          f"MeanOps reductions {out['mean_ops']} launches, {sum(t for t, _ in means) / 1e3:.2f} "
+          f"ms (a plain LayerNorm takes 2)", flush=True)
     if passes:
         n = sum(n for _, n in events.values())
         out.update(launches_per_pass=n / passes, busy_ms_per_pass=busy_ms / passes)
@@ -4594,9 +4717,9 @@ def profile_run(run, audio, what: str, passes: int = 0) -> dict:
 KERNELS = {
     "log_mel": ("cuda", "whisper_rs_tpu_torch/csrc/mel.cu",
                 "whisper_rs_tpu/ops/mel_pallas.py:129"),
-    "ln_fused": ("triton", "whisper_rs_tpu_torch/csrc/layer_norm.py",
+    "ln_fused": ("cuda", "whisper_rs_tpu_torch/csrc/layer_norm.cu",
                  "whisper_rs_tpu/ops/encoder_fused.py:99"),
-    "residual_ln": ("triton", "whisper_rs_tpu_torch/csrc/layer_norm.py",
+    "residual_ln": ("cuda", "whisper_rs_tpu_torch/csrc/layer_norm.cu",
                     "whisper_rs_tpu/ops/encoder_fused.py:70"),
     "encoder_attention_merged": ("cuda", "whisper_rs_tpu_torch/csrc/encoder_attention.cu",
                                  "whisper_rs_tpu/ops/encoder_attention_pallas.py:139"),
@@ -4622,8 +4745,9 @@ KERNELS = {
 def print_ptxas() -> None:
     """ptxas's registers and spills of every kernel, from the build: each
     instance of the redesigned kernels (row 12, bf16 and its f32 parity
-    instance; rows 7, 9, 10 and 11, the window body), a summary line for
-    each source."""
+    instance; rows 7, 9, 10 and 11, the window body; rows 2 and 3, the
+    warp variant at each vector count a lane and the block variant), a
+    summary line for each source."""
     for source in SOURCES:
         report = ptxas_report(source)
         if not report:
@@ -4634,7 +4758,7 @@ def print_ptxas() -> None:
               f"{min(r[1] for r in report)}-{max(r[1] for r in report)}, "
               f"{len(spills)} with spills", flush=True)
         for kernel, regs, stores, loads, stack in report:
-            if source in ("decoder_layer", "self_attention"):
+            if source in ("decoder_layer", "self_attention", "layer_norm"):
                 print(f"  {kernel[-64:]}: {regs} registers, spill stores {stores} B, spill "
                       f"loads {loads} B, stack {stack} B", flush=True)
 
@@ -4740,6 +4864,9 @@ def main() -> int:
     kernel_checks_serve(rows)
     phase_done("kernels serving shapes", t0)
     t0 = time.perf_counter()
+    kernel_checks_ln_steps(rows)
+    phase_done("kernels LayerNorm step rows", t0)
+    t0 = time.perf_counter()
     kernel_checks_parallel(rows)
     phase_done("kernels parallel shapes", t0)
 
@@ -4833,7 +4960,7 @@ def main() -> int:
     extra_keys = ("layered_step_ms", "layer_route_forward_ms", "phase_us", "phase_bound_us",
                   "phase_gbps", "library_call", "read_only_ms", "column_write_ms",
                   "cold_ms", "library_cold_ms", "bit_identical", "plan", "one_window",
-                  "direct_dft_bound_ms")
+                  "direct_dft_bound_ms", "step", "prefill")
     line = []
     for name, (route, source, replaces) in KERNELS.items():
         by_config = {}

@@ -6,6 +6,8 @@
     python3 chip_study.py step [PARENT [LABEL]]
     python3 chip_study.py transcribe PARENT
     python3 chip_study.py loop
+    python3 chip_study.py ln [PARENT]
+    python3 chip_study.py steps PARENT
 
 ``plans``: the cross kernel (row 5, ``csrc/cross_attention.cu``) at every
 path shape of ``chip_smoke.py`` (the golden dims' included) under every
@@ -78,6 +80,31 @@ card: its audio-s/s and idle share apart from the rest of a
 at base.en b128 and large-v3 b12 greedy and medium.en b8 beam 5, bf16, the
 step captured: ms a step, host syncs and no-op bodies at each k of
 LOOP_KS, every k's decode held equal to the default's.
+
+``ln``: rows 2 and 3 (``csrc/layer_norm.cu``: ``residual_ln``,
+``ln_fused``) at every shape of PERF.md's table, the encoder's [B, T, D]
+and the decoder's rows [rows, 1, D] of each path and one prefill, in bf16
+(base.en b128's encoder in f32 too): held to the plain version at
+``chip_smoke``'s tolerance, then timed as ``chip_smoke.check_ln_pair``
+times them (a CUDA graph of 20 calls, each allocating its outputs, as the
+wrapper does) under the plan ``ln_launch_plan`` picks (marked ``*``) and
+at the warp variant's other rows a block (1, 2, 4, 8), beside the plain
+chain, ``F.layer_norm`` and the byte bound; the plan's time is also taken
+LN_REPEATS times over, each as ``chip_smoke`` takes it once (one replay),
+to show its spread.  With PARENT, a checkout of
+the tree that ran them in Triton (``csrc/layer_norm.py``), that kernel is
+held to this one (their largest difference) and timed in turns (parent,
+this, this, parent) through its own launch.
+
+``steps``: the captured step of each decode path of ``chip_smoke.py``
+(base.en b128 and large-v3 b12 greedy, medium.en b8 beam 5, and medium.en
+b8 greedy prompted on the append, ctx and layer routes; bf16, seeded
+weights, a PROFILE_STEPS budget) in PARENT and in this tree, each in a
+process of its own started in its tree, in turns (parent, this, this,
+parent): one replayed step's device launches and torch MeanOps launches
+(a plain LayerNorm takes two) under torch.profiler, and ms a step
+captured and eager (the mel, encoder and prefill taken out as in
+``chip_smoke.e2e``).
 
 Exits nonzero, printing no result, where CUDA is absent.
 """
@@ -666,23 +693,235 @@ def loop(cs) -> None:
         torch.cuda.empty_cache()
 
 
+LN_SHAPES = (  # (label, shape): the encoder's, then the decoder's rows and a prefill
+    ("base.en b128", (128, 1500, 512)), ("large-v3 b12", (12, 1500, 1280)),
+    ("medium.en b8", (8, 1500, 1024)), ("transcription b1", (1, 1500, 512)),
+    ("golden dims", (1, 1500, 64)), ("CLI --batch 2", (2, 1500, 512)),
+    ("serve b4", (4, 1500, 512)), ("TP 2 b8", (8, 1500, 512)),
+    ("Ulysses 2 b8", (8, 750, 512)),
+    ("step base.en b128", (128, 1, 512)), ("step large-v3 b12", (12, 1, 1280)),
+    ("step medium.en b8", (8, 1, 1024)), ("step medium.en beam 5", (40, 1, 1024)),
+    ("step transcription", (5, 1, 512)), ("step serve", (20, 1, 512)),
+    ("step CLI --batch 2", (10, 1, 512)), ("step golden dims", (1, 1, 64)),
+    ("prefill medium.en beam 5", (40, 232, 1024)),
+)
+LN_REPEATS = 9
+
+
+def parent_triton(parent: pathlib.Path):
+    """PARENT's Triton row LayerNorm (``csrc/layer_norm.py``) as its wrapper
+    launched it: one program a row, the row as one block of the power of
+    two at or above D; returns (ln, y) for (x, delta, scale, bias,
+    residual), allocating its outputs as the wrapper did."""
+    import importlib.util
+
+    import triton
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_layer_norm", parent / "whisper_rs_tpu_torch" / "csrc" / "layer_norm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def run(x, delta, scale, bias, residual: bool):
+        D = x.shape[-1]
+        block_d = triton.next_power_of_2(D)
+        ln = torch.empty_like(x)
+        y = torch.empty_like(x) if residual else ln
+        mod.layer_norm_rows[(x.numel() // D,)](
+            x, delta if residual else x, scale, bias, y, ln, D, 1e-5, HAS_RESIDUAL=residual,
+            BLOCK_D=block_d, num_warps=4 if block_d <= 1024 else 8)
+        return (y, ln) if residual else ln
+
+    return run
+
+
+def ln(cs, parent=None) -> None:
+    import torch.nn.functional as F
+
+    from whisper_rs_tpu_torch.ops import encoder_fused as ef
+
+    triton_ln = parent_triton(pathlib.Path(parent).resolve()) if parent else None
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for label, shape in LN_SHAPES:
+        for dtype in ((torch.float32, torch.bfloat16) if label == "base.en b128"
+                      else (torch.bfloat16,)):
+            D, tag = shape[-1], "f32" if dtype == torch.float32 else "bf16"
+            isz = torch.tensor([], dtype=dtype).element_size()
+            x, d = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            s, b = (torch.randn(D, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            plan = ef.ln_launch_plan(x.numel() // D, D, dtype)
+            for name, residual in (("ln_fused", False), ("residual_ln", True)):
+                args = (x, d, s, b) if residual else (x, s, b)
+                kernel = getattr(ef, name)
+                plain = getattr(ef, f"{name}_plain")
+                want, got = plain(*args), kernel(*args)
+                err, share = cs.compare(f"{name} {tag} {label} {list(shape)}",
+                                        got if residual else (got,),
+                                        want if residual else (want,), cs.tolerance(name, dtype))
+                reps = 20
+                nbytes = ((4 if residual else 2) * x.numel() + 2 * D) * isz
+                bound_us = nbytes / cs.MEM_BW * 1e6
+                us = lambda fn, n=reps: cs.timed_ms(fn, n, graph=True) * 1e3  # noqa: E731
+                line = (f"[ln] {name} {tag} {label} {list(shape)}: plan {plan.variant} vec "
+                        f"{plan.vec} iters {plan.iters} rows/block {plan.rows_per_block} grid "
+                        f"{plan.grid}; bound {bound_us:.3f} us")
+                if triton_ln is not None:
+                    tri = (lambda: triton_ln(x, d, s, b, True)) if residual else (
+                        lambda: triton_ln(x, x, s, b, False))
+                    other = tri()
+                    diff = max((p.float() - q.float()).abs().max().item() for p, q in zip(
+                        other if residual else (other,), got if residual else (got,)))
+                    turns = [us(tri), us(lambda: kernel(*args)), us(lambda: kernel(*args)),
+                             us(tri)]
+                    line += (f"; Triton (parent) {turns[0]:.3f}, this {turns[1]:.3f}, this "
+                             f"{turns[2]:.3f}, Triton {turns[3]:.3f} us (max |diff| {diff:.3e})")
+                else:
+                    line += f"; this {us(lambda: kernel(*args)):.3f} us"
+                if plan.variant == "warp":
+                    out = torch.empty_like(x)
+                    y = torch.empty_like(x) if residual else out
+                    sweep = []
+                    for r in (1, 2, 4, 8):
+                        p = dataclasses.replace(plan, rows_per_block=r, threads=32 * r,
+                                                grid=-(-plan.grid * plan.rows_per_block // r))
+                        t = us(lambda p=p: ef._launch(x, d if residual else x, s, b, y, out,
+                                                      1e-5, residual, p))
+                        sweep.append(f"{r}{'*' if r == plan.rows_per_block else ''} {t:.3f}")
+                    line += f"; rows a block (outputs preallocated): {', '.join(sweep)} us"
+                again = sorted(us(lambda: kernel(*args)) for _ in range(LN_REPEATS))
+                line += (f"; this {LN_REPEATS} times: min {again[0]:.3f}, median "
+                         f"{again[LN_REPEATS // 2]:.3f}, max {again[-1]:.3f} us")
+                lib = (lambda: F.layer_norm(x + d, (D,), s, b, 1e-5)) if residual else (
+                    lambda: F.layer_norm(x, (D,), s, b, 1e-5))
+                line += (f"; plain {us(lambda: plain(*args), 5):.3f} us; F.layer_norm "
+                         f"{us(lib):.3f} us; max_abs_err {err:.3e} (share {share:.3f})")
+                print(line, flush=True)
+            del x, d
+            torch.cuda.empty_cache()
+
+
+def steps_here(cs) -> None:
+    """The ``steps`` measurement in the tree of ``cs``: one line a path."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from whisper_rs_tpu_torch.config import BeamSearchMode, GreedyMode, dims_for
+    from whisper_rs_tpu_torch.decode import decode_beam, decode_greedy
+    from whisper_rs_tpu_torch.decode.loop import WindowCache, _encode_and_prefill
+
+    budget = cs.PROFILE_STEPS
+    for name, batch, beam, routes in (("base.en", 128, 0, ("append",)),
+                                      ("large-v3", 12, 0, ("append",)),
+                                      ("medium.en", 8, 5, ("beam",)),
+                                      ("medium.en", 8, 0, ("append", "ctx", "layer"))):
+        dims = dims_for(name)
+        model = cs.e2e_model(dims)
+        cfg = cs.filter_config(dims)
+        rng = np.random.default_rng(0)
+        audio = rng.standard_normal((batch, 480_000)).astype(np.float32) * np.float32(0.1)
+        prompted = beam or len(routes) > 1
+        if prompted:
+            initial, key_start, sample_begin, sot_idx = cs.bench_prompts(rng, batch,
+                                                                         dims.n_text_ctx)
+        else:
+            initial, key_start, sample_begin, sot_idx = (np.full((batch, 1), cs.SOT), None, 1,
+                                                         0)
+        mel = cs.log_mel_frontend(audio, dims.n_mels, dtype=torch.bfloat16)
+        for route in routes:
+            windows = WindowCache()
+            if beam:
+                mode = BeamSearchMode(beam_size=beam, patience=1.0)
+                decode = lambda g, m=mode: decode_beam(  # noqa: E731
+                    model, mel, initial, sample_begin, sot_idx, cfg, m, budget, cs.NO_SPEECH,
+                    key_start=key_start, graphs=g, windows=windows if g else None)
+            else:
+                mode = GreedyMode()
+                decode = lambda g, r=route, m=mode: decode_greedy(  # noqa: E731
+                    model, mel, initial, sample_begin, sot_idx, cfg, m, budget, cs.NO_SPEECH,
+                    key_start=key_start, step_kernel=r, graphs=g,
+                    windows=windows if g else None)
+
+            def timed(graphs: bool):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = decode(graphs)
+                torch.cuda.synchronize()
+                return res, time.perf_counter() - t0
+
+            decode(False)  # warm-up: kernel libraries, cuBLAS
+            decode(True)  # makes the window: its phases captured
+            captured = [timed(True) for _ in range(2)]
+            eager = timed(False)
+            win = next(iter(windows._windows.values()))  # the one window: its phases captured
+            ks = None if key_start is None else torch.as_tensor(key_start, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _encode_and_prefill(win, mel, torch.as_tensor(initial, device="cuda"), sot_idx,
+                                cs.NO_SPEECH, ks)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=2, active=1, repeat=1)) as prof:
+                for _ in range(3):
+                    win.run_phase_steps(win.phases[-1], 1)
+                    torch.cuda.synchronize()
+                    prof.step()
+            events = cs.device_events(prof)
+            res = captured[-1][0]
+            row = {
+                "path": f"{name} b{batch}" + (f" beam {beam}" if beam else "")
+                + (" prompted" if prompted else "") + f" {route}",
+                "step_launches": sum(n for _, n in events.values()),
+                "step_mean_ops": sum(n for k, (_, n) in events.items() if "MeanOps" in k),
+                "ms_step_captured": (min(t for _, t in captured) - t_pre) / res.steps * 1e3,
+                "ms_step_eager": (eager[1] - t_pre) / eager[0].steps * 1e3,
+                "steps": res.steps, "prefill_ms": t_pre * 1e3,
+            }
+            print("[steps] " + json.dumps(row), flush=True)
+            del windows, win
+        del model
+        cs.e2e_model.cache_clear()
+        torch.cuda.empty_cache()
+
+
+def steps(parent) -> None:
+    trees = {"parent": pathlib.Path(parent).resolve(),
+             "this": pathlib.Path(__file__).resolve().parent}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[device] {card}", flush=True)
+    for who in ("parent", "this", "this", "parent"):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(trees["this"] / "chip_study.py"),
+                              "steps-here", str(trees[who])], cwd=trees[who],
+                             capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"{who}'s steps failed:\n{run.stderr[-3000:]}")
+        for line in run.stdout.splitlines():
+            if line.startswith("[steps]"):
+                print(f"[steps] {who}: {line[8:]}", flush=True)
+        print(f"[steps] {who}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_study: CUDA is not available", file=sys.stderr)
         return 1
     if len(sys.argv) < 2 or sys.argv[1] not in ("plans", "parity-seeds", "layer", "step",
-                                                 "transcribe", "loop"):
+                                                 "transcribe", "loop", "ln", "steps",
+                                                 "steps-here"):
         print(__doc__, file=sys.stderr)
         return 2
     arg = sys.argv[2] if len(sys.argv) > 2 else None
-    if sys.argv[1] == "transcribe":
+    if sys.argv[1] in ("transcribe", "steps"):
         if not arg:
             print(__doc__, file=sys.stderr)
             return 2
-        transcribe(arg)
+        (transcribe if sys.argv[1] == "transcribe" else steps)(arg)
         return 0
     tree = pathlib.Path(__file__).resolve().parent
-    if sys.argv[1] == "parity-seeds" and arg:
+    if sys.argv[1] in ("parity-seeds", "steps-here") and arg:
         tree = pathlib.Path(arg).resolve()
     sys.path.insert(0, str(tree))
     cs = importlib.import_module("chip_smoke")
@@ -699,6 +938,10 @@ def main() -> int:
         step(cs, None if arg == "-" else arg, sys.argv[3] if len(sys.argv) > 3 else None)
     elif sys.argv[1] == "loop":
         loop(cs)
+    elif sys.argv[1] == "ln":
+        ln(cs, arg)
+    elif sys.argv[1] == "steps-here":
+        steps_here(cs)
     else:
         parity_seeds(cs)
     return 0

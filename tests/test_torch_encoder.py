@@ -27,7 +27,8 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("shape", [(3, 64, 128), (1, 40, 512)])
+# the encoder's shapes, then the decoder step's rows (5 and 40 rows of width 1)
+@pytest.mark.parametrize("shape", [(3, 64, 128), (1, 40, 512), (5, 1, 64), (40, 1, 384)])
 def test_residual_ln_and_ln_match_pallas(shape):
     rng = np.random.default_rng(2)
     D = shape[-1]

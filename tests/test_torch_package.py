@@ -275,7 +275,8 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel(name):
 def _refused_calls():
     """Each wrapper on meta tensors of a shape its predicate refuses: head
     dim 24 (the step, cross and split kernels are built for 16 and 64), D
-    60 for the MLP (not a multiple of 8)."""
+    60 for the MLP (not a multiple of 8), rows of 60,000 for the LayerNorm
+    pair (an f32 row past a block's shared memory)."""
     from whisper_rs_tpu_torch.ops.decode_attention import (
         beam_self_attention_step,
         cross_attention_step,
@@ -286,8 +287,13 @@ def _refused_calls():
     from whisper_rs_tpu_torch.ops.decoder_mlp_fused import decoder_mlp_step
     from whisper_rs_tpu_torch.ops.encoder_attention import encoder_attention_split
 
+    from whisper_rs_tpu_torch.ops.encoder_fused import ln_fused, residual_ln
+
     m = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
+    wide = 60_000  # an f32 row past a block's shared memory
     return {
+        "ln_fused": lambda: ln_fused(m(2, wide), m(wide), m(wide)),
+        "residual_ln": lambda: residual_ln(m(2, wide), m(2, wide), m(wide), m(wide)),
         "encoder_attention_split": lambda: encoder_attention_split(
             m(1, 3, 8, 24), m(1, 3, 8, 24), m(1, 3, 8, 24), 0.2
         ),
@@ -315,7 +321,7 @@ def _refused_calls():
 @pytest.mark.parametrize("name", [
     "beam_self_attention_step", "cross_attention_step", "decoder_mlp_step",
     "encoder_attention_split", "self_attention_append_step", "self_attention_fused_step",
-    "self_attention_step",
+    "self_attention_step", "ln_fused", "residual_ln",
 ])
 def test_refused_shapes_raise_off_the_cpu(name):
     """Off the CPU, a shape the wrapper's predicate refuses raises before any
@@ -343,6 +349,8 @@ def test_refused_shapes_raise_off_the_cpu(name):
     ("layer 16 rows", True), ("layer 17 rows", False), ("layer G 8", True),
     ("layer G 5", False), ("layer dh 16", False), ("layer Tk 1502", False),
     ("layer shared memory", False),
+    ("ln D 64", True), ("ln D 1280", True), ("ln D 4097", True), ("ln D 58048", True),
+    ("ln D 58049", False), ("ln D 0", False),
 ])
 def test_route_predicates(case, takes):
     """Each wrapper's predicate at the limits of its kernel: head dim 16 or
@@ -354,6 +362,7 @@ def test_route_predicates(case, takes):
     from whisper_rs_tpu_torch.ops.decoder_layer_fused import layer_kernel_takes
     from whisper_rs_tpu_torch.ops.decoder_mlp_fused import mlp_kernel_takes
     from whisper_rs_tpu_torch.ops.encoder_attention import merged_kernel_takes, split_kernel_takes
+    from whisper_rs_tpu_torch.ops.encoder_fused import ln_kernel_takes
 
     layer = dict(rows=8, group=1, head_dim=64, Tk=1500, n_ctx=448, d_model=1024, itemsize=2)
     calls = {
@@ -386,6 +395,12 @@ def test_route_predicates(case, takes):
         "layer dh 16": lambda: layer_kernel_takes(**dict(layer, head_dim=16)),
         "layer Tk 1502": lambda: layer_kernel_takes(**dict(layer, Tk=1502)),
         "layer shared memory": lambda: layer_kernel_takes(**dict(layer, rows=16, itemsize=4)),
+        "ln D 64": lambda: ln_kernel_takes(64),
+        "ln D 1280": lambda: ln_kernel_takes(1280),
+        "ln D 4097": lambda: ln_kernel_takes(4097),
+        "ln D 58048": lambda: ln_kernel_takes(58048),  # (D + 64) f32 = 232,448 bytes
+        "ln D 58049": lambda: ln_kernel_takes(58049),
+        "ln D 0": lambda: ln_kernel_takes(0),
     }
     assert calls[case]() is takes
 
@@ -424,8 +439,9 @@ def test_layer_route_takes_the_append_route_where_the_kernel_refuses(monkeypatch
     """A layer-route step at the golden dims (head dim 16, D 64) off the
     CPU: counted once under "decoder_step_fused:append", then every layer
     calls the append route's kernel wrappers (the append self-attention,
-    the cross attention and the MLP, each once a layer) and the whole-step
-    kernel's never.  On the meta device, which computes shapes only, with
+    the cross attention and the MLP, each once a layer, and the LayerNorm
+    three times a layer and once after them) and the whole-step kernel's
+    never.  On the meta device, which computes shapes only, with
     each wrapper replaced by a recorder that runs its plain version."""
     import whisper_rs_tpu_torch.models.whisper as whisper
     from whisper_rs_tpu_torch.config import ModelDims
@@ -434,7 +450,7 @@ def test_layer_route_takes_the_append_route_where_the_kernel_refuses(monkeypatch
 
     calls = {}
     for name in ("self_attention_append_step", "cross_attention_step", "decoder_mlp_step",
-                 "decoder_step_fused"):
+                 "decoder_step_fused", "ln_fused"):
         def recorder(*args, _name=name, _plain=getattr(whisper, f"{name}_plain"), **kw):
             calls[_name] = calls.get(_name, 0) + 1
             return _plain(*args, **kw)
@@ -451,7 +467,7 @@ def test_layer_route_takes_the_append_route_where_the_kernel_refuses(monkeypatch
     moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
     assert moved == {"decoder_step_fused:append": 1}
     assert calls == {"self_attention_append_step": 2, "cross_attention_step": 2,
-                     "decoder_mlp_step": 2}
+                     "decoder_mlp_step": 2, "ln_fused": 3 * 2 + 1}
 
 
 @pytest.fixture

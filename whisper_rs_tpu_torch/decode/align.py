@@ -22,9 +22,11 @@ layer, while ``alignment_heads`` names global (layer, head) pairs: the f32
 cross logits of each named layer are gathered over the model group before
 the heads are picked, so every rank aligns the same words.
 
-The pass is the decoder's own prefill on the model's device, its plain path
-in ``torch.matmul`` (the JAX package computes it outside any Pallas
-kernel), the products of the alignment logits in f32
+The pass is the decoder's own prefill on the model's device: its attention
+and MLP in ``torch.matmul`` (the JAX package computes them outside any
+Pallas kernel), its LayerNorms through row 3's kernel (``ln_fused``) where
+the aligner's ``kernels`` is on, as its task's are; the products of the
+alignment logits in f32
 (``preferred_element_type=f32`` in JAX: under bf16, q and k are upcast
 before the product); the rest runs on the host in numpy on the
 alignment heads' rows of the text tokens, as in the JAX package.
@@ -74,15 +76,17 @@ def _alignment_qk(
     #   every real position, so the causal mask keeps them out)
     xa: torch.Tensor,  # [Tk, n_audio_state] the window's encoder output
     heads: Tuple[Tuple[int, int], ...],
+    kernels: bool = True,
 ) -> torch.Tensor:  # [n_heads, T, Tk] f32 pre-softmax cross-attention logits
-    """One teacher-forced prefill of the decoder (its plain path, a cache of
-    T slots, unquantised cross K/V) that keeps each layer's cross logits,
-    the heads of a tensor-parallel model gathered over its model group."""
+    """One teacher-forced prefill of the decoder (a cache of T slots,
+    unquantised cross K/V) that keeps each layer's cross logits, the heads
+    of a tensor-parallel model gathered over its model group; ``kernels``
+    picks its LayerNorms' route, as a decode's prefill does."""
     T = tokens.shape[0]
     cross_kv = precompute_cross_kv(model, xa[None].to(model.dtype))
     cache = KVCache.init(model.dims, 1, model.dtype, model.device, n_head=model.decoder.n_head)
     logits = {layer: None for layer, _ in heads}
-    model.decoder(tokens[None], 0, cross_kv, cache, ctx_window=T, kernels=False,
+    model.decoder(tokens[None], 0, cross_kv, cache, ctx_window=T, kernels=kernels,
                   logit_positions=torch.tensor([T - 1], device=tokens.device),
                   cross_logits=logits)
     logits = {layer: all_gather_model(qk, model.decoder.tp, dim=1) for layer, qk in logits.items()}
@@ -250,12 +254,14 @@ class WordAligner:
         tokenizer,
         alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
         medfilt_width: int = 7,
+        kernels: bool = True,
     ):
         self.model = model
         self.dims = model.dims
         self.tokenizer = tokenizer
         self.heads = tuple(alignment_heads or default_alignment_heads(self.dims))
         self.medfilt_width = medfilt_width
+        self.kernels = kernels
 
     def _bucket(self, n: int) -> int:
         b = max(64, -(-n // 64) * 64)
@@ -293,7 +299,7 @@ class WordAligner:
         padded = torch.full((T,), eot, dtype=torch.int64)
         padded[: len(fed)] = torch.tensor(fed, dtype=torch.int64)
         qk = _alignment_qk(self.model, padded.to(dev), torch.as_tensor(xa).to(dev),
-                           self.heads)  # [nAH, T, Tk]
+                           self.heads, self.kernels)  # [nAH, T, Tk]
         frames = max(1, min(content_frames, qk.shape[-1]))
         # only the text rows and the content frames go to the host: slicing
         # before the softmax keeps attention mass on padding frames out of

@@ -12,10 +12,11 @@ OpenAI state dict loads as it is.  The numerics are the JAX reference's:
   * f32 softmax; logits in f32 from an f32 cast of x and of the tied
     token embedding.
 
-The encoder's LayerNorms, residual adds and self-attention run through the
-kernel wrappers of ``ops/`` (the plain versions when ``kernels=False``);
-every width-1 decoder pass takes the cross-attention kernel of
-``ops/decode_attention.py``.  An incremental greedy step
+Every LayerNorm (the encoder's, with its residual adds, ``ln_post``, the
+decoder's three a layer and its last) and the encoder's self-attention run
+through the kernel wrappers of ``ops/`` (the plain versions when
+``kernels=False``); every width-1 decoder pass takes the cross-attention
+kernel of ``ops/decode_attention.py``.  An incremental greedy step
 (``incremental=True``) takes one of three routes, ``step_kernel``:
 
   * ``"append"`` (the default): the append self-attention kernel, which
@@ -146,15 +147,6 @@ STEP_KERNELS = ("append", "ctx", "layer")  # an incremental greedy step's routes
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
-
-
-def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm computed in f32, cast back to x.dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * ln.weight.float() + ln.bias.float()).to(x.dtype)
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
@@ -526,8 +518,9 @@ class ResidualAttentionBlock(nn.Module):
         scale = dh**-0.5
         scales = {"k_scale": cache.k_scale, "v_scale": cache.v_scale} if cache.quantized else {}
 
+        ln = ln_fused if kernels else ln_fused_plain
         # self-attention over the cache (this step's K/V written first)
-        h = layer_norm(x, self.attn_ln)
+        h = ln(x, self.attn_ln.weight, self.attn_ln.bias)
         if mask is None:
             hs = h[:, 0]
             q = (self.attn.query(hs) * scale).view(B, H, dh)
@@ -560,7 +553,7 @@ class ResidualAttentionBlock(nn.Module):
         x = x + row_linear(self.attn.out, attn, self.tp)
 
         # cross-attention against the precomputed encoder K/V
-        h = layer_norm(x, self.cross_attn_ln)
+        h = ln(x, self.cross_attn_ln.weight, self.cross_attn_ln.bias)
         qx = split_heads(self.cross_attn.query(h), H) * scale
         cross_scales = {}
         if cross_kv.k_scale is not None:
@@ -580,7 +573,7 @@ class ResidualAttentionBlock(nn.Module):
                                   **{k: s[layer] for k, s in cross_scales.items()})
         x = x + row_linear(self.cross_attn.out, merge_heads(attn), self.tp)
 
-        h = layer_norm(x, self.mlp_ln)
+        h = ln(x, self.mlp_ln.weight, self.mlp_ln.bias)
         if mask is not None or isinstance(self.mlp[0], QuantLinear):
             return x + self._mlp(h)
         fn = decoder_mlp_step if kernels else decoder_mlp_step_plain
@@ -626,7 +619,8 @@ class AudioEncoder(nn.Module):
         x = self.stem(mel)
         for block in self.blocks:
             x = block.encoder_forward(x, kernels)
-        return layer_norm(x, self.ln_post)
+        ln = ln_fused if kernels else ln_fused_plain
+        return ln(x, self.ln_post.weight, self.ln_post.bias)
 
 
 class TextDecoder(nn.Module):
@@ -830,8 +824,9 @@ class TextDecoder(nn.Module):
                     key_start, ancestors, step_kernel, cross_logits,
                 )
         if logit_positions is not None:
-            x = x[:, logit_positions]
-        return self.logits(layer_norm(x, self.ln))
+            x = x[:, logit_positions]  # a copy: contiguous, as ln_fused takes it
+        ln = ln_fused if kernels else ln_fused_plain
+        return self.logits(ln(x, self.ln.weight, self.ln.bias))
 
 
 class Whisper(nn.Module):

@@ -36,7 +36,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "mel", "encoder_attention", "cross_attention", "self_attention", "decoder_mlp",
-    "decoder_layer",
+    "decoder_layer", "layer_norm",
 )
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (

@@ -82,7 +82,8 @@ class BatchTranscriber:
                                       keep_audio_features=options.word_timestamps,
                                       encoder_fn=encoder_fn)
         self._sampling_task_cache: Optional[DecodeTask] = None
-        self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
+        self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads,
+                                     kernels=kernels)
                          if options.word_timestamps else None)
 
     def _sampling_task(self) -> DecodeTask:

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ..models.whisper import layer_norm
+from ..ops.encoder_fused import ln_fused, ln_fused_plain
 from .collectives import broadcast_stage, recv_stage, send_stage
 from .mesh import Mesh
 
@@ -71,7 +71,8 @@ def encoder_forward_pp(model, mel: torch.Tensor, mesh: Optional[Mesh] = None,
         else:
             send_stage(a, mesh, s + 1)
     out = broadcast_stage(outs if last else torch.empty_like(x), mesh, S - 1)
-    return layer_norm(out, enc.ln_post)
+    ln = ln_fused if kernels else ln_fused_plain
+    return ln(out, enc.ln_post.weight, enc.ln_post.bias)
 
 
 def pp_encoder_fn(mesh: Optional[Mesh] = None, n_micro: Optional[int] = None):

@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..models.whisper import layer_norm, merge_heads, split_heads
+from ..models.whisper import merge_heads, split_heads
 from ..ops.encoder_attention import encoder_attention_split, encoder_attention_split_plain
 from ..ops.encoder_fused import ln_fused, ln_fused_plain, residual_ln, residual_ln_plain
 from .collectives import all_gather_model, all_to_all_model
@@ -82,8 +82,9 @@ def encoder_forward_ulysses(model, mel: torch.Tensor, mesh: Optional[Mesh] = Non
     x = x[:, mesh.model * per : (mesh.model + 1) * per].contiguous()
     for block in enc.blocks:
         x = _block_forward(block, x, mesh, n_valid, kernels)
-    x = all_gather_model(x, mesh, dim=1)[:, :T]
-    return layer_norm(x, enc.ln_post)
+    x = all_gather_model(x, mesh, dim=1)[:, :T].contiguous()
+    ln = ln_fused if kernels else ln_fused_plain
+    return ln(x, enc.ln_post.weight, enc.ln_post.bias)
 
 
 def ulysses_encoder_fn(mesh: Optional[Mesh] = None):

@@ -145,7 +145,8 @@ def _decode_tasks(model, tokenizer, options, kernels, encoder_fn):
     follower."""
     task = DecodeTask(model, tokenizer, options.decode, kernels=kernels,
                       keep_audio_features=options.word_timestamps, encoder_fn=encoder_fn)
-    aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
+    aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads,
+                           kernels=kernels)
                if options.word_timestamps else None)
     return task, aligner
 

@@ -313,7 +313,8 @@ class TranscribeTask:
                                       keep_audio_features=options.word_timestamps,
                                       encoder_fn=encoder_fn, graphs=graphs)
         self._fallback_tasks: dict = {}
-        self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads)
+        self._aligner = (WordAligner(model, tokenizer, alignment_heads=options.alignment_heads,
+                                     kernels=kernels)
                          if options.word_timestamps else None)
 
     def _sampling_task(self) -> DecodeTask:
